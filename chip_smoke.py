@@ -7,25 +7,44 @@ Run from the root of a checkout; it needs one CUDA card, the CUDA toolkit
 (nvcc) and nothing of JAX or of the rectpu package. Phases, in order; any
 failed check raises, and the script exits nonzero without the final line:
 
-1. Build: compile every CUDA kernel of the serving path from
-   rectpu_torch/kernels/csrc (one nvcc per source, in parallel, sm_90a).
-2. Kernels against their plain PyTorch versions, on the card: the lookup on
-   the served [4224, 65] table at B in {1, 7, 512, 4096} x 26 fields
-   (bitwise, out-of-range ids give zero rows) and the FM on the strided view
-   looked[..., :K] at K in {64, 4} (and a contiguous 28-field input), in
-   fp32 and bf16.
-3. Main path: DeepFM at the flagship widths (K=64, hidden [256, 128]) from a
-   seeded torch.Generator, in bf16 and in fp32, written by the port's
+1. Build: compile every CUDA kernel from rectpu_torch/kernels/csrc (one
+   nvcc per source, all started together, sm_90a).
+2. Serving kernels against their plain PyTorch versions, on the card: the
+   lookup on the served [4224, 65] table at B in {1, 7, 512, 4096} x 26
+   fields (bitwise, out-of-range ids give zero rows) and the FM on the
+   strided view looked[..., :K] at K in {64, 4} (and a contiguous 28-field
+   input), in fp32 and bf16.
+3. Training kernels against their plain versions: the scatter at [6144, 65]
+   with 4096 x 26 ml-100k ids and at the flagship [311296, 65] with
+   8192 x 26 ids, fp32 and bf16, with out-of-range ids and DROP_SENTINEL,
+   within a stated fp32 tolerance of an fp64 oracle and bitwise equal
+   across two launches; the FM backward at [B, 26, 64] and [B, 26, 4] from
+   the strided view; fused Adam at both table sizes with fp32 slots and
+   with bf16 m / stochastically rounded bf16 v, fp32 and bf16 masters,
+   within 1 ulp of the plain version and bitwise equal across two launches.
+4. Serving path: DeepFM at the flagship widths (K=64, hidden [256, 128])
+   from a seeded torch.Generator, in bf16 and in fp32, written by the port's
    export_model and served by the port's HTTP server (micro-batching on) on
    127.0.0.1. /predict bodies of 1, 8 and 64 instances plus a concurrent
-   burst, /healthz and /metrics. Every response is checked against a
-   device="cpu" ServingModel of the same export, and both kernels' launch
-   counts must have grown during the requests. Then /predict latency on the
-   host clock, the host/device split of one 512-instance request, and the
-   device's busy time in one forward (torch.profiler).
-4. Times: CUDA-event times of each kernel at B=512 and B=4096 (inputs cold
+   burst, /healthz and /metrics, each checked against a device="cpu"
+   ServingModel of the same export; both kernels' launch counts must grow.
+   Then /predict latency, the host/device split of one 512-instance request
+   and the device's busy time in one forward (torch.profiler).
+5. Training path: the trainer CLI (rectpu_torch.trainers.deep_fm,
+   --preset scaled, K=64, [256, 128], batch 4096) on a synthetic ml-100k
+   CSV written by the port's generator: every step's loss finite, the last
+   steps' mean loss below the first steps', the final AUC in [0, 1], and the
+   lookup, FM, FM-backward and scatter launch counts grown. The export it
+   writes is then served on the card and answers one /predict.
+6. Flagship step: bench.py's configuration (310k-row table, batch 8192,
+   bf16 towers and table gradient, hash dropout, Adam with bf16 m and
+   stochastically rounded v, the table on the fused kernel): the step's
+   median time and examples/s, launches per step (the fused-Adam count must
+   grow), and one step's table and MLP gradients against the same step on
+   a CPU copy of the port (dropout 0, same weights).
+7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
-   for the lookup, torch.index_select.
+   where one PyTorch call computes the same function, that call.
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -49,14 +68,29 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rectpu_torch.convert import deep_fm_tree, flat_params, load_deep_fm_params
+from rectpu_torch.data.synthetic import write_synthetic_dataset
 from rectpu_torch.device import resolve_device
-from rectpu_torch.features.schema import GENRE, ml_100k_feature_set
+from rectpu_torch.features.schema import (
+    GENRE,
+    BucketizedFeature,
+    FeatureSet,
+    HashFeature,
+    IdentityFeature,
+    VocabFeature,
+    ml_100k_feature_set,
+)
 from rectpu_torch.kernels import build
 from rectpu_torch.models import DeepFMModel, TowerConfig
 from rectpu_torch.ops import embedding as emb_ops
 from rectpu_torch.ops import fm as fm_ops
-from rectpu_torch.serve.export import export_model, load_model
+from rectpu_torch.ops import fused_adam as adam_ops
+from rectpu_torch.ops import scatter_rows as scatter_ops
+from rectpu_torch.serve.export import export_model, latest_export, load_model
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
+from rectpu_torch.train.loop import TrainConfig, Trainer
+from rectpu_torch.train.optimizers import BF16_SR, adam
+from rectpu_torch.trainers import deep_fm as deep_fm_cli
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -67,6 +101,11 @@ FM_RTOL_OF_SCALE = 1e-5  # fp32 sums in another order; relative to 0.5*sum_k(S^2
 BF16_REL_ULP = 2.0 ** -7  # one bf16 ulp, relative to the value (8-bit significand)
 FP32_LOGIT_ATOL = 1e-4  # fp32 card vs CPU: 1,664-long dot products in another order
 BF16_LOGIT_ATOL, BF16_LOGIT_RTOL = 2e-2, 1e-2  # bf16 activations may round one ulp apart
+FP32_EPS = 2.0 ** -24  # unit roundoff of fp32
+FM_BWD_RTOL = 1e-5  # fp32 S summed in another order; relative to |g| * sum_f |v|
+GRAD_REL_L2 = 1e-2  # card vs CPU gradient, relative L2 per leaf: ~2 bf16 ulps (2^-8)
+TRAIN_BATCH, TRAIN_STEPS = 4096, 40  # the trainer CLI phase
+FLAGSHIP_BATCH, FLAGSHIP_STEPS = 8192, 20
 
 
 class SmokeFailure(AssertionError):
@@ -146,7 +185,170 @@ def check_kernels(dev, gen) -> dict:
     return errs
 
 
-# --- phase 3: the main path -------------------------------------------------
+# --- phase 3: training kernels against their plain versions ----------------
+
+
+def bench_feature_set() -> FeatureSet:
+    """bench.py's flagship feature set (bench.py:34-55): the ml-100k schema
+    with user 100k, item 200k and zipcode 10k hash buckets (310,106 rows)."""
+    feats = [
+        HashFeature("user_id", 100_000, dtype="int32"),
+        HashFeature("item_id", 200_000, dtype="int32"),
+        BucketizedFeature("age", tuple(range(15, 66, 10))),
+        VocabFeature("gender", ("F", "M"), num_oov_buckets=1),
+        HashFeature("occupation", 50),
+        HashFeature("zipcode", 10_000),
+        BucketizedFeature("release_year", tuple(range(1930, 1991, 10))),
+    ]
+    feats.extend(IdentityFeature(g, 2) for g in GENRE)
+    return FeatureSet(categorical=tuple(feats))
+
+
+def random_ids(fs: FeatureSet, batch: int, rng) -> np.ndarray:
+    """[batch, F] int32 global ids, uniform within each field (bench.py:58-67)."""
+    offs, sizes = fs.offsets, fs.field_sizes
+    return np.stack([offs[f] + rng.integers(0, sizes[f], size=batch)
+                     for f in range(fs.num_fields)], axis=1).astype(np.int32)
+
+
+def padded_rows(fs: FeatureSet, padding: int = 2048) -> int:
+    return -(-fs.total_buckets // padding) * padding
+
+
+def scatter_cases(rng):
+    """(label, ids [R] int32, v_rows): the ml-100k and flagship streams, with
+    out-of-range ids and DROP_SENTINEL among them."""
+    cases = []
+    for label, fs, batch in (("ml100k", ml_100k_feature_set(), 4096),
+                             ("flagship", bench_feature_set(), 8192)):
+        v_rows = padded_rows(fs)
+        ids = random_ids(fs, batch, rng).reshape(-1)
+        ids[:6] = [-1, v_rows, v_rows + 7, scatter_ops.DROP_SENTINEL, -2**31, 2**31 - 1]
+        cases.append((label, torch.from_numpy(ids), v_rows))
+    return cases
+
+
+def scatter_oracle(ids: torch.Tensor, upd: torch.Tensor, v_rows: int):
+    """(fp64 sums, fp64 sums of |u|, updates per row) by index_add_."""
+    ids64 = ids.long()
+    keep = (ids64 >= 0) & (ids64 < v_rows)
+    idx, u = ids64[keep], upd[keep].double()
+    w = upd.shape[1]
+    exact = torch.zeros(v_rows, w, dtype=torch.float64, device=upd.device).index_add_(0, idx, u)
+    mag = torch.zeros(v_rows, w, dtype=torch.float64, device=upd.device).index_add_(0, idx, u.abs())
+    count = torch.bincount(idx, minlength=v_rows).double()
+    return exact, mag, count
+
+
+def scatter_tolerance(mag, count, out_dtype, exact) -> torch.Tensor:
+    """|got - fp64 sum| allowed per element: recursive fp32 summation of n
+    terms errs by at most n * u * sum|terms| (u = 2^-24; chunk partials add a
+    few more roundings, covered by the factor 2), plus one bf16 ulp of the
+    value when the output is bf16."""
+    tol = 2.0 * (count[:, None] + 1.0) * FP32_EPS * mag
+    if out_dtype == torch.bfloat16:
+        tol = tol + BF16_REL_ULP * exact.abs()
+    return tol
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two same-typed
+    float tensors (bit patterns as ordered integers)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    sign = 0x7FFFFFFF if a.dtype == torch.float32 else 0x7FFF
+
+    def ordered(x):
+        i = x.contiguous().view(view).long()
+        return torch.where(i < 0, -(i & sign), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def check_train_kernels(dev, gen) -> dict:
+    errs = {"scatter_rows": 0.0, "fm_cross_bwd": 0.0, "fused_adam": 0.0}
+    rng = np.random.default_rng(1)
+    for label, ids, v_rows in scatter_cases(rng):
+        ids = ids.to(dev)
+        for in_dtype, out_dtype in ((torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)):
+            upd = torch.randn(ids.shape[0], WIDTH, generator=gen).to(in_dtype).to(dev)
+            got = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, out_dtype)
+            again = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, out_dtype)
+            plain = scatter_ops.scatter_rows_plain(ids, upd, v_rows, out_dtype)
+            exact, mag, count = scatter_oracle(ids, upd, v_rows)
+            torch.cuda.synchronize()
+            check(got.shape == (v_rows, WIDTH) and got.dtype == out_dtype, "scatter shape/dtype")
+            check(same_bits(got, again), f"scatter {label} {in_dtype}->{out_dtype}: two "
+                                         "launches differ")
+            tol = scatter_tolerance(mag, count, out_dtype, exact)
+            err = (got.double() - exact).abs()
+            check(bool((err <= tol).all()), f"scatter {label} {in_dtype}->{out_dtype}: max "
+                                            f"err {err.max().item()} vs the fp64 oracle")
+            check(bool(((plain.double() - exact).abs() <= tol).all()),
+                  f"scatter {label}: the plain version is outside the tolerance")
+            check(not got[count == 0].any(), f"scatter {label}: untouched rows not zero")
+            errs["scatter_rows"] = max(errs["scatter_rows"],
+                                       (got.double() - plain.double()).abs().max().item())
+        print(f"check: scatter_rows {label} [{v_rows}, {WIDTH}] R={ids.shape[0]} "
+              "fp32/bf16: within tolerance of the fp64 oracle, bitwise equal across launches, "
+              f"out-of-range ids dropped (max |kernel - plain| {errs['scatter_rows']:.3g})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (64, 4):
+            for b in (7, 4096):
+                fused = (torch.randn(b, FIELDS, k + 1, generator=gen) * 0.3).to(dtype).to(dev)
+                v = fused[..., :k]
+                g = torch.randn(b, generator=gen).to(dev)
+                got = fm_ops.fm_cross_bwd_cuda(v, g)
+                want = fm_ops.fm_cross_bwd_xla(v, g)
+                torch.cuda.synchronize()
+                check(got.shape == (b, FIELDS, k) and got.dtype == dtype, "fm bwd shape/dtype")
+                scale = g.double().abs()[:, None, None] * v.double().abs().sum(1, keepdim=True)
+                tol = FM_BWD_RTOL * scale
+                if dtype == torch.bfloat16:
+                    tol = tol + BF16_REL_ULP * want.double().abs()
+                err = (got.double() - want.double()).abs()
+                check(bool((err <= tol).all()), f"fm bwd {dtype} B={b} K={k}: max err "
+                                                f"{err.max().item()}")
+                errs["fm_cross_bwd"] = max(errs["fm_cross_bwd"], err.max().item())
+        print(f"check: fm_cross_bwd {dtype} K=64,4 B=7,4096 from the strided view within "
+              f"tolerance of plain (max abs err so far {errs['fm_cross_bwd']:.3g})")
+
+    st = {None: torch.float32, torch.bfloat16: torch.bfloat16, BF16_SR: torch.bfloat16}
+    for v_rows in (6144, padded_rows(bench_feature_set())):
+        for p_dtype, m_dt, v_dt, g_dtype in ((torch.float32, None, None, torch.float32),
+                                             (torch.float32, torch.bfloat16, BF16_SR,
+                                              torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16, BF16_SR,
+                                              torch.bfloat16)):
+            p = torch.randn(v_rows, WIDTH, generator=gen).to(p_dtype).to(dev)
+            m = (torch.randn(v_rows, WIDTH, generator=gen) * 0.1).to(st[m_dt]).to(dev)
+            v = (torch.rand(v_rows, WIDTH, generator=gen) * 0.01).to(st[v_dt]).to(dev)
+            g = torch.randn(v_rows, WIDTH, generator=gen).to(g_dtype).to(dev)
+            kw = dict(lr=1e-3, m_sr=m_dt == BF16_SR, v_sr=v_dt == BF16_SR)
+            for t in (1, 7, 12345):
+                want = adam_ops.fused_adam_plain(p, m, v, g, t, **kw)
+                runs = []
+                for _ in range(2):
+                    pc, mc, vc = p.clone(), m.clone(), v.clone()
+                    runs.append(adam_ops.fused_adam_cuda(pc, mc, vc, g, t, **kw))
+                torch.cuda.synchronize()
+                for name, a, b2, w in zip("pmv", runs[0], runs[1], want):
+                    check(same_bits(a, b2), f"fused_adam {name} t={t}: two launches differ")
+                    check(a.dtype == w.dtype, f"fused_adam {name} dtype")
+                    d = ulp_distance(a, w)
+                    check(d <= 1, f"fused_adam {name} p={p_dtype} m={m_dt} v={v_dt} t={t} "
+                                  f"rows={v_rows}: {d} ulp from the plain version")
+                    errs["fused_adam"] = max(errs["fused_adam"],
+                                             (a.double() - w.double()).abs().max().item())
+        print(f"check: fused_adam [{v_rows}, {WIDTH}] fp32/bf16 masters, fp32 and bf16-SR "
+              "slots, t=1,7,12345: within 1 ulp of plain, bitwise equal across launches "
+              f"(max abs err {errs['fused_adam']:.3g})")
+    return errs
+
+
+# --- phase 4: the serving path ----------------------------------------------
 
 
 def make_export(job_dir: Path, compute_dtype, gen) -> Path:
@@ -322,7 +524,193 @@ def profile_forward(model, instances: list, reps: int = 20) -> dict:
                                for e in top]}
 
 
-# --- phase 4: times ---------------------------------------------------------
+# --- phase 5: the training path (the trainer CLI) -------------------------
+
+
+def train_cli(work: Path, seed: int) -> dict:
+    """Train through the trainer CLI on the card, then serve its export."""
+    data = write_synthetic_dataset(work / "data", train_rows=100_000, test_rows=10_000,
+                                   seed=seed)
+    job_dir = work / "train_job"
+    argv = ["--preset", "scaled", "--embedding-size", str(K), "--hidden-units", "256", "128",
+            "--batch-size", str(TRAIN_BATCH), "--train-steps", str(TRAIN_STEPS),
+            "--save-checkpoints-steps", str(TRAIN_STEPS), "--steps-per-loop", "10",
+            "--train-csv", data["train"], "--test-csv", data["test"],
+            "--job-dir", str(job_dir), "--device", "cuda", "--seed", str(seed)]
+    args = deep_fm_cli.build_parser().parse_args(argv)
+    counters = (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, scatter_ops.launches)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, trainer = deep_fm_cli.train_and_evaluate(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {c.name: c.value for c in counters}
+    losses = trainer.step_losses
+    check(len(losses) == TRAIN_STEPS, f"trainer CLI recorded {len(losses)} step losses")
+    check(all(np.isfinite(losses)), f"trainer CLI: a non-finite loss in {losses}")
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(tail < head, f"trainer CLI: loss did not fall (first 10 steps {head:.4f}, "
+                       f"last 10 {tail:.4f})")
+    auc = metrics["auc"]
+    check(bool(np.isfinite(auc)) and 0.0 <= auc <= 1.0, f"trainer CLI: final AUC {auc}")
+    for name, n in launches.items():
+        check(n > 0, f"trainer CLI: kernel {name} was not launched on the training path")
+
+    export_dir = latest_export(job_dir)
+    check(export_dir is not None, "trainer CLI wrote no export")
+    httpd, served = make_server(export_dir=str(export_dir), port=0, device="cuda",
+                                batch_window_ms=1.0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        instances = make_instances(np.random.default_rng(seed), 1)
+        preds = post(f"http://127.0.0.1:{httpd.server_address[1]}", "/predict",
+                     {"instances": instances})["predictions"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        served.close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "trained-export server thread did not stop")
+    check(len(preds) == 1 and 0.0 <= preds[0]["probabilities"] <= 1.0
+          and np.isfinite(preds[0]["logits"]), f"trained export /predict: {preds}")
+    return {"launches": launches, "losses": losses, "loss_first10": head, "loss_last10": tail,
+            "metrics": metrics, "seconds": seconds, "export": export_dir.name,
+            "predict": preds[0]}
+
+
+# --- phase 6: the flagship step ---------------------------------------------
+
+
+def flagship_model(dropout: float, device, gen=None, params=None) -> DeepFMModel:
+    """bench.py's model (bench.py:83-111), from ``params`` or a fresh seeded
+    init with random linear weights."""
+    cfg = TowerConfig(feature_set=bench_feature_set(), embedding_size=K,
+                      hidden_units=(256, 128), dropout=dropout, compute_dtype="bfloat16",
+                      packed_linear=True, table_grad_dtype="bfloat16", flat_layout=True,
+                      scatter_impl="mxu", table_padding=2048, dropout_impl="hash")
+    model = DeepFMModel(cfg)
+    if params is None:
+        params = model.init(gen)
+        params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
+    return load_deep_fm_params(model, params, device)
+
+
+def flagship_trainer(model, work: Path) -> Trainer:
+    opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR},
+               fused_leaves=("table",))
+    trainer = Trainer(model, opt, None, None, work / "flagship",
+                      TrainConfig(batch_size=FLAGSHIP_BATCH, seed=0), device=model.table.device)
+    trainer.opt_state = opt.init(flat_params(model))
+    return trainer
+
+
+def flagship_batch(rng, dev) -> dict:
+    fs = bench_feature_set()
+    return {"cat_ids": torch.from_numpy(random_ids(fs, FLAGSHIP_BATCH, rng)).to(dev),
+            "num_vals": torch.zeros(FLAGSHIP_BATCH, 0, device=dev),
+            "labels": torch.from_numpy((rng.random(FLAGSHIP_BATCH) < 0.2)
+                                       .astype(np.float32)).to(dev)}
+
+
+def flagship_step(dev, gen, work: Path) -> dict:
+    """bench.py's step on the card: median step time, launches per step."""
+    model = flagship_model(0.1, dev, gen=gen)
+    trainer = flagship_trainer(model, work)
+    rng = np.random.default_rng(2)
+    batches = [flagship_batch(rng, dev) for _ in range(4)]
+    for i in range(3):  # warm-up: builds nothing new, fills the allocator
+        trainer.train_step(batches[i % 4], i)
+    torch.cuda.synchronize()
+    counters = (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, scatter_ops.launches,
+                adam_ops.launches)
+    for c in counters:
+        c.reset()
+    times, losses = [], []
+    for i in range(FLAGSHIP_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step(batches[i % 4], 3 + i))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = {c.name: c.value for c in counters}
+    losses = torch.stack(losses).float().cpu().tolist()
+    check(all(np.isfinite(losses)), f"flagship step: non-finite loss {losses}")
+    check(launches["fused_adam"] > 0, "flagship step: the fused Adam kernel was not launched")
+    for name, n in launches.items():
+        check(n > 0, f"flagship step: kernel {name} was not launched")
+    profile = profile_step(trainer, batches[0])
+    ms = statistics.median(times)
+    return {"step_ms": ms, "examples_per_s": FLAGSHIP_BATCH / (ms / 1e3),
+            "launches": launches,
+            "launches_per_step": {k: v / FLAGSHIP_STEPS for k, v in launches.items()},
+            "losses": losses, "profile": profile}
+
+
+def profile_step(trainer, batch, reps: int = 5) -> dict:
+    """Device busy ms in one flagship step (torch.profiler), and the top
+    device kernels by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            trainer.train_step(batch, 1000 + i)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / reps / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    # the host side: operators by their own CPU time, and how many there are
+    ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    host = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {"device_busy_ms": busy if events else None,
+            "device_launches": sum(e.count for e in events) / reps,
+            "top_kernels_ms": [(e.key[:60], e.self_device_time_total / reps / 1e3)
+                               for e in top],
+            "host_aten_ops": sum(e.count for e in ops) / reps,
+            "top_host_ops_ms": [(e.key, e.count // reps, e.self_cpu_time_total / reps / 1e3)
+                                for e in host]}
+
+
+def check_flagship_grads(dev, gen, work: Path) -> dict:
+    """One step's gradients on the card against a CPU copy of the port, same
+    weights, same batch, dropout 0. Both sides round the bf16 towers, but
+    cuBLAS and the CPU sum the bf16 matmuls in other orders, so an
+    activation may land one bf16 ulp apart and move the gradients behind
+    it; the check is a relative L2 distance per leaf (GRAD_REL_L2) and the
+    loss within 1e-2 relative."""
+    card = flagship_model(0.0, dev, gen=gen)
+    cpu = flagship_model(0.0, "cpu", params=deep_fm_tree(card))
+    batch = flagship_batch(np.random.default_rng(3), dev)
+    out = {}
+    grads = {}
+    for name, model, b in (("cuda", card, batch),
+                           ("cpu", cpu, {k: v.cpu() for k, v in batch.items()})):
+        trainer = flagship_trainer(model, work / name)
+        for p in flat_params(model).values():
+            p.grad = None
+        loss = trainer.loss(b, train=True, step=0)
+        loss.backward()
+        out[f"loss_{name}"] = float(loss.detach())
+        grads[name] = {k: p.grad.detach().cpu().double() for k, p in flat_params(model).items()}
+    check(abs(out["loss_cuda"] - out["loss_cpu"]) <= 1e-2 * abs(out["loss_cpu"]),
+          f"flagship loss card {out['loss_cuda']} vs CPU {out['loss_cpu']}")
+    out["rel_l2"] = {}
+    for k, g_cpu in grads["cpu"].items():
+        g_card = grads["cuda"][k]
+        rel = float((g_card - g_cpu).norm() / max(g_cpu.norm(), 1e-30))
+        out["rel_l2"][k] = rel
+        check(rel <= GRAD_REL_L2, f"flagship grad {k}: relative L2 {rel:.3g} card vs CPU")
+    return out
+
+
+# --- phase 7: times ---------------------------------------------------------
 
 
 def time_ms(fn, flush: torch.Tensor | None, iters: int = 50) -> float:
@@ -392,10 +780,113 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
     return floor, rows
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_train_kernels(dev, gen) -> list[dict]:
+    """CUDA-event times of the training kernels at the path's shapes."""
+    flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(4)
+    rows = []
+    for label, fs, batch in (("ml100k", ml_100k_feature_set(), TRAIN_BATCH),
+                             ("flagship", bench_feature_set(), FLAGSHIP_BATCH)):
+        v_rows = padded_rows(fs)
+        ids = torch.from_numpy(random_ids(fs, batch, rng).reshape(-1)).to(dev)
+        ids_long = ids.long()
+        n = ids.shape[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            es = torch.empty((), dtype=dtype).element_size()
+            upd = torch.randn(n, WIDTH, generator=gen).to(dtype).to(dev)
+            zeros = torch.zeros(v_rows, WIDTH, dtype=dtype, device=dev)
+            ms_b, by = bound(n * 4 + n * WIDTH * es + v_rows * WIDTH * es, n * WIDTH)
+            rows.append({
+                "name": "scatter_rows", "dtype": str(dtype).split(".")[-1], "shape": label,
+                "v_rows": v_rows, "updates": n,
+                "ms": time_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), flush),
+                "warm_ms": time_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), None),
+                "plain_ms": time_ms(lambda: scatter_ops.scatter_rows_plain(ids, upd, v_rows),
+                                    flush),
+                "library_ms": time_ms(lambda: torch.index_add(zeros, 0, ids_long, upd), flush),
+                "bound_ms": ms_b, "bound_by": by,
+            })
+            looked = (torch.randn(batch, FIELDS, K + 1, generator=gen) * 0.3).to(dtype).to(dev)
+            v = looked[..., :K]
+            g = torch.randn(batch, generator=gen).to(dev)
+            ms_b, by = bound(2 * batch * FIELDS * K * es + batch * 4, 3 * batch * FIELDS * K)
+            rows.append({
+                "name": "fm_cross_bwd", "dtype": str(dtype).split(".")[-1], "shape": label,
+                "batch": batch,
+                "ms": time_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), flush),
+                "warm_ms": time_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), None),
+                "plain_ms": time_ms(lambda: fm_ops.fm_cross_bwd_xla(v, g), flush),
+                "library_ms": None, "bound_ms": ms_b, "bound_by": by,
+            })
+        for p_dt, m_dt, v_dt, g_dt in ((torch.float32, torch.bfloat16, torch.bfloat16,
+                                        torch.bfloat16),
+                                       (torch.float32, torch.float32, torch.float32,
+                                        torch.float32)):
+            p = torch.randn(v_rows, WIDTH, generator=gen).to(p_dt).to(dev)
+            m = (torch.randn(v_rows, WIDTH, generator=gen) * 0.1).to(m_dt).to(dev)
+            vv = (torch.rand(v_rows, WIDTH, generator=gen) * 0.01).to(v_dt).to(dev)
+            gg = torch.randn(v_rows, WIDTH, generator=gen).to(g_dt).to(dev)
+            sr = v_dt == torch.bfloat16
+            kw = dict(lr=1e-3, v_sr=sr)
+            es = sum(torch.empty((), dtype=d).element_size() for d in (p_dt, m_dt, v_dt))
+            es_g = torch.empty((), dtype=g_dt).element_size()
+            nel = v_rows * WIDTH
+            ms_b, by = bound(nel * (2 * es + es_g), 12 * nel)
+            rows.append({
+                "name": "fused_adam", "dtype": "m bf16, v bf16-SR" if sr else "fp32 slots",
+                "shape": label, "v_rows": v_rows,
+                "ms": time_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), flush),
+                "warm_ms": time_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), None),
+                "plain_ms": time_ms(lambda: adam_ops.fused_adam_plain(p, m, vv, gg, 7, **kw),
+                                    flush, iters=10),
+                "library_ms": None, "bound_ms": ms_b, "bound_by": by,
+            })
+    return rows
+
+
+def profile_scatter(dev, gen) -> dict:
+    """Device time of each kernel one scatter_rows_cuda call launches (the
+    stable sort, the chunk pass, the finish pass), at both stream sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    rng = np.random.default_rng(5)
+    for label, fs, batch in (("ml100k", ml_100k_feature_set(), TRAIN_BATCH),
+                             ("flagship", bench_feature_set(), FLAGSHIP_BATCH)):
+        v_rows = padded_rows(fs)
+        ids = torch.from_numpy(random_ids(fs, batch, rng).reshape(-1)).to(dev)
+        upd = torch.randn(ids.shape[0], WIDTH, generator=gen).to(torch.bfloat16).to(dev)
+        scatter_ops.scatter_rows_cuda(ids, upd, v_rows)
+        torch.cuda.synchronize()
+        reps = 10
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scatter_ops.scatter_rows_cuda(ids, upd, v_rows)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        out[label] = sorted(((e.key[:50], e.self_device_time_total / reps / 1e3)
+                             for e in events), key=lambda kv: -kv[1])
+    return out
+
+
 KERNELS = {
     "embedding_lookup": ("rectpu_torch/kernels/csrc/embedding_lookup.cu",
                          "rectpu/ops/embedding.py:70"),
     "fm_cross": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:271"),
+    "fm_cross_bwd": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:281"),
+    "scatter_rows": ("rectpu_torch/kernels/csrc/scatter_rows.cu",
+                     "rectpu/ops/scatter_rows.py:78, rectpu/ops/scatter_rows.py:123, "
+                     "rectpu/ops/embedding.py:81"),
+    "fused_adam": ("rectpu_torch/kernels/csrc/fused_adam.cu", "rectpu/ops/fused_adam.py:51"),
 }
 
 
@@ -422,20 +913,21 @@ def main(argv=None) -> int:
                 print(f"  ptxas {r.name}: {line.strip()}")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
-    # 2. kernels against their plain versions
+    # 2-3. kernels against their plain versions
     gen = torch.Generator().manual_seed(args.seed)
     errs = check_kernels(dev, gen)
+    errs.update(check_train_kernels(dev, gen))
 
-    # 3. the main path, bf16 then fp32
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     main_path = {}
     try:
+        # 4. the serving path, bf16 then fp32
         for label, compute, sizes in (("deep_fm_k64_bf16", "bfloat16", (1, 64, 512)),
                                       ("deep_fm_k64_fp32", None, (1, 64, 512))):
             export_dir = make_export(work / label, compute, gen)
             main_path[label] = serve_and_check(export_dir, label, args.seed, sizes)
             res = main_path[label]
-            print(f"main path {label}: launches {res['launches']} over "
+            print(f"serving path {label}: launches {res['launches']} over "
                   f"{res['metrics']['batches_dispatched']} device batches, max |logit - CPU| "
                   f"{res['max_logit_err']:.3g}; /predict median ms "
                   f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; one "
@@ -449,36 +941,75 @@ def main(argv=None) -> int:
             print(f"profile {label}: {prof['instances']}-row forward {prof['wall_ms']:.3f} ms "
                   f"wall, device busy {busy}; top kernels "
                   f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]} [{gpu}]")
+
+        # 5. the training path: the trainer CLI, then its export served
+        train = main_path["train_cli"] = train_cli(work, args.seed)
+        print(f"training path (trainer CLI, preset scaled, K={K}, [256, 128], batch "
+              f"{TRAIN_BATCH}, {TRAIN_STEPS} steps): launches {train['launches']}; mean loss "
+              f"first 10 steps {train['loss_first10']:.5f}, last 10 {train['loss_last10']:.5f}; "
+              f"final eval {train['metrics']}; {train['seconds']:.2f} s with data load and "
+              f"evals; its export answered /predict {train['predict']} [{gpu}]")
+
+        # 6. the flagship step
+        flag = main_path["flagship_step"] = flagship_step(dev, gen, work)
+        busy = flag["profile"]["device_busy_ms"]
+        print(f"flagship step (bench.py config, batch {FLAGSHIP_BATCH}): median "
+              f"{flag['step_ms']:.4f} ms, {flag['examples_per_s']:.0f} examples/s; launches per "
+              f"step {flag['launches_per_step']}; device busy "
+              f"{'not measured' if busy is None else f'{busy:.4f} ms'} per step in "
+              f"{flag['profile']['device_launches']:.0f} device launches; top kernels "
+              f"{[(k, round(t, 4)) for k, t in flag['profile']['top_kernels_ms']]}; host: "
+              f"{flag['profile']['host_aten_ops']:.0f} aten ops per step, by own CPU ms "
+              f"{[(k, n, round(t, 3)) for k, n, t in flag['profile']['top_host_ops_ms']]} "
+              f"[{gpu}]")
+        grads = main_path["flagship_grads"] = check_flagship_grads(dev, gen, work)
+        print(f"check: flagship step gradients card vs CPU: loss {grads['loss_cuda']:.6f} vs "
+              f"{grads['loss_cpu']:.6f}; relative L2 per leaf "
+              f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 4. times
+    # 7. times
     floor, rows = time_kernels(dev, gen)
+    train_rows = time_train_kernels(dev, gen)
+    scatter_parts = profile_scatter(dev, gen)
     print(f"time: floor of this method (a one-element add) {floor:.4f} ms [{gpu}]")
-    for r in rows:
+    for label, parts in scatter_parts.items():
+        print(f"profile scatter_rows {label}: device ms per call by kernel "
+              f"{[(k, round(t, 4)) for k, t in parts]} [{gpu}]")
+    for r in rows + train_rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"time: {r['name']} {r['dtype']} B={r['batch']}: kernel {r['ms']:.4f} ms "
-              f"(L2-warm {r['warm_ms']:.4f} ms), "
-              f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) [{gpu}]")
+        at = f"B={r['batch']}" if "batch" in r else f"rows={r['v_rows']}"
+        print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {at}: kernel "
+              f"{r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+              f"ms, library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{gpu}]")
 
-    bf16 = main_path["deep_fm_k64_bf16"]["launches"]
+    # launches: the serving path for the serving kernels, the trainer CLI for
+    # the training kernels, the flagship step for fused Adam (the CLI's Adam,
+    # like rectpu's, names no fused leaves)
+    launches = {**main_path["deep_fm_k64_bf16"]["launches"],
+                **main_path["train_cli"]["launches"],
+                "fused_adam": main_path["flagship_step"]["launches"]["fused_adam"]}
+    heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
+             "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
+             "fused_adam": ("m bf16, v bf16-SR", "flagship")}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        head = next(r for r in rows if r["name"] == name and r["dtype"] == "bfloat16"
-                    and r["batch"] == 4096)
+        dtype, at = heads[name]
+        head = next(r for r in rows + train_rows if r["name"] == name and r["dtype"] == dtype
+                    and at in (r.get("batch"), r.get("shape")))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": bf16[name], "max_abs_err": errs[name],
+            "launches": launches[name], "max_abs_err": errs[name],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "dtype": "bfloat16", "batch": 4096,
+            "dtype": dtype, "at": at,
         })
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"gpu": gpu, "torch": torch.__version__, "kernels": kernels, "times": rows,
-             "floor_ms": floor,
+            {"gpu": gpu, "torch": torch.__version__, "kernels": kernels,
+             "times": rows + train_rows, "floor_ms": floor, "scatter_profile": scatter_parts,
              "main_path": main_path, "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

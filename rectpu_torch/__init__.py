@@ -7,9 +7,10 @@ the few pure-Python modules it needs, such as the FarmHash and the feature
 schema).
 
 Entry points (``serve.export.load_model``, ``serve.export.ServingModel``,
-``python -m rectpu_torch.serve.server``) run on ``cuda`` unless the caller
-passes ``device="cpu"``; without a GPU and without that explicit request they
-raise (``rectpu_torch.device.resolve_device``).
+``python -m rectpu_torch.serve.server``, ``python -m
+rectpu_torch.trainers.deep_fm``) run on ``cuda`` unless the caller passes
+``device="cpu"`` (``--device cpu``); without a GPU and without that explicit
+request they raise (``rectpu_torch.device.resolve_device``).
 """
 
 from rectpu_torch.device import resolve_device

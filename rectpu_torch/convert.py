@@ -1,56 +1,95 @@
-"""Carry rectpu's DeepFM weights across into the port's module state.
+"""Carry DeepFM weights and Adam state between rectpu's tree layout and the port.
 
-Input: rectpu's DeepFM parameter tree (``DeepFMModel.init`` /
-``export.load_model``'s ``params``) as numpy arrays or CPU tensors, in either
-form rectpu writes:
+rectpu's DeepFM parameter tree (``DeepFMModel.init`` / ``export.load_model``'s
+``params``, numpy arrays or tensors) comes in either form rectpu writes:
 
     packed:   {"table": [V, K+1(+pad)], "linear": {"b", ["w_num"]}, ...}
     unpacked: {"emb": [V, K], "linear": {"w": [V], "b", ["w_num"]}, ...}
 
 plus ``num_emb`` [1, N, K] with numeric features and ``mlp`` [{"kernel",
-"bias"}, ...] with the DNN. Output: ``{buffer name: tensor}`` on ``device``,
-for ``DeepFMModel.load_state``. What rectpu does on every call is done here
-once: the fused ``[V, K+1]`` table is assembled from ``emb`` and
-``linear.w`` (``pack_fused_table``), and under a bf16 compute dtype the table,
-the dense kernels and the hidden biases are cast to bf16 (elementwise the same
-as rectpu's casts inside each forward).
+"bias"}, ...] with the DNN. ``load_deep_fm_params`` makes each leaf an
+``nn.Parameter`` of the model, named after its key path (``mlp/0/kernel`` ->
+``mlp.0.kernel``), in the leaf's own dtype: the fp32 masters stay fp32 and a
+bf16 master (``table_dtype="bfloat16"``) stays bf16. ``deep_fm_tree`` is the
+way back, for export and checkpoint.
+
+``adam_state_tree`` / ``adam_state_from_tree`` do the same for the Adam state
+``{"m": tree, "v": tree, "t": int32}``, whose m and v trees mirror the
+parameter tree (``rectpu/train/optimizers.py:138-142``).
 """
 
 from __future__ import annotations
 
-from rectpu_torch.models.base import pack_fused_table
-from rectpu_torch.train.checkpoint import to_tensor
+import torch
+from torch import nn
+
+from rectpu_torch.train.checkpoint import _rebuild, _treedef_template, to_tensor
+
+_SEP = "/"
 
 
-def deep_fm_state(model, params: dict, device) -> dict:
-    cfg = model.cfg
-    cd = cfg.torch_compute_dtype
-    linear = {k: to_tensor(v) for k, v in params.get("linear", {}).items()}
-    state = {}
-    if model.use_linear:
-        state["linear_b"] = linear["b"]
-        if "w_num" in linear:
-            state["linear_w_num"] = linear["w_num"]
-        if not model.fused:
-            state["linear_w"] = linear["w"].reshape(-1, 1)
-    if model.use_mf or model.use_dnn:
-        if model.packed:
-            table = to_tensor(params["table"])
-        elif model.fused:
-            table = pack_fused_table(to_tensor(params["emb"]), linear["w"])
-        else:
-            table = to_tensor(params["emb"])
-        state["table"] = table.to(cd) if cd is not None else table
-        if cfg.num_numeric:
-            state["num_emb"] = to_tensor(params["num_emb"])
-    if model.use_dnn:
-        layers = params["mlp"]
-        for i, layer in enumerate(layers):
-            kernel, bias = to_tensor(layer["kernel"]), to_tensor(layer["bias"])
-            if cd is not None:
-                kernel = kernel.to(cd)
-                if i < len(layers) - 1:  # the logit layer's bias stays fp32
-                    bias = bias.to(cd)
-            state[f"mlp_{i}_kernel"] = kernel
-            state[f"mlp_{i}_bias"] = bias
-    return {name: t.to(device).contiguous() for name, t in state.items()}
+def flat_params(model: nn.Module) -> dict:
+    """{rectpu key path: parameter} of a model, in registration order."""
+    return {name.replace(".", _SEP): p for name, p in model.named_parameters()}
+
+
+def load_deep_fm_params(model, params: dict, device=None):
+    """Register rectpu's tree ``params`` as the model's parameters (on
+    ``device``); returns the model."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+
+    def param(leaf):
+        return nn.Parameter(to_tensor(leaf).detach().to(device).contiguous().clone())
+
+    for name in ("table", "emb", "num_emb"):
+        if name in params:
+            setattr(model, name, param(params[name]))
+    if "linear" in params:
+        model.linear = nn.ParameterDict({k: param(v) for k, v in params["linear"].items()})
+    if "mlp" in params:
+        model.mlp = nn.ModuleList(
+            nn.ParameterDict({k: param(v) for k, v in layer.items()}) for layer in params["mlp"])
+    return model
+
+
+def deep_fm_tree(model) -> dict:
+    """rectpu's parameter tree of the model: detached CPU tensors."""
+    tree = {name: p.detach().cpu() for name, p in model.named_parameters(recurse=False)}
+    if "linear" in model._modules:
+        tree["linear"] = {k: p.detach().cpu() for k, p in model.linear.items()}
+    if "mlp" in model._modules:
+        tree["mlp"] = [{k: p.detach().cpu() for k, p in layer.items()} for layer in model.mlp]
+    return tree
+
+
+def adam_state_tree(model, state: dict) -> dict:
+    """The port's Adam state as rectpu's ``{"m": tree, "v": tree, "t"}``."""
+    template = _treedef_template(deep_fm_tree(model))
+    return {
+        "m": _rebuild(template, {k: t.detach().cpu() for k, t in state["m"].items()}),
+        "v": _rebuild(template, {k: t.detach().cpu() for k, t in state["v"].items()}),
+        "t": state["t"].detach().cpu().to(torch.int32),
+    }
+
+
+def adam_state_from_tree(tree: dict, device=None) -> dict:
+    """rectpu's Adam state tree -> the port's ``{"m": {key: t}, "v": ..., "t"}``."""
+    def flat(sub):
+        return {k: to_tensor(v).to(device).contiguous() for k, v in flatten_tree(sub).items()}
+
+    return {"m": flat(tree["m"]), "v": flat(tree["v"]),
+            "t": to_tensor(tree["t"]).to(torch.int32).reshape(())}
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """{key path: leaf} of a dict/list tree, leaves as they are."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(flatten_tree(tree[k], f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}{_SEP}"))
+    elif tree is not None:
+        out[prefix[:-1]] = tree
+    return out

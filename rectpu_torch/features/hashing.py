@@ -191,20 +191,26 @@ def hash_bucket(values, num_buckets: int) -> np.ndarray:
     stringified (decimal), then ``fingerprint64(s) % num_buckets``.
 
     The per-element Python loop of ``rectpu.features.hashing.hash_bucket``
-    (its fallback when the native library is unbuilt), bucket for bucket.
-    This is the serving request-encode hot path.
+    (its fallback when the native library is unbuilt), bucket for bucket,
+    run once per distinct value for integer and fixed-width string arrays
+    (a CSV column repeats its values many times over). This is the serving
+    request-encode hot path.
     """
     values = np.asarray(values)
-    if values.dtype.kind in "iu":
-        out = np.empty(values.shape, dtype=np.int32)
-        flat = values.reshape(-1)
-        oflat = out.reshape(-1)
-        for i in range(flat.shape[0]):
-            oflat[i] = fingerprint64(str(int(flat[i]))) % num_buckets
-        return out
+    if values.dtype.kind in "iuSU" and values.size:
+        uniq, inverse = np.unique(values.reshape(-1), return_inverse=True)
+        return _hash_each(uniq, num_buckets)[inverse].reshape(values.shape)
+    return _hash_each(values, num_buckets)
+
+
+def _hash_each(values: np.ndarray, num_buckets: int) -> np.ndarray:
     out = np.empty(values.shape, dtype=np.int32)
     flat = values.reshape(-1)
     oflat = out.reshape(-1)
+    if values.dtype.kind in "iu":
+        for i in range(flat.shape[0]):
+            oflat[i] = fingerprint64(str(int(flat[i]))) % num_buckets
+        return out
     for i in range(flat.shape[0]):
         v = flat[i]
         # S-dtype / bytes elements hash their raw bytes — str(b"x") would

@@ -1,7 +1,7 @@
-"""Feature-column specs and the ml-100k feature set, for request encoding.
+"""The ml-100k CSV schema, feature-column specs and feature set.
 
-A copy of the serving-side parts of ``rectpu/features/schema.py``: the four
-categorical specs, ``NumericFeature``, ``FeatureSet`` and
+A copy of ``rectpu/features/schema.py``: the CSV columns and their defaults,
+the four categorical specs, ``NumericFeature``, ``FeatureSet`` and
 ``ml_100k_feature_set``. Every categorical column is encoded host-side to a
 dense integer id, and all columns share ONE unified id space: each field owns
 a contiguous offset range of a single embedding table, so a batch is a dense
@@ -18,6 +18,22 @@ import numpy as np
 
 from rectpu_torch.features.hashing import fingerprint64, hash_bucket
 
+# the 42-column CSV schema (reference trainers/ml_100k.py:3-15)
+COLUMNS = (
+    "user_id,item_id,rating,timestamp,datetime,year,month,day,week,dayofweek,"
+    "age,gender,occupation,zipcode,zipcode1,zipcode2,zipcode3,"
+    "title,release,video_release,imdb,unknown,action,adventure,animation,children,"
+    "comedy,crime,documentary,drama,fantasy,filmnoir,horror,musical,mystery,romance,"
+    "scifi,thriller,war,western,release_date,release_year"
+).split(",")
+
+LABEL_COL = "rating"
+
+# missing values: int columns default to 0, string columns to "null"
+# (reference trainers/ml_100k.py:11-15)
+INT_DEFAULT = 0
+STR_DEFAULT = "null"
+
 GENRE = (
     "unknown,action,adventure,animation,children,comedy,crime,documentary,drama,fantasy,"
     "filmnoir,horror,musical,mystery,romance,scifi,thriller,war,western"
@@ -27,6 +43,10 @@ _STR_COLS = frozenset(
     ["datetime", "gender", "occupation", "zipcode", "zipcode1", "zipcode2", "zipcode3",
      "title", "release", "video_release", "imdb", "release_date"]
 )
+
+
+def column_default(col: str):
+    return STR_DEFAULT if col in _STR_COLS else INT_DEFAULT
 
 
 def is_string_column(col: str) -> bool:

@@ -1,16 +1,24 @@
-// Factorization-machine second-order logit for Hopper (sm_90a):
-//   out[b] = 0.5 * sum_k((sum_f v[b,f,k])^2 - sum_f v[b,f,k]^2)
+// Factorization-machine second-order logit for Hopper (sm_90a), and its
+// backward:
+//   out[b]      = 0.5 * sum_k((sum_f v[b,f,k])^2 - sum_f v[b,f,k]^2)
+//   dv[b, f, k] = g[b] * (S[b,k] - v[b,f,k]),   S[b,k] = sum_f v[b,f,k]
 //
-// Replaces rectpu/ops/fm.py::_fm_fwd_kernel (:271), run by fm_cross_pallas
-// (:353) for exports trained with --fm-impl pallas; in the port every fm_impl
+// The forward replaces rectpu/ops/fm.py::_fm_fwd_kernel (:271), run by
+// fm_cross_pallas (:353) for --fm-impl pallas; the backward replaces
+// ::_fm_bwd_kernel (:281), its custom_vjp backward. In the port every fm_impl
 // value routes here on the card. As on the TPU, the sums are taken in fp32
-// whatever v's type, and the result is written in v's type (fm.py:297): a
+// whatever v's type. The forward writes its result in v's type (fm.py:297): a
 // bf16 FM logit is rounded to bf16 before the model casts it to fp32
-// (models/deep_fm.py:212), and the port keeps that rounding.
+// (models/deep_fm.py:212), and the port keeps that rounding; the flat-layout
+// model computes the same logit unrounded in fp32 (fm.py:108-114), which the
+// out_is_f32 flag selects. The backward computes g * (S - v) in fp32 and
+// writes dv in v's type, as _fm_bwd_kernel does.
 //
-// What bounds it on this card: bytes. It reads B*F*K values once and writes
-// B; the arithmetic (three flops per value) is far below the card's rate.
-// At B=4096, F=26, K=64 that is 6.8 MB in bf16.
+// What bounds them on this card: bytes. The forward reads B*F*K values once
+// and writes B; the backward reads them (twice, the second time from L1/L2)
+// and writes B*F*K. The arithmetic (three flops per value) is far below the
+// card's rate. At B=4096, F=26, K=64 that is 6.8 MB in bf16 for the forward
+// and 13.6 MB for the backward.
 //
 // Design: the TPU kernel reduced a [TB, F, K] block held in VMEM, with K on
 // the 128 lanes. Here a group of G lanes (G a power of two <= 32, G >= K
@@ -22,14 +30,17 @@
 // writes the row. At K=64 a warp owns one row and each field's 64 values
 // are two coalesced loads; at K=4 a warp packs 8 rows, so narrow embeddings
 // do not leave 28 of 32 lanes idle. Each block of 8 warps takes a tile of
-// 8 * (32 / G) rows.
+// 8 * (32 / G) rows. The backward keeps the same lane grouping and field
+// order for S, then walks the fields again and writes each dv value; the
+// stores of a warp land on neighbouring columns of one field (coalesced).
 //
-// Layout: v arrives as a STRIDED view. On the serving path it is
-// looked[..., :K] of the [B, F, K+1] fused gather (the last column is the
+// Layout: v arrives as a STRIDED view. On the serving and training paths it
+// is looked[..., :K] of the [B, F, K+1] fused gather (the last column is the
 // linear weight), so the wrapper passes the batch and field strides and
 // requires only the innermost stride to be 1; no contiguous copy is made.
 // With numeric fields the model concatenates them first, and the
-// concatenation is contiguous, which is the same case with stride_f = K.
+// concatenation is contiguous, which is the same case with stride_f = K. The
+// backward writes a dense [B, F, K] dv.
 
 #include <cstdint>
 
@@ -50,8 +61,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-template <typename T>
-__global__ void fm_fwd_kernel(const T* __restrict__ v, T* __restrict__ out,
+template <typename T, typename TOut>
+__global__ void fm_fwd_kernel(const T* __restrict__ v, TOut* __restrict__ out,
                               int n_rows, int n_fields, int k_dim,
                               int64_t stride_b, int64_t stride_f, int group) {
   const int lane = threadIdx.x & 31;
@@ -77,7 +88,31 @@ __global__ void fm_fwd_kernel(const T* __restrict__ v, T* __restrict__ out,
   for (int off = group >> 1; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
-  if (row < n_rows && k0 == 0) out[row] = from_float<T>(0.5f * acc);
+  if (row < n_rows && k0 == 0) out[row] = from_float<TOut>(0.5f * acc);
+}
+
+template <typename T>
+__global__ void fm_bwd_kernel(const T* __restrict__ v, const float* __restrict__ g,
+                              T* __restrict__ dv, int n_rows, int n_fields, int k_dim,
+                              int64_t stride_b, int64_t stride_f, int group) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int row = warp * (32 / group) + lane / group;
+  const int k0 = lane & (group - 1);
+  if (row >= n_rows) return;  // no shuffles below: idle lanes may leave
+  const T* base = v + static_cast<int64_t>(row) * stride_b;
+  T* dst = dv + static_cast<int64_t>(row) * n_fields * k_dim;
+  const float gb = g[row];
+  for (int k = k0; k < k_dim; k += group) {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int f = 0; f < n_fields; ++f) s += to_float(base[static_cast<int64_t>(f) * stride_f + k]);
+#pragma unroll 4
+    for (int f = 0; f < n_fields; ++f) {
+      const float x = to_float(base[static_cast<int64_t>(f) * stride_f + k]);
+      dst[static_cast<int64_t>(f) * k_dim + k] = from_float<T>(gb * (s - x));
+    }
+  }
 }
 
 constexpr int kThreads = 256;
@@ -85,12 +120,12 @@ constexpr int kThreads = 256;
 }  // namespace
 
 // v: [n_rows, n_fields, k_dim] with strides (stride_b, stride_f, 1) in
-// elements; out: [n_rows] contiguous, same type. is_bf16 selects bf16 over
-// fp32. group: lanes per row, a power of two in [1, 32]. Returns a
-// cudaError_t as int (0 = ok).
+// elements; out: [n_rows] contiguous, in v's type, or fp32 when out_is_f32.
+// is_bf16 selects bf16 over fp32 for v. group: lanes per row, a power of two
+// in [1, 32]. Returns a cudaError_t as int (0 = ok).
 extern "C" int rectpu_fm_cross(const void* v, void* out, int n_rows, int n_fields,
                                int k_dim, long long stride_b, long long stride_f,
-                               int group, int is_bf16, void* stream) {
+                               int group, int is_bf16, int out_is_f32, void* stream) {
   if (n_rows == 0) return static_cast<int>(cudaSuccess);
   if (group < 1 || group > 32 || (group & (group - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -98,14 +133,44 @@ extern "C" int rectpu_fm_cross(const void* v, void* out, int n_rows, int n_field
   const int rows_per_block = (kThreads / 32) * (32 / group);
   const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    fm_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+  if (is_bf16 && !out_is_f32) {
+    fm_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
         n_rows, n_fields, k_dim, stride_b, stride_f, group);
+  } else if (is_bf16) {
+    fm_fwd_kernel<__nv_bfloat16, float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), n_rows, n_fields,
+        k_dim, stride_b, stride_f, group);
   } else {
-    fm_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
+    fm_fwd_kernel<float, float><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(v), static_cast<float*>(out), n_rows, n_fields,
         k_dim, stride_b, stride_f, group);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v as for rectpu_fm_cross; g: [n_rows] fp32 contiguous; dv: [n_rows,
+// n_fields, k_dim] contiguous, in v's type. Returns a cudaError_t as int.
+extern "C" int rectpu_fm_cross_bwd(const void* v, const void* g, void* dv, int n_rows,
+                                   int n_fields, int k_dim, long long stride_b,
+                                   long long stride_f, int group, int is_bf16,
+                                   void* stream) {
+  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows_per_block = (kThreads / 32) * (32 / group);
+  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  if (is_bf16) {
+    fm_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(v), gf, static_cast<__nv_bfloat16*>(dv), n_rows,
+        n_fields, k_dim, stride_b, stride_f, group);
+  } else {
+    fm_bwd_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(v), gf, static_cast<float*>(dv), n_rows, n_fields, k_dim,
+        stride_b, stride_f, group);
   }
   return static_cast<int>(cudaGetLastError());
 }

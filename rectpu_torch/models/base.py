@@ -1,10 +1,13 @@
-"""Model building blocks for inference: the port of ``rectpu/models/base.py``.
+"""Model building blocks: the port of ``rectpu/models/base.py``.
 
 ``TowerConfig`` keeps every field of rectpu's, so an export's ``model.json``
-parses unchanged; the fields that only steer the TPU's training step
-(``split_threshold``, ``flat_layout``, ``scatter_impl``, ...) are carried and
-not read here. ``apply_mlp`` is the inference forward (dropout is never on
-the serving path) with rectpu's ``compute_dtype`` casts; the matmuls are
+parses unchanged; the fields that only pick a TPU layout or kernel
+(``split_threshold``, ``scatter_impl``, ``mxu_dense_threshold``, ...) are
+carried and change nothing here: the port has one lookup and one scatter.
+``apply_mlp`` is the tower with rectpu's ``compute_dtype`` casts and, in
+train mode, dropout from ``hash_dropout_mask`` (bit for bit rectpu's) or from
+a ``torch.Generator`` (the "threefry" impl: a different but equally valid
+Bernoulli stream, since JAX's threefry has no PyTorch twin). The matmuls are
 ``torch.matmul``, as rectpu left them to XLA. The init helpers take an
 explicit ``torch.Generator`` and follow rectpu's (TF's) initializers.
 """
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from rectpu_torch.features.schema import FeatureSet
 from rectpu_torch.ops.embedding import lookup
+from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index, mul32
 
 
 def truncated_normal(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:
@@ -63,6 +67,49 @@ def init_mlp(generator: torch.Generator, in_dim: int, hidden_units, out_dim: int
     ]
 
 
+def hash_dropout_mask(seed32: int, shape, rate: float, device=None) -> torch.Tensor:
+    """Counter-hash Bernoulli(1 - rate) keep mask, bit for bit rectpu's
+    (``rectpu/models/base.py:72-135``): for an even last width one hash per
+    two elements, its low 16 bits for columns [0, last/2) and its high 16
+    bits for [last/2, last), each against a 16-bit threshold; for an odd last
+    width one hash per element with the murmur finalizer and a 32-bit
+    threshold."""
+    shape = tuple(int(d) for d in shape)
+    if rate <= 0.0:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    keep_p = 1.0 - rate
+    last = shape[-1] if shape else 0
+    if len(shape) >= 1 and last % 2 == 0 and last > 0:
+        h = counter_hash(flat_index(shape[:-1] + (last // 2,), device), seed32)
+        thresh = max(1, min(0xFFFF, int(round(keep_p * 65536.0))))
+        return torch.cat([(h & 0xFFFF) < thresh, (h >> 16) < thresh], dim=-1)
+    h = counter_hash(flat_index(shape, device), seed32)
+    h = mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    thresh = min(0xFFFFFFFF, int(round(keep_p * 4294967296.0)))
+    return h < thresh
+
+
+def step_seed32(seed: int, step: int) -> int:
+    """The dropout seed of one train step. rectpu draws it with
+    ``jax.random.bits(fold_in(PRNGKey(seed), step))`` (base.py:150), which has
+    no PyTorch twin; the port mixes (seed, step) with its own counter hash, so
+    a step's masks are a function of the run's seed and the step alone (a
+    restored run draws the same masks): the murmur3 finalizer over a counter
+    mix of the two."""
+    h = (seed * 0x9E3779B9 + step * 2654435761 + 0x7F4A7C15) & MASK32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & MASK32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & MASK32
+    return h ^ (h >> 16)
+
+
+def _layer_seed(seed32: int, i: int) -> int:
+    """rectpu's per-layer salt: seed32 + 0x7FEB352D * (i + 1) in uint32 (base.py:164-165)."""
+    return (seed32 + 0x7FEB352D * (i + 1)) & MASK32
+
+
 def _dot(x: torch.Tensor, kernel: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """``jnp.dot(x, kernel, preferred_element_type=float32).astype(out_dtype)``.
 
@@ -74,23 +121,42 @@ def _dot(x: torch.Tensor, kernel: torch.Tensor, out_dtype: torch.dtype) -> torch
     return torch.matmul(x.float(), kernel.float()).to(out_dtype)
 
 
-def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None) -> torch.Tensor:
-    """Inference forward through the hidden layers, then the linear logit.
+def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
+              dropout: float = 0.0, train: bool = False, seed32: int | None = None,
+              dropout_impl: str = "threefry") -> torch.Tensor:
+    """Forward through the hidden layers (activation, then dropout in train
+    mode), then the linear logit.
 
     ``layers`` is a list of (kernel [in, out], bias [out]). Mirrors rectpu's
     casts (``rectpu/models/base.py:138-176``): under a compute dtype, x,
     the kernels and the hidden biases take it, each hidden matmul
     accumulates in fp32 and is rounded to x's dtype before the bias add, and
-    the logit layer accumulates in fp32 and adds its bias in fp32. Returns
-    [B, out] fp32."""
+    the logit layer accumulates in fp32 and adds its bias in fp32. Dropout
+    keeps x / (1 - rate) where the mask keeps, in x's dtype (the rate meets x
+    as JAX's weak type). ``seed32`` (``step_seed32``) seeds both dropout
+    impls: "hash" through ``hash_dropout_mask`` with rectpu's per-layer salt,
+    "threefry" through a ``torch.Generator`` seeded with the same salted
+    value. Returns [B, out] fp32."""
     act = get_activation(activation)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    for kernel, bias in layers[:-1]:
+    drop = dropout > 0 and train
+    if drop and seed32 is None:
+        raise ValueError("dropout requires a seed32 in train mode")
+    for i, (kernel, bias) in enumerate(layers[:-1]):
         if compute_dtype is not None:
             kernel = kernel.to(compute_dtype)
             bias = bias.to(compute_dtype)
         x = act(_dot(x, kernel, x.dtype) + bias)
+        if drop:
+            salt = _layer_seed(seed32, i)
+            if dropout_impl == "hash":
+                keep = hash_dropout_mask(salt, x.shape, dropout, device=x.device)
+            else:
+                gen = torch.Generator(device=x.device).manual_seed(salt)
+                keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
+            scale = torch.full((), 1.0 - dropout, dtype=x.dtype, device=x.device)
+            x = torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
     kernel, bias = layers[-1]
     if compute_dtype is not None:
         kernel = kernel.to(compute_dtype)
@@ -146,6 +212,10 @@ class TowerConfig:
     def torch_table_dtype(self):
         return _DTYPES[self.table_dtype]
 
+    @property
+    def torch_table_grad_dtype(self):
+        return _DTYPES[self.table_grad_dtype]
+
 
 def pack_fused_table(emb: torch.Tensor, w: torch.Tensor, pad_cols: int = 0) -> torch.Tensor:
     """[V, K+1(+pad)] = [embedding | linear weight | zero pad], the packed
@@ -158,11 +228,13 @@ def pack_fused_table(emb: torch.Tensor, w: torch.Tensor, pad_cols: int = 0) -> t
 
 
 def lookup_fields(table: torch.Tensor, cat_ids: torch.Tensor, cfg: TowerConfig) -> torch.Tensor:
-    """[B, F] ids -> [B, F, W] field rows, in the compute dtype when one is set
-    (the served table is already stored in it: casting the table once at load
-    is elementwise the same as rectpu's cast before each gather)."""
-    emb = lookup(table, cat_ids, impl=cfg.embedding_impl)
+    """[B, F] ids -> [B, F, W] field rows, in the compute dtype when one is
+    set: the table is cast to it before the gather (``gather_dtype``,
+    ``rectpu/ops/embedding.py:501``), and the dense table cotangent is rounded
+    to ``table_grad_dtype`` before its cast back to the table's dtype."""
     dtype = cfg.torch_compute_dtype
+    emb = lookup(table, cat_ids, impl=cfg.embedding_impl, gather_dtype=dtype,
+                 grad_dtype=cfg.torch_table_grad_dtype)
     return emb.to(dtype) if dtype is not None else emb
 
 

@@ -1,17 +1,26 @@
-"""Embedding lookup: the port of ``rectpu/ops/embedding.py``'s forward.
+"""Embedding lookup: the port of ``rectpu/ops/embedding.py``.
 
 rectpu has five lookup implementations (``embedding_impl``: "auto", "take",
-"onehot", "pallas", "split"), chosen for the TPU's hardware; all of them
-compute the same function, ``out[..., :] = table[ids[...], :]``. In the port
-every one of them is this module's ``lookup``:
+"onehot", "pallas", "split") and the lane-packed ``lookup_flat``, chosen for
+the TPU's hardware; all of them compute the same function,
+``out[..., :] = table[ids[...], :]``, and its transpose, the dense table
+cotangent. In the port every one of them is this module's ``lookup``, a
+``torch.autograd.Function``:
 
-  - on CUDA tensors, the hand-written gather kernel
+  - forward: on CUDA tensors the hand-written gather kernel
     (``kernels/csrc/embedding_lookup.cu``, the port of the Pallas
-    ``_fwd_kernel`` at ``rectpu/ops/embedding.py:70``);
-  - on CPU tensors, its plain PyTorch version ``lookup_take``.
+    ``_fwd_kernel`` at ``rectpu/ops/embedding.py:70``), on CPU tensors its
+    plain version ``lookup_take``;
+  - backward: ``ops.scatter_rows.scatter_rows_dense`` into a dense [V, W]
+    cotangent with fp32 collision sums (the kernel that ports ``_bwd_kernel``,
+    :81, and the scatter of ``lookup_flat``'s mxu backward), cast to
+    ``grad_dtype`` and then to the table's dtype: the contract of
+    ``lookup_split`` and ``lookup_flat`` (:366, :681).
 
-Ids outside ``[0, V)`` give a zero row in both, as the Pallas one-hot kernel
-does. The backward kernels come with the training slice.
+``gather_dtype`` casts the table before the gather, as ``lookup_split`` and
+``lookup_flat`` do (:267, :501); the cast's transpose is the final cast back
+to the table's dtype. Ids outside ``[0, V)`` give a zero row and receive no
+gradient, as the Pallas one-hot kernels do.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import ctypes
 import torch
 
 from rectpu_torch.kernels import LaunchCount, build
+from rectpu_torch.ops.scatter_rows import scatter_rows_dense
 
 IMPLS = ("auto", "take", "onehot", "pallas", "split")
 
@@ -77,14 +87,42 @@ def lookup_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Rows of ``table`` [V, W] at ``ids`` [...] -> [..., W].
-
-    ``impl`` is the export's recorded ``embedding_impl``; every value runs the
-    same function. CPU tensors take the plain version, CUDA tensors the
-    kernel (which raises on what it does not take)."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown embedding_impl {impl!r} (expected one of {IMPLS})")
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu" and ids.device.type == "cpu":
         return lookup_take(table, ids)
     return lookup_cuda(table, ids)
+
+
+class _Lookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, gather_dtype, grad_dtype):
+        ctx.save_for_backward(ids)
+        ctx.table_meta = (table.shape[0], table.dtype, grad_dtype)
+        source = table.to(gather_dtype) if gather_dtype is not None else table
+        return _gather(source.contiguous(), ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        v, table_dtype, grad_dtype = ctx.table_meta
+        w = g.shape[-1]
+        dtable = scatter_rows_dense(ids.reshape(-1), g.reshape(-1, w).contiguous(), v,
+                                    out_dtype=grad_dtype or torch.float32)
+        return dtable.to(table_dtype), None, None, None
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
+           gather_dtype: torch.dtype | None = None,
+           grad_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Rows of ``table`` [V, W] at ``ids`` [...] -> [..., W], differentiable
+    in ``table``.
+
+    ``impl`` is the recorded ``embedding_impl``; every value runs the same
+    function. ``gather_dtype`` casts the table before the gather;
+    ``grad_dtype`` is the dtype the dense cotangent is rounded to before the
+    cast back to the table's dtype (None: fp32). CPU tensors take the plain
+    versions, CUDA tensors the kernels (which raise on what they do not
+    take)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown embedding_impl {impl!r} (expected one of {IMPLS})")
+    return _Lookup.apply(table, ids, gather_dtype, grad_dtype)

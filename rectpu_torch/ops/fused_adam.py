@@ -1,0 +1,126 @@
+"""One Adam sweep over a [V, W] table: the port of ``rectpu/ops/fused_adam.py``.
+
+``fused_adam_table(p, m, v, g, t, lr=...)`` computes exactly the tree-map
+update of ``optimizers.adam`` for one leaf (``rectpu/train/optimizers.py:192-224``):
+TF's eps placement outside the bias-corrected square root, fp32 math, the
+slots stored first and the parameter step taken from the stored (down-cast)
+slots, stochastic rounding keyed on the flat index ``row*W + col`` and
+seeded with ``t`` (a bf16 parameter with ``t + 2**30``).
+
+  - On CUDA tensors: the hand-written kernel ``kernels/csrc/fused_adam.cu``
+    (the port of ``_adam_tile_kernel``, ``rectpu/ops/fused_adam.py:51``),
+    which updates p, m and v IN PLACE (rectpu aliases them too,
+    ``input_output_aliases``) and returns them.
+  - On CPU tensors: the plain version ``fused_adam_plain``, which returns new
+    tensors.
+
+The two agree bit for bit: the kernel rounds every operation separately, as
+the plain version's elementwise ops do (see the note in the source).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rectpu_torch.kernels import LaunchCount, build
+from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index
+
+launches = LaunchCount("fused_adam")
+
+_F32, _BF16, _BF16_SR = 0, 1, 2
+_SIGNATURES = {
+    "rectpu_fused_adam": (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_longlong] + [ctypes.c_float] * 6
+        + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def stochastic_round_bf16(x: torch.Tensor, seed: int) -> torch.Tensor:
+    """Unbiased fp32 -> bf16 downcast, bit for bit rectpu's
+    (``optimizers.stochastic_round_bf16``, :47, and ``_sr_bits`` here, :37):
+    the low 16 bits of the counter hash of (flat element index, seed mod
+    2**32) are added to the fp32 bit pattern, which is then truncated."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"stochastic rounding takes float32, got {x.dtype}")
+    xi = x.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    h = counter_hash(flat_index(x.shape, x.device), seed)
+    xi = (xi + (h & 0xFFFF)) & 0xFFFF0000
+    rounded = torch.where(xi >= 2**31, xi - 2**32, xi).to(torch.int32).view(torch.float32)
+    return rounded.to(torch.bfloat16)
+
+
+def adam_lr_t(t: int, lr: float, beta1: float, beta2: float) -> torch.Tensor:
+    """lr_t = lr*sqrt(1-b2^t)/(1-b1^t) in fp32 tensor math, as
+    ``rectpu/train/optimizers.py:193-194`` computes it; on the CPU, so the
+    kernel, the plain version and the tree-map update share one value."""
+    tf_ = torch.tensor(float(t), dtype=torch.float32)
+    return lr * torch.sqrt(1.0 - beta2 ** tf_) / (1.0 - beta1 ** tf_)
+
+
+def _store(x: torch.Tensor, dtype: torch.dtype, sr: bool, seed: int) -> torch.Tensor:
+    if sr:
+        return stochastic_round_bf16(x, seed)
+    return x.to(dtype)
+
+
+def fused_adam_plain(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
+                     beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
+                     v_sr: bool = False):
+    """Plain version: returns new (p', m', v') in p's, m's and v's dtypes."""
+    lr_t = float(adam_lr_t(t, lr, beta1, beta2))  # exactly its fp32 value
+    g32 = g.float()
+    m_new = _store(beta1 * m.float() + (1.0 - beta1) * g32, m.dtype, m_sr, t)
+    v_new = _store(beta2 * v.float() + (1.0 - beta2) * g32 * g32, v.dtype, v_sr, t)
+    p32 = p.float() - lr_t * m_new.float() / (torch.sqrt(v_new.float()) + eps)
+    p_new = _store(p32, p.dtype, p.dtype == torch.bfloat16, (t + (1 << 30)) & MASK32)
+    return p_new, m_new, v_new
+
+
+def fused_adam_cuda(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
+                    beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
+                    v_sr: bool = False):
+    """Launch the fused Adam kernel, updating p, m and v in place: [V, W]
+    tensors, contiguous, fp32 or bf16, on one card. Returns (p, m, v)."""
+    tensors = (p, m, v, g)
+    if not all(x.is_cuda and x.device == p.device for x in tensors):
+        raise ValueError("fused_adam_cuda needs p, m, v and g on one CUDA device")
+    if any(x.dtype not in _DTYPES for x in tensors):
+        raise ValueError(f"p, m, v, g must be float32 or bfloat16, got "
+                         f"{[x.dtype for x in tensors]}")
+    if any(x.shape != p.shape for x in tensors) or not all(x.is_contiguous() for x in tensors):
+        raise ValueError("fused_adam_cuda needs contiguous p, m, v and g of one shape")
+    if (m_sr and m.dtype != torch.bfloat16) or (v_sr and v.dtype != torch.bfloat16):
+        raise ValueError("stochastic rounding stores a bfloat16 slot")
+    lr_t = float(adam_lr_t(t, lr, beta1, beta2))
+
+    def kind(x, sr):
+        return _F32 if x.dtype == torch.float32 else (_BF16_SR if sr else _BF16)
+
+    lib = build.load("fused_adam", _SIGNATURES)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.rectpu_fused_adam(
+            p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), p.numel(),
+            lr_t, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, t & MASK32,
+            kind(p, True), kind(m, m_sr), kind(v, v_sr), int(g.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"fused_adam kernel launch failed: cudaError {err}")
+    launches.add()
+    return p, m, v
+
+
+def fused_adam_table(p, m, v, g, t: int, **kwargs):
+    """Adam step for a [V, W] table; ``t`` is the step counter after its
+    increment. CPU tensors take the plain version (new tensors), CUDA
+    tensors the kernel (in place)."""
+    if all(x.device.type == "cpu" for x in (p, m, v, g)):
+        return fused_adam_plain(p, m, v, g, t, **kwargs)
+    return fused_adam_cuda(p, m, v, g, t, **kwargs)

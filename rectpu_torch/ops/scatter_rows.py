@@ -1,0 +1,116 @@
+"""Dense row scatter-add: the port of ``rectpu/ops/scatter_rows.py``.
+
+    scatter_rows_dense(ids, updates, v_rows) == zeros([v_rows, W]).index_add(ids, updates)
+
+with every collision sum taken in fp32 and rounded once to ``out_dtype``. It
+builds the dense table cotangent of every embedding backward in the port,
+and so stands for three TPU kernels that compute this one function:
+``_scatter_tile_kernel`` and ``_scatter_tile_kernel_resident``
+(``rectpu/ops/scatter_rows.py:78``, ``:123``, the flat-layout backward with
+``scatter_impl="mxu"``) and ``_bwd_kernel`` (``rectpu/ops/embedding.py:81``,
+the backward of ``lookup_pallas``).
+
+  - On CUDA tensors: the hand-written kernel ``kernels/csrc/scatter_rows.cu``
+    after a stable sort of the ids (rectpu sorts outside its Pallas call too).
+    It is deterministic: two launches give the same bits.
+  - On CPU tensors: the plain version ``scatter_rows_plain``, an fp32
+    ``index_add_``.
+
+Ids outside ``[0, v_rows)`` contribute nothing: ``DROP_SENTINEL``, negative
+ids, and ids past the table (the one-hot rule of ``_bwd_kernel``).
+
+One difference from rectpu: when a tile of its sorted stream holds more than
+``capacity`` updates, rectpu's ``lax.cond`` fallback scatters with XLA and
+accumulates in ``out_dtype`` (``scatter_rows.py:309-317``), so a bf16
+cotangent then sums collisions in bf16. The port always accumulates in fp32,
+the contract of rectpu's Pallas path, whatever the data.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rectpu_torch.kernels import LaunchCount, build
+
+# out-of-range id that callers mask dropped rows to (rectpu's value)
+DROP_SENTINEL = 2**31 // 2 - 1
+# positions of the sorted stream per warp of the chunk pass
+CHUNK = 32
+
+launches = LaunchCount("scatter_rows")
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_SIGNATURES = {
+    "rectpu_scatter_rows": (
+        [ctypes.c_void_p] * 7
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+
+
+def scatter_rows_plain(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version: ids [R] integer, updates [R, W] -> [v_rows, W] in
+    ``out_dtype`` (default the updates' dtype), summed in fp32."""
+    ids = ids.reshape(-1).long()
+    keep = (ids >= 0) & (ids < v_rows)
+    out = torch.zeros(v_rows, updates.shape[1], dtype=torch.float32, device=updates.device)
+    out.index_add_(0, ids[keep], updates[keep].float())
+    return out.to(out_dtype or updates.dtype)
+
+
+def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Sort the ids and launch the scatter kernel: ids [R] int32, updates
+    [R, W] fp32 or bf16, both contiguous on one card; ``out_dtype`` fp32 or
+    bf16. Raises on anything the kernel does not take."""
+    if not (ids.is_cuda and updates.is_cuda and ids.device == updates.device):
+        raise ValueError(f"scatter_rows_cuda needs ids and updates on one CUDA device, got "
+                         f"{ids.device} and {updates.device}")
+    out_dtype = out_dtype or updates.dtype
+    if ids.dim() != 1 or ids.dtype != torch.int32:
+        raise ValueError(f"ids must be 1-D int32, got {tuple(ids.shape)} {ids.dtype}")
+    if updates.dim() != 2 or updates.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"updates must be [R, W] float32 or bfloat16 and out_dtype one of "
+                         f"those, got {tuple(updates.shape)} {updates.dtype} -> {out_dtype}")
+    if updates.shape[0] != ids.shape[0]:
+        raise ValueError(f"{ids.shape[0]} ids for {updates.shape[0]} update rows")
+    if not (ids.is_contiguous() and updates.is_contiguous()):
+        raise ValueError("scatter_rows_cuda needs contiguous ids and updates")
+    n, w = updates.shape
+    if max(n, v_rows, w) >= 2**31 or v_rows < 0:
+        raise ValueError(f"{n} updates of width {w} into {v_rows} rows exceed the kernel's "
+                         "int32 extents")
+    out = torch.empty(v_rows, w, dtype=out_dtype, device=updates.device)
+    if out.numel() == 0:
+        return out
+    ids_sorted, order = torch.sort(ids, stable=True)
+    n_chunks = -(-n // CHUNK)
+    part_first = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
+    part_last = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
+    seg = torch.empty(v_rows, 2, dtype=torch.int32, device=updates.device)
+    lib = build.load("scatter_rows", _SIGNATURES)
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        err = lib.rectpu_scatter_rows(
+            ids_sorted.data_ptr(), order.data_ptr(), updates.data_ptr(), out.data_ptr(),
+            part_first.data_ptr(), part_last.data_ptr(), seg.data_ptr(), n, v_rows, w, CHUNK,
+            int(updates.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
+    launches.add()
+    return out
+
+
+def scatter_rows_dense(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``zeros([v_rows, W], out_dtype).index_add(ids, updates)`` with fp32
+    collision sums; ids outside [0, v_rows) are dropped. CPU tensors take the
+    plain version, CUDA tensors the kernel."""
+    if ids.device.type == "cpu" and updates.device.type == "cpu":
+        return scatter_rows_plain(ids, updates, v_rows, out_dtype)
+    return scatter_rows_cuda(ids, updates, v_rows, out_dtype)

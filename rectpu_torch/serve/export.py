@@ -8,7 +8,9 @@ layout, reference trainers/conf_utils.py:20-24)::
         model.json    # model family + TowerConfig + feature schema
 
 ``load_model`` reads such a directory as it is, whichever package wrote it,
-carries the weights across (``rectpu_torch.convert``) and returns a
+carries the weights across (``rectpu_torch.convert``, fp32 masters kept: a
+bf16 tower casts them before each gather and matmul, as rectpu does) and
+returns a
 ``ServingModel`` whose ``predict`` takes the reference serving schema —
 required features user_id, item_id, age, gender, occupation, zipcode,
 release_year, with the 19 genre flags optional and defaulting to 0 — and
@@ -32,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rectpu_torch.convert import deep_fm_state
+from rectpu_torch.convert import load_deep_fm_params
 from rectpu_torch.device import resolve_device
 from rectpu_torch.features.schema import GENRE, FeatureSet, is_string_column, ml_100k_feature_set
 from rectpu_torch.models import MODEL_REGISTRY, TowerConfig
@@ -265,7 +267,7 @@ def load_model(export_dir: str | Path, use_serialized: bool = False,
         packed_linear=tc.get("packed_linear", False),
     )
     model = MODEL_REGISTRY[meta["model"]](cfg, **meta.get("model_kwargs", {}))
-    model.load_state(deep_fm_state(model, params, device))
+    load_deep_fm_params(model, params, device)
     row_perm = None
     if meta.get("row_placement"):
         row_perm = np.load(export_dir / "row_perm.npy")

@@ -1,0 +1,313 @@
+"""The training loop: the port of ``rectpu/train/loop.py``.
+
+``Trainer.train_and_evaluate`` runs rectpu's cadence (``loop.py:497-708``):
+train steps; every ``save_checkpoints_steps`` steps (or
+``save_checkpoints_secs`` seconds) a checkpoint with keep-N rotation, an
+eval pass and an export of the latest model; at the end a last checkpoint,
+the final eval and the export. Checkpoints and exports are in rectpu's
+layout, so either package restores or serves the other's.
+
+What differs from rectpu, and why:
+
+  - Dispatch is per step. rectpu runs ``steps_per_loop`` steps in one
+    ``lax.scan`` dispatch; PyTorch runs eagerly and has no such program, so
+    ``steps_per_loop`` sets only the logging cadence (a log line, and the
+    per-step losses read back from the device, once per loop).
+  - Each step's dropout seed is ``models.base.step_seed32(seed, step)``.
+  - ``data_placement`` "device" (and "auto" when the encoded train set fits
+    ``data_placement_max_bytes``) uploads the encoded train set once and
+    ships only each batch's row indices; both placements consume the same
+    index stream, so training is the same either way.
+
+A step is forward, ``sigmoid_xent`` reduced by mean or sum (``loop.py:140-147``),
+backward, and the optimizer's in-place update.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from rectpu_torch.convert import (
+    adam_state_from_tree,
+    adam_state_tree,
+    deep_fm_tree,
+    flat_params,
+    flatten_tree,
+    load_deep_fm_params,
+)
+from rectpu_torch.io.loader import DataState
+from rectpu_torch.models.base import step_seed32
+from rectpu_torch.train import metrics as metrics_lib
+from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
+from rectpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+EVAL_INTERVAL = 60  # seconds, reference parity (conf_utils.py:3)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 32
+    train_steps: int = 20000
+    eval_batch_size: int | None = None  # default max(batch_size, 512)
+    save_checkpoints_secs: float | None = EVAL_INTERVAL
+    save_checkpoints_steps: int | None = None  # overrides secs if set
+    keep_checkpoint_max: int = 5
+    log_every_steps: int = 100
+    steps_per_loop: int = 100
+    seed: int = 42
+    final_eval: bool = True
+    async_checkpoint: bool = True  # background disk writes (the host copy is synchronous)
+    loss_reduction: str = "mean"  # or "sum" (TF-1.x head semantics)
+    eval_auc: str = "streaming"  # or "exact" (rank-based; streaming kept as auc_streaming)
+    data_placement: str = "auto"  # "host", "device" or "auto"
+    data_placement_max_bytes: int = 1 << 30
+
+
+class Trainer:
+    def __init__(self, model, optimizer, train_ds, eval_ds, job_dir: str | Path,
+                 config: TrainConfig, exporter=None, device=None):
+        self.model = model
+        self.optimizer = optimizer
+        self.train_ds = train_ds
+        self.eval_ds = eval_ds
+        self.job_dir = Path(job_dir)
+        self.config = config
+        self.exporter = exporter
+        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
+                                 async_write=config.async_checkpoint)
+        self.warm_start_from: str | None = None
+        self.warm_start_vars: list | None = None
+        self.step_losses: list[float] = []  # every step's loss, read back once per loop
+        self.opt_state: dict | None = None
+        self._eval_cache = None
+
+    # -- one step ----------------------------------------------------------------
+
+    def loss(self, batch: dict, train: bool, step: int = 0) -> torch.Tensor:
+        seed32 = step_seed32(self.config.seed, step) if train else None
+        logits = self.model(batch["cat_ids"], batch["num_vals"], train=train, seed32=seed32)
+        losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
+        return losses.sum() if self.config.loss_reduction == "sum" else losses.mean()
+
+    def train_step(self, batch: dict, step: int) -> torch.Tensor:
+        """Forward, backward and the optimizer update of step ``step``; returns
+        the loss (a device scalar, not waited for)."""
+        params = flat_params(self.model)
+        for p in params.values():
+            p.grad = None
+        loss = self.loss(batch, train=True, step=step)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        self.optimizer.update(grads, self.opt_state, params)
+        return loss.detach()
+
+    # -- data ----------------------------------------------------------------------
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def _resident(self):
+        """The encoded train set on the device, or None for host staging."""
+        mode, ds = self.config.data_placement, self.train_ds
+        if mode == "host":
+            return None
+        nbytes = ds.cat_ids.nbytes + ds.num_vals.nbytes + ds.labels.nbytes
+        if nbytes > self.config.data_placement_max_bytes:
+            if mode == "device":
+                raise ValueError("data_placement='device' needs the encoded train set within "
+                                 f"data_placement_max_bytes ({nbytes} B > "
+                                 f"{self.config.data_placement_max_bytes} B)")
+            return None
+        return self._to_device({"cat_ids": ds.cat_ids, "num_vals": ds.num_vals,
+                                "labels": ds.labels})
+
+    def _batches(self, data_state):
+        cfg = self.config
+        resident = self._resident()
+        if resident is None:
+            for batch, st in self.train_ds.train_batches(cfg.batch_size, state=data_state,
+                                                         seed=cfg.seed):
+                yield self._to_device(batch), st
+            return
+        for rows, st in self.train_ds.train_index_batches(cfg.batch_size, state=data_state,
+                                                          seed=cfg.seed):
+            idx = torch.from_numpy(rows)
+            if self.device.type == "cuda":  # a pinned copy does not wait for the card
+                idx = idx.pin_memory().to(self.device, non_blocking=True)
+            yield {k: v.index_select(0, idx) for k, v in resident.items()}, st
+
+    # -- eval ------------------------------------------------------------------------
+
+    @torch.no_grad()
+    def evaluate(self) -> dict:
+        """One full pass over the eval set -> metric dict (floats)."""
+        cfg = self.config
+        if self._eval_cache is None:
+            eval_bs = cfg.eval_batch_size or max(cfg.batch_size, 512)
+            self._eval_cache = [self._to_device(b) for b in self.eval_ds.eval_batches(eval_bs)]
+        state = metrics_lib.init_state(device=self.device)
+        probs_all = []
+        for batch in self._eval_cache:
+            logits = self.model(batch["cat_ids"], batch["num_vals"], train=False)
+            preds = metrics_lib.binary_predictions(logits)
+            losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
+            state = metrics_lib.update_state(state, preds["probabilities"], batch["labels"],
+                                             losses=losses, weights=batch["weights"])
+            probs_all.append(preds["probabilities"])
+        result = metrics_lib.finalize(state)
+        if cfg.eval_auc == "exact":
+            probs = torch.cat(probs_all).cpu().numpy()
+            labels = torch.cat([b["labels"] for b in self._eval_cache]).cpu().numpy()
+            valid = torch.cat([b["weights"] for b in self._eval_cache]).cpu().numpy() > 0
+            result["auc_streaming"] = result["auc"]
+            result["auc"] = metrics_lib.exact_auc(probs[valid], labels[valid])
+        return result
+
+    # -- warm start ------------------------------------------------------------------
+
+    def _warm_start(self, params: dict) -> dict:
+        """Initialize from a previous run's artifact (tf WarmStartSettings
+        parity, ``loop.py:419-495``): an export dir, a ckpt-N dir, or a job
+        dir (its newest export, else its newest checkpoint), written by
+        either package. Leaves match by key path; a shape mismatch raises;
+        leaves absent from the artifact keep their fresh init."""
+        from rectpu_torch.serve.export import latest_export
+
+        src = Path(self.warm_start_from)
+        if (src / "model.json").exists():
+            meta = json.loads((src / "model.json").read_text())
+            if meta.get("table_quant"):
+                raise ValueError(f"cannot warm-start from a quantized export ({src}); "
+                                 "use the fp export it was derived from")
+            flat_src = _load_flat_npz(src / "arrays.npz")
+        elif (src / "arrays.npz").exists():
+            flat_src = {k[len("params/"):]: v for k, v in _load_flat_npz(src / "arrays.npz").items()
+                        if k.startswith("params/")}
+        else:
+            exp = latest_export(src)
+            if exp is not None:
+                flat_src = _load_flat_npz(exp / "arrays.npz")
+            else:
+                snap = Checkpointer(src).restore()
+                if snap is None:
+                    raise FileNotFoundError(
+                        f"warm-start source {src} has neither exports nor checkpoints")
+                flat_src = flatten_tree(snap[0]["params"])
+        if self.warm_start_vars:
+            flat_src = {k: v for k, v in flat_src.items()
+                        if any(k == p or k.startswith(p.rstrip("/") + "/")
+                               for p in self.warm_start_vars)}
+        flat_tpl = flatten_tree(params)
+        used, missing, out = 0, [], {}
+        for key, tpl in flat_tpl.items():
+            if key in flat_src:
+                got = flat_src[key]
+                if tuple(got.shape) != tuple(tpl.shape):
+                    raise ValueError(f"warm-start shape mismatch for {key!r}: "
+                                     f"{tuple(got.shape)} vs {tuple(tpl.shape)}")
+                out[key] = got.to(tpl.dtype)
+                used += 1
+            else:
+                missing.append(key)
+                out[key] = tpl
+        if used == 0:
+            raise ValueError("warm-start artifact shares no parameters with the model")
+        if missing:
+            logger.warning("warm start: %d leaves kept fresh init (%s)", len(missing),
+                           ", ".join(missing[:5]))
+        logger.info("warm-started %d/%d parameter leaves", used, len(flat_tpl))
+        from rectpu_torch.train.checkpoint import _rebuild, _treedef_template
+
+        return _rebuild(_treedef_template(params), out)
+
+    # -- the loop --------------------------------------------------------------------
+
+    def _save(self, step: int, data_state) -> dict:
+        """Checkpoint {params, opt_state} in rectpu's layout; returns the params tree."""
+        params = deep_fm_tree(self.model)
+        self.ckpt.save(step, {"params": params,
+                              "opt_state": adam_state_tree(self.model, self.opt_state)},
+                       extra_meta={"data_state": dataclasses.asdict(data_state)
+                                   if data_state else None,
+                                   "model": getattr(self.model, "name", "model")})
+        return params
+
+    def _export(self, params: dict, step: int) -> None:
+        if self.exporter is not None:
+            self.exporter(params, step)
+
+    def train_and_evaluate(self, restore: bool = True) -> dict:
+        cfg = self.config
+        params = self.model.init(torch.Generator().manual_seed(cfg.seed))
+        if self.warm_start_from:
+            # TF semantics: warm start seeds a fresh run; a restored
+            # checkpoint (below) overwrites it
+            params = self._warm_start(params)
+        load_deep_fm_params(self.model, params, self.device)
+        self.opt_state = self.optimizer.init(flat_params(self.model))
+        step, data_state = 0, None
+        if restore:
+            snapshot = self.ckpt.restore()
+            if snapshot is not None:
+                tree, meta = snapshot
+                load_deep_fm_params(self.model, tree["params"], self.device)
+                self.opt_state = adam_state_from_tree(tree["opt_state"], self.device)
+                step = meta["step"]
+                if meta.get("data_state"):
+                    data_state = DataState(**meta["data_state"])
+                logger.info("restored checkpoint at step %s", step)
+        self.model.train()
+
+        batches = self._batches(data_state)
+        last_save = time.time()
+        t_loop = time.time()
+        examples = 0
+        last_metrics: dict = {}
+        while step < cfg.train_steps:
+            k = min(cfg.steps_per_loop, cfg.train_steps - step)
+            losses = []
+            for i in range(k):
+                batch, data_state = next(batches)
+                losses.append(self.train_step(batch, step + i))
+            step += k
+            examples += k * cfg.batch_size
+            self.step_losses.extend(torch.stack(losses).float().cpu().tolist())
+            if cfg.log_every_steps and step % cfg.log_every_steps < cfg.steps_per_loop:
+                dt = time.time() - t_loop
+                logger.info("step %d: loss = %.5f (%.1f examples/sec)", step,
+                            self.step_losses[-1], examples / max(dt, 1e-9))
+                t_loop, examples = time.time(), 0
+
+            due_steps = cfg.save_checkpoints_steps and step % cfg.save_checkpoints_steps == 0
+            due_secs = (cfg.save_checkpoints_steps is None
+                        and cfg.save_checkpoints_secs is not None
+                        and time.time() - last_save >= cfg.save_checkpoints_secs)
+            if (due_steps or due_secs) and step < cfg.train_steps:
+                host_params = self._save(step, data_state)
+                last_save = time.time()
+                last_metrics = self.evaluate()
+                logger.info("eval at step %d: %s", step, _fmt_metrics(last_metrics))
+                self._export(host_params, step)
+
+        host_params = self._save(step, data_state)
+        if cfg.final_eval:
+            last_metrics = self.evaluate()
+            logger.info("final eval at step %d: %s", step, _fmt_metrics(last_metrics))
+        self._export(host_params, step)
+        self.ckpt.close()
+        return last_metrics
+
+
+def _fmt_metrics(m: dict) -> str:
+    return ", ".join(f"{k} = {v:.5f}" for k, v in sorted(m.items()))

@@ -1,0 +1,249 @@
+"""Shared CLI harness for the trainers: the port of ``rectpu/trainers/common.py``.
+
+The same flags and defaults as rectpu's parser (``common.py:20-222``), so a
+rectpu command line runs here unchanged, plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
+port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
+queue instead of being ignored: sharding and EP (queue A12), the sparse fast
+step (A11), ``--streaming-io`` and ``--exporter best`` (A7), ``--autotune``
+and ``--profile-dir`` (A13), ``--table-store bfloat16`` (A5). The JAX
+compilation cache flag is accepted and has nothing to configure.
+"""
+
+from __future__ import annotations
+
+import shutil
+from argparse import ArgumentParser
+from pathlib import Path
+
+from rectpu_torch.device import resolve_device
+from rectpu_torch.utils.logging import get_logger
+
+logger = get_logger("rectpu_torch.trainers")
+
+
+def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
+    parser.add_argument("--train-csv", default="data/ml-100k/train.csv",
+                        help="path to the training csv data (default: %(default)s)")
+    parser.add_argument("--test-csv", default="data/ml-100k/test.csv",
+                        help="path to the test csv data (default: %(default)s)")
+    parser.add_argument("--job-dir", default=job_dir_default,
+                        help="job directory (default: %(default)s)")
+    parser.add_argument("--restore", action="store_true",
+                        help="whether to restore from job_dir")
+    parser.add_argument("--batch-size", type=int, default=32,
+                        help="batch size (default: %(default)s)")
+    parser.add_argument("--train-steps", type=int, default=20000,
+                        help="number of training steps (default: %(default)s)")
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda' (default: the hand-written kernels on the card) or "
+                             "'cpu' (their plain PyTorch versions)")
+    parser.add_argument("--eval-batch-size", type=int, default=None,
+                        help="eval batch size (default: max(batch, 512))")
+    parser.add_argument("--save-checkpoints-secs", type=float, default=60.0,
+                        help="wall-clock checkpoint+eval cadence (default: %(default)s)")
+    parser.add_argument("--save-checkpoints-steps", type=int, default=None,
+                        help="step-based checkpoint+eval cadence (overrides secs)")
+    parser.add_argument("--steps-per-loop", type=int, default=100,
+                        help="steps per logging loop (default: %(default)s); the port "
+                             "dispatches every step on its own")
+    parser.add_argument("--seed", type=int, default=42, help="PRNG seed")
+    parser.add_argument("--loss-reduction", default="mean", choices=["mean", "sum"],
+                        help="per-batch loss reduction; 'sum' = TF-1.x head semantics")
+    parser.add_argument("--embedding-impl", default="auto",
+                        choices=["auto", "take", "onehot", "pallas", "split"],
+                        help="rectpu's lookup choice; every value runs the port's one "
+                             "lookup (default: %(default)s)")
+    parser.add_argument("--fm-impl", default="auto", choices=["auto", "xla", "pallas"],
+                        help="rectpu's FM choice; every value runs the port's one FM "
+                             "(default: %(default)s)")
+    parser.add_argument("--compute-dtype", default=None, choices=[None, "bfloat16"],
+                        help="tower compute dtype (default: float32)")
+    parser.add_argument("--table-grad-dtype", default=None, choices=[None, "bfloat16"],
+                        help="dtype the dense embedding-table gradient is rounded to "
+                             "(default: float32)")
+    parser.add_argument("--table-dtype", default="float32", choices=["float32", "bfloat16"],
+                        help="storage dtype of the embedding-table MASTER param (bfloat16: "
+                             "fp32 Adam math + stochastically rounded downcast; Adam "
+                             "only). default: %(default)s")
+    parser.add_argument("--table-store", default="float32", choices=["float32", "bfloat16"],
+                        help="storage dtype of the table the forward reads (bfloat16 is "
+                             "not ported yet)")
+    parser.add_argument("--data-placement", choices=["auto", "host", "device"],
+                        default="auto",
+                        help="'device' keeps the encoded train set on the device and "
+                             "ships only row indices per step; 'auto' = device when it "
+                             "fits 1 GB. Training is the same either way")
+    parser.add_argument("--streaming-io", action="store_true",
+                        help="out-of-core input pipeline (not ported yet)")
+    parser.add_argument("--num-data-shards", type=int, default=1,
+                        help="data-parallel mesh size (only 1 is ported)")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="embedding (EP) mesh size (only 1 is ported)")
+    parser.add_argument("--tp-mlp", action="store_true",
+                        help="tensor-parallel dense towers (not ported yet)")
+    parser.add_argument("--ep-mode", default="2d", choices=["1d", "2d", "dedup"],
+                        help="EP exchange (used only with --num-model-shards > 1)")
+    parser.add_argument("--ep-peer-capacity", default=None,
+                        help="dedup EP exchange slots per peer (not ported yet)")
+    parser.add_argument("--ep-row-placement", default="none", choices=["none", "freq"],
+                        help="frequency-aware EP row placement (not ported yet)")
+    parser.add_argument("--ep-comm-compress", default=None, choices=["bf16", "int8"],
+                        help="EP wire format (not ported yet)")
+    parser.add_argument("--warm-start-from", default=None,
+                        help="initialize params from a previous run's export dir, job "
+                             "dir, or ckpt-N directory (either package's)")
+    parser.add_argument("--warm-start-vars", nargs="*", default=None,
+                        help="tree-path prefixes to warm start (e.g. 'emb' 'linear'); "
+                             "default: every matching leaf")
+    parser.add_argument("--exporter", choices=["latest", "best"], default="latest",
+                        help="'latest' exports after every eval ('best' is not ported yet)")
+    parser.add_argument("--best-exporter-metric", default="auc",
+                        help="eval metric the 'best' exporter compares")
+    parser.add_argument("--eval-auc", choices=["streaming", "exact"], default="streaming",
+                        help="'streaming' = 200-threshold tf.metrics.auc parity; 'exact' = "
+                             "rank-based AUC on the gathered eval probabilities")
+    parser.add_argument("--autotune", action="store_true",
+                        help="kernel autotuning (not ported yet)")
+    parser.add_argument("--profile-dir", default=None,
+                        help="device trace of one loop (not ported yet)")
+    parser.add_argument("--compilation-cache-dir", default="/tmp/jax_cache",
+                        help="rectpu's persistent XLA cache; the port compiles nothing "
+                             "per shape and ignores it")
+
+
+def add_deep_args(parser: ArgumentParser) -> None:
+    parser.add_argument("--embedding-size", type=int, default=4,
+                        help="embedding size (default: %(default)s)")
+    parser.add_argument("--hidden-units", type=int, nargs="+", default=[16, 16],
+                        help="hidden layer specification (default: %(default)s)")
+    parser.add_argument("--dropout", type=float, default=0.1,
+                        help="dropout rate (default: %(default)s)")
+    parser.add_argument("--dropout-impl", choices=["threefry", "hash"], default="threefry",
+                        help="dropout mask source: 'hash' = rectpu's counter-hash mask, "
+                             "bit for bit; 'threefry' = a torch.Generator Bernoulli stream")
+    parser.add_argument("--flat-layout", action="store_true",
+                        help="rectpu's flat-layout numerics (fp32 FM logit); "
+                             "incompatible with --numeric-columns")
+    parser.add_argument("--scatter-impl", choices=["xla", "mxu", "auto"], default="xla",
+                        help="rectpu's table-cotangent builder; the port always runs its "
+                             "one scatter kernel. 'mxu'/'auto' set table_padding=2048 "
+                             "as rectpu does")
+    parser.add_argument("--preset", choices=["scaled"], default=None,
+                        help="flag bundle. 'scaled' = bench.py's configuration: "
+                             "--flat-layout, --scatter-impl mxu, --compute-dtype bfloat16, "
+                             "--table-grad-dtype bfloat16, --dropout-impl hash, "
+                             "--packed-linear, --optimizer-slot-dtype bfloat16-sr. Only "
+                             "knobs still at their defaults are overridden")
+    parser.add_argument("--fast-step", choices=["auto", "on", "off"], default="auto",
+                        help="sparse lazy-Adam step (not ported yet: 'on' raises; 'auto' "
+                             "keeps the dense step below rectpu's crossover and raises "
+                             "above it)")
+    parser.add_argument("--sparse-scatter", choices=["auto", "xla", "dma"], default="auto",
+                        help="state scatter of the sparse fast step (not ported yet)")
+
+
+# --preset scaled: knob -> (parser default, preset value) (rectpu common.py:227-235)
+_SCALED_PRESET = {
+    "compute_dtype": (None, "bfloat16"),
+    "table_grad_dtype": (None, "bfloat16"),
+    "flat_layout": (False, True),
+    "packed_linear": (False, True),
+    "scatter_impl": ("xla", "mxu"),
+    "dropout_impl": ("threefry", "hash"),
+    "optimizer_slot_dtype": (None, "bfloat16-sr"),
+}
+
+# rectpu's dense-sweep / sparse-step crossover (common.py:293-298)
+_FAST_STEP_ELEMS = 850_000_000
+
+
+def apply_preset(args):
+    """Resolve --preset into concrete flag values (call first, before the
+    TowerConfig is built); only knobs still at their default change."""
+    if getattr(args, "preset", None) != "scaled":
+        return args
+    applied = []
+    for knob, (default, value) in _SCALED_PRESET.items():
+        if hasattr(args, knob) and getattr(args, knob) == default:
+            setattr(args, knob, value)
+            applied.append(knob)
+    args._preset_applied = tuple(applied)
+    logger.info("preset scaled: %s", ", ".join(f"{k}={getattr(args, k)}" for k in applied))
+    return args
+
+
+def _not_ported(flag: str, queue: str):
+    raise NotImplementedError(f"{flag} is not ported to rectpu_torch yet "
+                              f"(ROADMAP.md queue {queue})")
+
+
+def check_supported(args, model) -> None:
+    """Raise for every flag whose behaviour the port does not carry yet."""
+    if args.num_data_shards > 1 or args.num_model_shards > 1 or args.tp_mlp:
+        _not_ported("sharding (--num-data-shards/--num-model-shards/--tp-mlp)", "A12")
+    if (args.ep_peer_capacity is not None or args.ep_row_placement != "none"
+            or args.ep_comm_compress is not None):
+        _not_ported("EP options (--ep-peer-capacity/--ep-row-placement/--ep-comm-compress)",
+                    "A12")
+    if args.streaming_io:
+        _not_ported("--streaming-io", "A7")
+    if args.exporter != "latest":
+        _not_ported("--exporter best", "A7")
+    if args.autotune:
+        _not_ported("--autotune", "A13")
+    if args.profile_dir:
+        _not_ported("--profile-dir", "A13")
+    if args.table_store != "float32":
+        _not_ported("--table-store bfloat16", "A5")
+    mode = getattr(args, "fast_step", "off")
+    cols = model.cfg.embedding_size + (1 if model.use_linear else 0)
+    if mode == "on" or (mode == "auto" and model.cfg.padded_buckets * cols >= _FAST_STEP_ELEMS):
+        _not_ported("the sparse fast step (--fast-step)", "A11")
+
+
+def build_trainer(args, model, optimizer):
+    """Datasets + Trainer + exporter from parsed args and a model."""
+    from rectpu_torch.io.loader import CsvDataset
+    from rectpu_torch.serve.export import export_model
+    from rectpu_torch.train.loop import TrainConfig, Trainer
+
+    check_supported(args, model)
+    device = resolve_device(args.device)
+    if not args.restore:
+        shutil.rmtree(args.job_dir, ignore_errors=True)
+    Path(args.job_dir).mkdir(parents=True, exist_ok=True)
+    fs = model.cfg.feature_set
+    train_ds = CsvDataset(args.train_csv, fs)
+    eval_ds = CsvDataset(args.test_csv, fs)
+    config = TrainConfig(
+        batch_size=args.batch_size,
+        train_steps=args.train_steps,
+        eval_batch_size=args.eval_batch_size,
+        save_checkpoints_secs=args.save_checkpoints_secs,
+        save_checkpoints_steps=args.save_checkpoints_steps,
+        steps_per_loop=args.steps_per_loop,
+        seed=args.seed,
+        loss_reduction=args.loss_reduction,
+        eval_auc=args.eval_auc,
+        data_placement=args.data_placement,
+    )
+
+    def exporter(params, step):
+        export_model(params, model, args.job_dir, step)
+
+    trainer = Trainer(model, optimizer, train_ds, eval_ds, args.job_dir, config,
+                      exporter=exporter, device=device)
+    trainer.warm_start_from = args.warm_start_from
+    trainer.warm_start_vars = args.warm_start_vars
+    return trainer
+
+
+def run(args, model, optimizer):
+    """Build the trainer and train; returns (final metrics, trainer)."""
+    if args.table_dtype == "bfloat16" and optimizer.name != "Adam":
+        raise ValueError("--table-dtype bfloat16 requires the Adam optimizer")
+    trainer = build_trainer(args, model, optimizer)
+    metrics = trainer.train_and_evaluate(restore=args.restore)
+    logger.info("done: %s", metrics)
+    return metrics, trainer

@@ -1,0 +1,39 @@
+"""The uint32 counter hash that rectpu's stochastic rounding and hash dropout
+share (``rectpu/train/optimizers.py:64-69``, ``rectpu/models/base.py:114-134``).
+
+PyTorch on the CPU has no uint32 add, right shift or compare, so the hash runs
+on int64 tensors that hold uint32 values, masked to 32 bits after each step.
+``mul32`` multiplies by a 32-bit constant in two 16-bit halves, so no product
+leaves int64's range and every bit equals rectpu's uint32 arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``(a * c) mod 2**32`` for int64 ``a`` in [0, 2**32) and a constant
+    ``c`` in [0, 2**32)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def counter_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """rectpu's murmur-style hash of (element index, seed), as int64 in
+    [0, 2**32): ``h = idx*2654435761 + seed*0x9E3779B9``, then
+    ``h ^= h >> 16; h *= 0x85EBCA6B; h ^= h >> 13`` in uint32."""
+    h = (mul32(idx, 2654435761) + ((seed & MASK32) * 0x9E3779B9 & MASK32)) & MASK32
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x85EBCA6B)
+    return h ^ (h >> 13)
+
+
+def flat_index(shape, device) -> torch.Tensor:
+    """``iota(uint32, n).reshape(shape)`` as int64 (mod 2**32)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return (torch.arange(n, dtype=torch.int64, device=device) & MASK32).reshape(tuple(shape))

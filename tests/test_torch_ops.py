@@ -168,9 +168,9 @@ def test_export_roundtrip_matches_rectpu_checkpoint_format(tmp_path):
     from rectpu_torch.serve.export import load_model
 
     served = load_model(d, device="cpu")  # the port reads its own export back
-    assert served.model.table.dtype == torch.bfloat16
-    assert torch.equal(served.model.table[:, :4], tree["emb"])
-    assert torch.equal(served.model.mlp_2_kernel, tree["mlp"][2]["kernel"])
+    assert served.model.emb.dtype == torch.bfloat16  # the bf16 master, as stored
+    assert torch.equal(served.model.fused_table()[:, :4], tree["emb"])
+    assert torch.equal(served.model.mlp[2]["kernel"], tree["mlp"][2]["kernel"])
 
     np.savez(tmp_path / "jax.npz", **expected)
     flat = _load_flat_npz(tmp_path / "jax.npz")
@@ -180,8 +180,9 @@ def test_export_roundtrip_matches_rectpu_checkpoint_format(tmp_path):
 
 
 def test_convert_packed_equals_unpacked():
-    """Both tree forms carry across to the same fused [V, K+1] table."""
-    from rectpu_torch.convert import deep_fm_state
+    """Both tree forms carry across to the same fused [V, K+1] table, and the
+    other parameters to the same leaves."""
+    from rectpu_torch.convert import deep_fm_tree, load_deep_fm_params
     from rectpu_torch.features.schema import ml_100k_feature_set
     from rectpu_torch.models import DeepFMModel, TowerConfig
     from rectpu_torch.models.base import pack_fused_table
@@ -195,11 +196,15 @@ def test_convert_packed_equals_unpacked():
     w = rng.normal(size=(v,)).astype(np.float32)
     mlp = [{"kernel": rng.normal(size=s).astype(np.float32), "bias": np.zeros(s[1], np.float32)}
            for s in [(104, 16), (16, 16), (16, 1)]]
-    a = deep_fm_state(unpacked, {"emb": emb, "linear": {"w": w, "b": np.float32(0.5)},
-                                 "mlp": mlp}, "cpu")
+    load_deep_fm_params(unpacked, {"emb": emb, "linear": {"w": w, "b": np.float32(0.5)},
+                                   "mlp": mlp}, "cpu")
     table = pack_fused_table(torch.from_numpy(emb), torch.from_numpy(w)).numpy()
-    b = deep_fm_state(packed, {"table": table, "linear": {"b": np.float32(0.5)},
-                               "mlp": mlp}, "cpu")
-    assert a.keys() == b.keys()
-    for name in a:
-        assert torch.equal(a[name], b[name]), name
+    load_deep_fm_params(packed, {"table": table, "linear": {"b": np.float32(0.5)},
+                                 "mlp": mlp}, "cpu")
+    assert torch.equal(unpacked.fused_table(), packed.fused_table())
+    a, b = deep_fm_tree(unpacked), deep_fm_tree(packed)
+    assert torch.equal(a["linear"]["b"], b["linear"]["b"])
+    for la, lb in zip(a["mlp"], b["mlp"]):
+        assert la.keys() == lb.keys()
+        for name in la:
+            assert torch.equal(la[name], lb[name]), name

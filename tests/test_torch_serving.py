@@ -116,7 +116,7 @@ def test_bf16_predict_matches_rectpu_pallas(tmp_path):
                        embedding_impl="pallas", fm_impl="pallas", packed_linear=True)
     want = jax_load_model(d).predict(dict(FEATURES))
     served = load_model(d, device="cpu")
-    assert served.model.table.dtype == torch.bfloat16
+    assert served.model.table.dtype == torch.float32  # the fp32 master, cast per gather
     got = served.predict(dict(FEATURES))
     np.testing.assert_allclose(got["logits"], want["logits"], rtol=0, atol=2e-2)
 
@@ -159,16 +159,22 @@ def test_http_predict_through_port_server(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_rectpu():
-    """Every rectpu_torch module, and chip_smoke.py, import without pulling in
-    jax or any module of rectpu."""
+    """Every rectpu_torch module (the training slice's among them), and
+    chip_smoke.py, import without pulling in jax, any module of rectpu, or
+    pandas (the machine with the card has none)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rectpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(rectpu_torch.__path__, 'rectpu_torch.')]\n"
-        "assert len(mods) > 15, mods\n"
+        "need = {'rectpu_torch.ops.scatter_rows', 'rectpu_torch.ops.fused_adam',\n"
+        "        'rectpu_torch.train.optimizers', 'rectpu_torch.train.loop',\n"
+        "        'rectpu_torch.io.loader', 'rectpu_torch.data.synthetic',\n"
+        "        'rectpu_torch.trainers.common', 'rectpu_torch.trainers.deep_fm'}\n"
+        "assert need <= set(mods) and len(mods) > 25, mods\n"
         "for name in mods: importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rectpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'rectpu', 'pandas')]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
