@@ -22,6 +22,16 @@ failed check raises, and the script exits nonzero without the final line:
    the strided view; fused Adam at both table sizes with fp32 slots and
    with bf16 m / stochastically rounded bf16 v, fp32 and bf16 masters,
    within 1 ulp of the plain version and bitwise equal across two launches.
+   DLRM and xDeepFM kernels against their plain versions: the pair-dot
+   interaction at B in {1, 7, 512, 8192} x 26 or 27 vectors (a numeric one
+   appended), K=64, fp32 and bf16, itself both ways, exact and rounded
+   products; the CIN contraction at H in {26, 64}, M=26, O=64, K=64,
+   B=37, 128 and 8192 (rows 0-511 against the plain version, which forms
+   the expansion), forward and both transposed-weight calls, legacy and
+   K-major strided views; the CIN weight gradient at the same shapes (1, 2
+   and 128 slices) against an fp64 oracle built in 512-row blocks, within
+   a per-element fp32 bound of the kernel's order and DW_REL_L2 relative L2,
+   and bitwise equal across two launches.
 4. Serving path: DeepFM at the flagship widths (K=64, hidden [256, 128])
    from a seeded torch.Generator, in bf16 and in fp32, written by the port's
    export_model and served by the port's HTTP server (micro-batching on) on
@@ -29,22 +39,31 @@ failed check raises, and the script exits nonzero without the final line:
    burst, /healthz and /metrics, each checked against a device="cpu"
    ServingModel of the same export; both kernels' launch counts must grow.
    Then /predict latency, the host/device split of one 512-instance request
-   and the device's busy time in one forward (torch.profiler).
+   and the device's busy time in one forward (torch.profiler). The same for
+   a DLRM export (one numeric column through a [64] bottom MLP; lookup and
+   interaction counts must grow) and an xDeepFM export (CIN (64, 64),
+   packed table; lookup and CIN counts), bf16 and fp32.
 5. Training path: the trainer CLI (rectpu_torch.trainers.deep_fm,
    --preset scaled, K=64, [256, 128], batch 4096) on a synthetic ml-100k
    CSV written by the port's generator: every step's loss finite, the last
    steps' mean loss below the first steps', the final AUC in [0, 1], and the
    lookup, FM, FM-backward and scatter launch counts grown. The export it
-   writes is then served on the card and answers one /predict.
+   writes is then served on the card and answers one /predict. Then the
+   DLRM and xDeepFM trainer CLIs the same way (lookup, scatter and
+   interaction, or CIN and CIN-dw counts grown).
 6. Flagship step: bench.py's configuration (310k-row table, batch 8192,
    bf16 towers and table gradient, hash dropout, Adam with bf16 m and
    stochastically rounded v, the table on the fused kernel): the step's
    median time and examples/s, launches per step (the fused-Adam count must
    grow), and one step's table and MLP gradients against the same step on
-   a CPU copy of the port (dropout 0, same weights).
+   a CPU copy of the port (dropout 0, same weights). Then the DLRM-flat and
+   xDeepFM zoo steps (benchmarks/_bench_zoo.py:79-112, batch 8192): median
+   wall, examples/s, launches per step, the device's busy time, and one
+   step's gradients against a CPU copy (xDeepFM on 512 rows).
 7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
-   where one PyTorch call computes the same function, that call.
+   where one PyTorch call computes the same function, that call (for the
+   interaction, torch.bmm forming the full z, a superset of the work).
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -68,7 +87,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rectpu_torch.convert import deep_fm_tree, flat_params, load_deep_fm_params
+from rectpu_torch.convert import flat_params, load_params, params_tree
 from rectpu_torch.data.synthetic import write_synthetic_dataset
 from rectpu_torch.device import resolve_device
 from rectpu_torch.features.schema import (
@@ -81,19 +100,24 @@ from rectpu_torch.features.schema import (
     ml_100k_feature_set,
 )
 from rectpu_torch.kernels import build
-from rectpu_torch.models import DeepFMModel, TowerConfig
+from rectpu_torch.models import DeepFMModel, DLRMModel, TowerConfig, XDeepFMModel
+from rectpu_torch.ops import cin as cin_ops
 from rectpu_torch.ops import embedding as emb_ops
 from rectpu_torch.ops import fm as fm_ops
 from rectpu_torch.ops import fused_adam as adam_ops
+from rectpu_torch.ops import interaction as int_ops
 from rectpu_torch.ops import scatter_rows as scatter_ops
 from rectpu_torch.serve.export import export_model, latest_export, load_model
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
 from rectpu_torch.train.loop import TrainConfig, Trainer
 from rectpu_torch.train.optimizers import BF16_SR, adam
 from rectpu_torch.trainers import deep_fm as deep_fm_cli
+from rectpu_torch.trainers import dlrm as dlrm_cli
+from rectpu_torch.trainers import xdeep_fm as xdeep_fm_cli
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 V_ROWS, WIDTH, FIELDS, K = 4224, 65, 26, 64  # served ml-100k table, flagship K
 
 # tolerances against the plain version / the CPU reference, with reasons
@@ -104,8 +128,14 @@ BF16_LOGIT_ATOL, BF16_LOGIT_RTOL = 2e-2, 1e-2  # bf16 activations may round one 
 FP32_EPS = 2.0 ** -24  # unit roundoff of fp32
 FM_BWD_RTOL = 1e-5  # fp32 S summed in another order; relative to |g| * sum_f |v|
 GRAD_REL_L2 = 1e-2  # card vs CPU gradient, relative L2 per leaf: ~2 bf16 ulps (2^-8)
+# cin_dw vs its fp64 oracle, relative L2: the kernel's fp32 sums run 4096-row
+# slices; on an H100 the bf16 tensor-core path truncates its fp32 adds, a
+# systematic shrink of ~4e-6, while one dropped row of 524,288 moves it ~1.4e-3
+DW_REL_L2 = 1e-5
 TRAIN_BATCH, TRAIN_STEPS = 4096, 40  # the trainer CLI phase
 FLAGSHIP_BATCH, FLAGSHIP_STEPS = 8192, 20
+CIN_O = 64  # xDeepFM's cin_units (64, 64)
+ZOO_CLI_STEPS, ZOO_STEPS = 30, 10  # the DLRM / xDeepFM trainer CLIs and zoo steps
 
 
 class SmokeFailure(AssertionError):
@@ -348,6 +378,134 @@ def check_train_kernels(dev, gen) -> dict:
     return errs
 
 
+# --- phase 3b: the DLRM and xDeepFM kernels against their plain versions -----
+
+
+def interaction_tolerance(x: torch.Tensor, n: int, itself: bool) -> torch.Tensor:
+    """|kernel - plain| allowed per output: both sum K products in fp32 in
+    other orders, each within K * 2^-24 * sum_k |a_k b_k| of the exact sum."""
+    v = x.double().reshape(x.shape[0], n, -1)
+    iu, ju = (torch.from_numpy(a).to(x.device) for a in int_ops.pairs(n, itself))
+    return 2 * v.shape[2] * FP32_EPS * (v[:, iu].abs() * v[:, ju].abs()).sum(-1)
+
+
+def cin_tolerance(a, c, w, layout, want, n_terms) -> torch.Tensor:
+    """|kernel - plain| allowed per output of the contraction: both sum the
+    same rounded products in fp32 in other orders (n_terms each, within
+    n * 2^-24 * sum |terms| of the exact sum), plus one bf16 ulp of the
+    value when the result is bf16 (the two fp32 sums may round apart)."""
+    mag = cin_ops.cin_plain(a.float().abs(), c.float().abs(), w.float().abs(), layout)
+    tol = 2 * n_terms * FP32_EPS * mag.double()
+    if want.dtype == torch.bfloat16:
+        tol = tol + BF16_REL_ULP * want.double().abs()
+    return tol
+
+
+def dw_oracle(x, y, g, layout, block: int = 512):
+    """(fp64 sums, fp64 sums of |terms|) of the weight gradient, from the
+    products rounded to x's dtype as the kernel rounds them, summed over
+    batch blocks of ``block`` rows so the [block, H, M, K] expansion stays
+    small at B=8192."""
+    xb, yb, gb = (cin_ops._bok(t, layout) for t in (x, y, g))
+    exact = mag = 0.0
+    for s in range(0, xb.shape[0], block):
+        z = cin_ops._expand(xb[s:s + block], yb[s:s + block]).double()
+        g64 = gb[s:s + block].double()
+        exact = exact + torch.einsum("bhmk,bok->hmo", z, g64)
+        mag = mag + torch.einsum("bhmk,bok->hmo", z.abs(), g64.abs())
+    return exact, mag
+
+
+def check_dw(got, x, y, g, layout, label: str) -> tuple[float, float]:
+    """Hold one cin_dw result to the fp64 oracle, element by element and as
+    a whole; returns (largest absolute error, relative L2 error)."""
+    exact, mag = dw_oracle(x, y, g, layout)
+    slices, per = cin_ops.dw_slices(x.shape[0] * cin_ops._bok(x, layout).shape[2])
+    err = (got.double() - exact).abs()
+    # each term goes through one fp32 product and at most per + slices fp32
+    # adds in the kernel's order; 2^-23 an operation, as tensor cores may
+    # truncate their fp32 adds instead of rounding to nearest
+    tol = (per + slices + 1) * 2 * FP32_EPS * mag
+    check(bool((err <= tol).all()), f"cin_dw {label}: max err {err.max().item()} beyond "
+                                    "its per-element bound")
+    rel = (torch.linalg.vector_norm(err) / torch.linalg.vector_norm(exact)).item()
+    check(rel <= DW_REL_L2, f"cin_dw {label}: relative L2 error {rel} > {DW_REL_L2}")
+    return err.max().item(), rel
+
+
+def check_zoo_kernels(dev, gen) -> dict:
+    errs = {"interaction": 0.0, "cin": 0.0, "cin_dw": 0.0, "cin_dw_rel_l2": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (FIELDS, FIELDS + 1):  # F fields, and a numeric vector appended
+            for b in (1, 7, 512, FLAGSHIP_BATCH):
+                x = torch.randn(b, n * K, generator=gen).to(dtype).to(dev)
+                for itself in (False, True):
+                    tol = interaction_tolerance(x, n, itself)
+                    for rounded in (False, True):
+                        got = int_ops.interact_cuda(x, n, K, itself, rounded)
+                        want = int_ops.interact_plain(x, n, K, itself, rounded)
+                        torch.cuda.synchronize()
+                        check(got.shape == want.shape and got.dtype == torch.float32,
+                              f"interaction shape/dtype {tuple(got.shape)} {got.dtype}")
+                        err = (got.double() - want.double()).abs()
+                        check(bool((err <= tol).all()),
+                              f"interaction {dtype} B={b} n={n} itself={itself} "
+                              f"rounded={rounded}: max err {err.max().item()}")
+                        errs["interaction"] = max(errs["interaction"], err.max().item())
+        print(f"check: interaction {dtype} B=1,7,512,{FLAGSHIP_BATCH} n={FIELDS},{FIELDS + 1} "
+              f"K={K}, itself both ways, exact and rounded products: within tolerance of "
+              f"plain (max abs err so far {errs['interaction']:.3g})")
+
+    rows = slice(0, 512)  # the plain version forms the expansion: compare a slice at B=8192
+    for dtype in (torch.float32, torch.bfloat16):
+        for h in (FIELDS, CIN_O):
+            w = (torch.randn(h, FIELDS, CIN_O, generator=gen)
+                 * (2.0 / (h * FIELDS + CIN_O)) ** 0.5).to(dtype).to(dev)
+            for b in (37, 128, FLAGSHIP_BATCH):  # dw in 1, 2 and 128 slices
+                x = torch.randn(b, h, K, generator=gen).to(dtype).to(dev)
+                # y as the model hands it over: looked[..., :K] of the fused gather
+                y = torch.randn(b, FIELDS, K + 1, generator=gen).to(dtype).to(dev)[..., :K]
+                g = torch.randn(b, CIN_O, K, generator=gen).to(dtype).to(dev)
+                for layout in cin_ops.LAYOUTS:
+                    if layout == "kmajor":  # [B, K, *] views, as x0 = emb.transpose(1, 2)
+                        xa, ya, ga = (t.transpose(1, 2) for t in (x, y, g))
+                    else:
+                        xa, ya, ga = x, y, g
+                    calls = {"forward": (xa, ya, w), "dx": (ga, ya, w.permute(2, 1, 0)),
+                             "dy": (ga, xa, w.permute(2, 0, 1))}
+                    for name, (a, c, ww) in calls.items():
+                        got = cin_ops.cin_cuda(a, c, ww, layout)
+                        want = cin_ops.cin_plain(a[rows], c[rows], ww, layout)
+                        torch.cuda.synchronize()
+                        check(got.dtype == dtype and got.shape[0] == b, "cin shape/dtype")
+                        tol = cin_tolerance(a[rows], c[rows], ww, layout, want,
+                                            ww.shape[0] * ww.shape[1])
+                        err = (got[rows].double() - want.double()).abs()
+                        check(bool((err <= tol).all()),
+                              f"cin {name} {dtype} {layout} H={h} B={b}: max err "
+                              f"{err.max().item()}")
+                        errs["cin"] = max(errs["cin"], err.max().item())
+                    got = cin_ops.cin_dw_cuda(xa, ya, ga, layout)
+                    again = cin_ops.cin_dw_cuda(xa, ya, ga, layout)
+                    torch.cuda.synchronize()
+                    check(got.shape == (h, FIELDS, CIN_O) and got.dtype == torch.float32,
+                          "cin_dw shape/dtype")
+                    check(same_bits(got, again), f"cin_dw {dtype} {layout} H={h} B={b}: two "
+                                                 "launches differ")
+                    err, rel = check_dw(got, xa, ya, ga, layout,
+                                        f"{dtype} {layout} H={h} B={b}")
+                    errs["cin_dw"] = max(errs["cin_dw"], err)
+                    errs["cin_dw_rel_l2"] = max(errs["cin_dw_rel_l2"], rel)
+        print(f"check: cin {dtype} H={FIELDS},{CIN_O} M={FIELDS} O={CIN_O} K={K} B=37,128,"
+              f"{FLAGSHIP_BATCH} (rows 0-511 against plain), forward and both transposed-"
+              f"weight calls, legacy and K-major strided views: within tolerance (max abs err "
+              f"{errs['cin']:.3g}); cin_dw in 1, 2 and 128 slices within its per-element "
+              f"fp32 bound and {DW_REL_L2:g} relative L2 of the fp64 oracle, bitwise equal "
+              f"across launches (max abs err {errs['cin_dw']:.3g}, max relative L2 "
+              f"{errs['cin_dw_rel_l2']:.3g})")
+    return errs
+
+
 # --- phase 4: the serving path ----------------------------------------------
 
 
@@ -361,6 +519,28 @@ def make_export(job_dir: Path, compute_dtype, gen) -> Path:
     # linear column of the fused gather)
     params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
     params["linear"]["b"] = torch.tensor(0.1)
+    return export_model(params, model, job_dir, step=1)
+
+
+def make_zoo_export(job_dir: Path, family: str, compute_dtype, gen) -> Path:
+    """A DLRM or xDeepFM export at the flagship widths (K=64, hidden [256, 128])
+    from a seeded generator: DLRM with one numeric column through a [64]
+    bottom MLP (27 interacting vectors), xDeepFM with CIN (64, 64) and a
+    packed table with random linear weights."""
+    if family == "dlrm":
+        cfg = TowerConfig(feature_set=ml_100k_feature_set(numeric=("action",)),
+                          embedding_size=K, hidden_units=(256, 128),
+                          compute_dtype=compute_dtype)
+        model = DLRMModel(cfg, bot_hidden_units=(64,))
+        params = model.init(gen)
+    else:
+        cfg = TowerConfig(feature_set=ml_100k_feature_set(), embedding_size=K,
+                          hidden_units=(256, 128), compute_dtype=compute_dtype,
+                          packed_linear=True)
+        model = XDeepFMModel(cfg, cin_units=(CIN_O, CIN_O))
+        params = model.init(gen)
+        params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
+        params["linear"]["b"] = torch.tensor(0.1)
     return export_model(params, model, job_dir, step=1)
 
 
@@ -412,8 +592,10 @@ def check_predictions(preds: list, instances: list, ref, label: str, atol, rtol)
     return float(err.max())
 
 
-def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes) -> dict:
-    """Serve one export on the card, drive /predict, hold it against the CPU."""
+def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
+                    counters=(emb_ops.launches, fm_ops.launches)) -> dict:
+    """Serve one export on the card, drive /predict, hold it against the CPU;
+    every kernel in ``counters`` must be launched by the requests."""
     ref = load_model(export_dir, device="cpu")
     httpd, served = make_server(export_dir=str(export_dir), port=0, device="cuda",
                                 batch_window_ms=2.0)
@@ -425,8 +607,8 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes) -> d
                   else (FP32_LOGIT_ATOL, 0.0))
     out = {"max_logit_err": 0.0}
     try:
-        emb_ops.launches.reset()
-        fm_ops.launches.reset()
+        for c in counters:
+            c.reset()
         bodies = [make_instances(rng, n) for n in (1, 8, 64)]
         replies = [post(base, "/predict", {"instances": b})["predictions"] for b in bodies]
         # a concurrent burst, which the micro-batcher coalesces
@@ -444,8 +626,7 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes) -> d
         check(all(r is not None for r in burst_replies), f"{label}: burst request failed")
         check(get(base, "/healthz") == b"ok", "/healthz")
         metrics = json.loads(get(base, "/metrics"))
-        out["launches"] = {"embedding_lookup": emb_ops.launches.value,
-                           "fm_cross": fm_ops.launches.value}
+        out["launches"] = {c.name: c.value for c in counters}
         out["metrics"] = metrics
         for name, n in out["launches"].items():
             check(n > 0, f"{label}: kernel {name} was not launched on the main path")
@@ -527,36 +708,38 @@ def profile_forward(model, instances: list, reps: int = 20) -> dict:
 # --- phase 5: the training path (the trainer CLI) -------------------------
 
 
-def train_cli(work: Path, seed: int) -> dict:
-    """Train through the trainer CLI on the card, then serve its export."""
-    data = write_synthetic_dataset(work / "data", train_rows=100_000, test_rows=10_000,
-                                   seed=seed)
-    job_dir = work / "train_job"
+def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
+              counters=(emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+                        scatter_ops.launches), steps: int = TRAIN_STEPS) -> dict:
+    """Train through a trainer CLI on the card, then serve its export."""
+    data_dir = work / "data"
+    if not (data_dir / "train.csv").exists():
+        write_synthetic_dataset(data_dir, train_rows=100_000, test_rows=10_000, seed=seed)
+    job_dir = work / f"train_job_{label}"
     argv = ["--preset", "scaled", "--embedding-size", str(K), "--hidden-units", "256", "128",
-            "--batch-size", str(TRAIN_BATCH), "--train-steps", str(TRAIN_STEPS),
-            "--save-checkpoints-steps", str(TRAIN_STEPS), "--steps-per-loop", "10",
-            "--train-csv", data["train"], "--test-csv", data["test"],
+            "--batch-size", str(TRAIN_BATCH), "--train-steps", str(steps),
+            "--save-checkpoints-steps", str(steps), "--steps-per-loop", "10",
+            "--train-csv", str(data_dir / "train.csv"), "--test-csv", str(data_dir / "test.csv"),
             "--job-dir", str(job_dir), "--device", "cuda", "--seed", str(seed)]
-    args = deep_fm_cli.build_parser().parse_args(argv)
-    counters = (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, scatter_ops.launches)
+    args = cli.build_parser().parse_args(argv)
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics, trainer = deep_fm_cli.train_and_evaluate(args)
+    metrics, trainer = cli.train_and_evaluate(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {c.name: c.value for c in counters}
     losses = trainer.step_losses
-    check(len(losses) == TRAIN_STEPS, f"trainer CLI recorded {len(losses)} step losses")
-    check(all(np.isfinite(losses)), f"trainer CLI: a non-finite loss in {losses}")
+    check(len(losses) == steps, f"{label} trainer CLI recorded {len(losses)} step losses")
+    check(all(np.isfinite(losses)), f"{label} trainer CLI: a non-finite loss in {losses}")
     head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    check(tail < head, f"trainer CLI: loss did not fall (first 10 steps {head:.4f}, "
+    check(tail < head, f"{label} trainer CLI: loss did not fall (first 10 steps {head:.4f}, "
                        f"last 10 {tail:.4f})")
     auc = metrics["auc"]
-    check(bool(np.isfinite(auc)) and 0.0 <= auc <= 1.0, f"trainer CLI: final AUC {auc}")
+    check(bool(np.isfinite(auc)) and 0.0 <= auc <= 1.0, f"{label} trainer CLI: final AUC {auc}")
     for name, n in launches.items():
-        check(n > 0, f"trainer CLI: kernel {name} was not launched on the training path")
+        check(n > 0, f"{label} trainer CLI: kernel {name} was not launched on the training path")
 
     export_dir = latest_export(job_dir)
     check(export_dir is not None, "trainer CLI wrote no export")
@@ -573,9 +756,9 @@ def train_cli(work: Path, seed: int) -> dict:
         httpd.server_close()
         served.close()
         thread.join(timeout=30)
-    check(not thread.is_alive(), "trained-export server thread did not stop")
+    check(not thread.is_alive(), f"{label} trained-export server thread did not stop")
     check(len(preds) == 1 and 0.0 <= preds[0]["probabilities"] <= 1.0
-          and np.isfinite(preds[0]["logits"]), f"trained export /predict: {preds}")
+          and np.isfinite(preds[0]["logits"]), f"{label} trained export /predict: {preds}")
     return {"launches": launches, "losses": losses, "loss_first10": head, "loss_last10": tail,
             "metrics": metrics, "seconds": seconds, "export": export_dir.name,
             "predict": preds[0]}
@@ -595,24 +778,25 @@ def flagship_model(dropout: float, device, gen=None, params=None) -> DeepFMModel
     if params is None:
         params = model.init(gen)
         params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
-    return load_deep_fm_params(model, params, device)
+    return load_params(model, params, device)
 
 
 def flagship_trainer(model, work: Path) -> Trainer:
     opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR},
                fused_leaves=("table",))
     trainer = Trainer(model, opt, None, None, work / "flagship",
-                      TrainConfig(batch_size=FLAGSHIP_BATCH, seed=0), device=model.table.device)
+                      TrainConfig(batch_size=FLAGSHIP_BATCH, seed=0),
+                      device=next(model.parameters()).device)
     trainer.opt_state = opt.init(flat_params(model))
     return trainer
 
 
-def flagship_batch(rng, dev) -> dict:
+def flagship_batch(rng, dev, rows: int | None = None) -> dict:
     fs = bench_feature_set()
-    return {"cat_ids": torch.from_numpy(random_ids(fs, FLAGSHIP_BATCH, rng)).to(dev),
-            "num_vals": torch.zeros(FLAGSHIP_BATCH, 0, device=dev),
-            "labels": torch.from_numpy((rng.random(FLAGSHIP_BATCH) < 0.2)
-                                       .astype(np.float32)).to(dev)}
+    rows = rows or FLAGSHIP_BATCH
+    return {"cat_ids": torch.from_numpy(random_ids(fs, rows, rng)).to(dev),
+            "num_vals": torch.zeros(rows, 0, device=dev),
+            "labels": torch.from_numpy((rng.random(rows) < 0.2).astype(np.float32)).to(dev)}
 
 
 def flagship_step(dev, gen, work: Path) -> dict:
@@ -686,13 +870,19 @@ def check_flagship_grads(dev, gen, work: Path) -> dict:
     it; the check is a relative L2 distance per leaf (GRAD_REL_L2) and the
     loss within 1e-2 relative."""
     card = flagship_model(0.0, dev, gen=gen)
-    cpu = flagship_model(0.0, "cpu", params=deep_fm_tree(card))
+    cpu = flagship_model(0.0, "cpu", params=params_tree(card))
     batch = flagship_batch(np.random.default_rng(3), dev)
+    return grads_card_vs_cpu(card, cpu, batch, lambda m: flagship_trainer(m, work), "flagship")
+
+
+def grads_card_vs_cpu(card, cpu, batch: dict, make_trainer, label: str) -> dict:
+    """Loss and gradients of one step of the same model on the card and on
+    the CPU (the plain versions), held to GRAD_REL_L2 per leaf."""
     out = {}
     grads = {}
     for name, model, b in (("cuda", card, batch),
                            ("cpu", cpu, {k: v.cpu() for k, v in batch.items()})):
-        trainer = flagship_trainer(model, work / name)
+        trainer = make_trainer(model)
         for p in flat_params(model).values():
             p.grad = None
         loss = trainer.loss(b, train=True, step=0)
@@ -700,14 +890,90 @@ def check_flagship_grads(dev, gen, work: Path) -> dict:
         out[f"loss_{name}"] = float(loss.detach())
         grads[name] = {k: p.grad.detach().cpu().double() for k, p in flat_params(model).items()}
     check(abs(out["loss_cuda"] - out["loss_cpu"]) <= 1e-2 * abs(out["loss_cpu"]),
-          f"flagship loss card {out['loss_cuda']} vs CPU {out['loss_cpu']}")
+          f"{label} loss card {out['loss_cuda']} vs CPU {out['loss_cpu']}")
     out["rel_l2"] = {}
     for k, g_cpu in grads["cpu"].items():
         g_card = grads["cuda"][k]
         rel = float((g_card - g_cpu).norm() / max(g_cpu.norm(), 1e-30))
         out["rel_l2"][k] = rel
-        check(rel <= GRAD_REL_L2, f"flagship grad {k}: relative L2 {rel:.3g} card vs CPU")
+        check(rel <= GRAD_REL_L2, f"{label} grad {k}: relative L2 {rel:.3g} card vs CPU")
     return out
+
+
+# --- phase 6b: the DLRM and xDeepFM zoo steps --------------------------------
+
+
+def zoo_model(family: str, dropout: float, device, gen=None, params=None):
+    """The scaled zoo configuration of benchmarks/_bench_zoo.py:79-112 (the
+    310k-row hashed table, K=64, [256, 128], bf16 towers and table
+    cotangent, flat layout, DLRM's [64] bottom MLP or xDeepFM's CIN (64, 64)
+    with a packed table), from ``params`` or a fresh seeded init."""
+    cfg = TowerConfig(feature_set=bench_feature_set(), embedding_size=K,
+                      hidden_units=(256, 128), dropout=dropout, compute_dtype="bfloat16",
+                      table_grad_dtype="bfloat16", flat_layout=True, scatter_impl="mxu",
+                      table_padding=2048, packed_linear=family == "xdeep_fm")
+    model = DLRMModel(cfg) if family == "dlrm" else XDeepFMModel(cfg)
+    if params is None:
+        params = model.init(gen)
+        if family == "xdeep_fm":
+            params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
+    return load_params(model, params, device)
+
+
+def zoo_trainer(model, work: Path, batch: int) -> Trainer:
+    """The zoo's optimizer: Adam with bf16 m and stochastically rounded bf16 v."""
+    opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR})
+    device = next(model.parameters()).device
+    trainer = Trainer(model, opt, None, None, work / f"zoo_{model.name}_{device.type}",
+                      TrainConfig(batch_size=batch, seed=0), device=device)
+    trainer.opt_state = opt.init(flat_params(model))
+    return trainer
+
+
+def zoo_counters(family: str) -> tuple:
+    own = (int_ops.launches,) if family == "dlrm" else (cin_ops.launches, cin_ops.dw_launches)
+    return (emb_ops.launches, *own, scatter_ops.launches)
+
+
+def zoo_step(family: str, dev, gen, work: Path) -> dict:
+    """The zoo step on the card: median step time, launches per step, the
+    device's busy time."""
+    trainer = zoo_trainer(zoo_model(family, 0.1, dev, gen=gen), work, FLAGSHIP_BATCH)
+    rng = np.random.default_rng(6)
+    batches = [flagship_batch(rng, dev) for _ in range(4)]
+    for i in range(3):
+        trainer.train_step(batches[i % 4], i)
+    torch.cuda.synchronize()
+    counters = zoo_counters(family)
+    for c in counters:
+        c.reset()
+    times, losses = [], []
+    for i in range(ZOO_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step(batches[i % 4], 3 + i))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = {c.name: c.value for c in counters}
+    losses = torch.stack(losses).float().cpu().tolist()
+    check(all(np.isfinite(losses)), f"{family} zoo step: non-finite loss {losses}")
+    for name, n in launches.items():
+        check(n > 0, f"{family} zoo step: kernel {name} was not launched")
+    profile = profile_step(trainer, batches[0])
+    ms = statistics.median(times)
+    return {"step_ms": ms, "examples_per_s": FLAGSHIP_BATCH / (ms / 1e3), "launches": launches,
+            "launches_per_step": {k: v / ZOO_STEPS for k, v in launches.items()},
+            "losses": losses, "profile": profile}
+
+
+def check_zoo_grads(family: str, dev, gen, work: Path, rows: int) -> dict:
+    """One step's gradients on the card against a CPU copy of the port, same
+    weights, same ``rows``-row batch, dropout 0 (see check_flagship_grads)."""
+    card = zoo_model(family, 0.0, dev, gen=gen)
+    cpu = zoo_model(family, 0.0, "cpu", params=params_tree(card))
+    batch = flagship_batch(np.random.default_rng(7), dev, rows=rows)
+    return grads_card_vs_cpu(card, cpu, batch, lambda m: zoo_trainer(m, work, rows), family)
 
 
 # --- phase 7: times ---------------------------------------------------------
@@ -780,10 +1046,10 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
     return floor, rows
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    operations over ``peak`` operations per second (default: the fp32 rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -851,6 +1117,64 @@ def time_train_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+def time_zoo_kernels(dev, gen) -> list[dict]:
+    """CUDA-event times of the DLRM and xDeepFM kernels at the zoo step's
+    shapes (B=8192, K=64: the interaction over 26 fields, the CIN's two
+    layers and their weight gradients)."""
+    flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    b = FLAGSHIP_BATCH
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.empty((), dtype=dtype).element_size()
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        name = str(dtype).split(".")[-1]
+        x = torch.randn(b, FIELDS * K, generator=gen).to(dtype).to(dev)
+        v3 = x.reshape(b, FIELDS, K)
+        p = int_ops.num_pairs(FIELDS, False)
+        ms_b, by = bound(b * FIELDS * K * es + b * p * 4, 2 * b * p * K)
+        rows.append({
+            "name": "interaction", "dtype": name, "batch": b, "shape": f"F={FIELDS} K={K}",
+            "ms": time_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), flush),
+            "warm_ms": time_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), None),
+            "plain_ms": time_ms(lambda: int_ops.interact_plain(x, FIELDS, K, False, True),
+                                flush, iters=10),
+            "library_ms": time_ms(lambda: torch.bmm(v3, v3.transpose(1, 2)), flush),
+            "library": "torch.bmm forming the full z (a superset of the work)",
+            "bound_ms": ms_b, "bound_by": by,
+        })
+        for h in (FIELDS, CIN_O):  # layer 1 (x = x0) and layer 2 of CIN (64, 64)
+            xx = torch.randn(b, h, K, generator=gen).to(dtype).to(dev)
+            yy = torch.randn(b, FIELDS, K, generator=gen).to(dtype).to(dev)
+            w = (torch.randn(h, FIELDS, CIN_O, generator=gen) * 0.05).to(dtype).to(dev)
+            gg = torch.randn(b, CIN_O, K, generator=gen).to(dtype).to(dev)
+            flops = 2 * b * K * h * FIELDS * CIN_O
+            ms_b, by = bound((xx.numel() + yy.numel() + w.numel() + b * CIN_O * K) * es,
+                             flops, peak)
+            rows.append({
+                "name": "cin", "dtype": name, "batch": b, "shape": f"H={h}",
+                "ms": time_ms(lambda: cin_ops.cin_cuda(xx, yy, w), flush),
+                "warm_ms": time_ms(lambda: cin_ops.cin_cuda(xx, yy, w), None),
+                "plain_ms": time_ms(lambda: cin_ops.cin_plain(xx, yy, w), flush, iters=3),
+                "library_ms": time_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", xx, yy, w),
+                                      flush, iters=10),
+                "library": "torch.einsum of the same contraction",
+                "bound_ms": ms_b, "bound_by": by,
+            })
+            ms_b, by = bound((xx.numel() + yy.numel() + gg.numel()) * es
+                             + h * FIELDS * CIN_O * 4, flops, peak)
+            rows.append({
+                "name": "cin_dw", "dtype": name, "batch": b, "shape": f"H={h}",
+                "ms": time_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), flush),
+                "warm_ms": time_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), None),
+                "plain_ms": time_ms(lambda: cin_ops.cin_dw_plain(xx, yy, gg), flush, iters=3),
+                "library_ms": time_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, yy, gg),
+                                      flush, iters=10),
+                "library": "torch.einsum of the same contraction",
+                "bound_ms": ms_b, "bound_by": by,
+            })
+    return rows
+
+
 def profile_scatter(dev, gen) -> dict:
     """Device time of each kernel one scatter_rows_cuda call launches (the
     stable sort, the chunk pass, the finish pass), at both stream sizes."""
@@ -887,6 +1211,10 @@ KERNELS = {
                      "rectpu/ops/scatter_rows.py:78, rectpu/ops/scatter_rows.py:123, "
                      "rectpu/ops/embedding.py:81"),
     "fused_adam": ("rectpu_torch/kernels/csrc/fused_adam.cu", "rectpu/ops/fused_adam.py:51"),
+    "interaction": ("rectpu_torch/kernels/csrc/interaction.cu",
+                    "rectpu/ops/interaction.py:55, rectpu/ops/interaction.py:77"),
+    "cin": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:70, rectpu/ops/cin.py:88"),
+    "cin_dw": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:101"),
 }
 
 
@@ -917,6 +1245,7 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     errs = check_kernels(dev, gen)
     errs.update(check_train_kernels(dev, gen))
+    errs.update(check_zoo_kernels(dev, gen))
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     main_path = {}
@@ -941,6 +1270,21 @@ def main(argv=None) -> int:
             print(f"profile {label}: {prof['instances']}-row forward {prof['wall_ms']:.3f} ms "
                   f"wall, device busy {busy}; top kernels "
                   f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]} [{gpu}]")
+        # DLRM (lookup + interaction) and xDeepFM (lookup + CIN) exports
+        for family in ("dlrm", "xdeep_fm"):
+            own = int_ops.launches if family == "dlrm" else cin_ops.launches
+            for compute, tag in (("bfloat16", "bf16"), (None, "fp32")):
+                label = f"{family}_k64_{tag}"
+                export_dir = make_zoo_export(work / label, family, compute, gen)
+                res = main_path[label] = serve_and_check(export_dir, label, args.seed, (1, 512),
+                                                         (emb_ops.launches, own))
+                prof = res["forward_profile"]
+                print(f"serving path {label}: launches {res['launches']} over "
+                      f"{res['metrics']['batches_dispatched']} device batches, max |logit - "
+                      f"CPU| {res['max_logit_err']:.3g}; /predict median ms "
+                      f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; "
+                      f"{prof['instances']}-row forward {prof['wall_ms']:.3f} ms wall, device "
+                      f"busy {prof['device_busy_ms']} ms [{gpu}]")
 
         # 5. the training path: the trainer CLI, then its export served
         train = main_path["train_cli"] = train_cli(work, args.seed)
@@ -949,6 +1293,15 @@ def main(argv=None) -> int:
               f"first 10 steps {train['loss_first10']:.5f}, last 10 {train['loss_last10']:.5f}; "
               f"final eval {train['metrics']}; {train['seconds']:.2f} s with data load and "
               f"evals; its export answered /predict {train['predict']} [{gpu}]")
+        for family, cli in (("dlrm", dlrm_cli), ("xdeep_fm", xdeep_fm_cli)):
+            train = main_path[f"train_cli_{family}"] = train_cli(
+                work, args.seed, cli, family, zoo_counters(family), steps=ZOO_CLI_STEPS)
+            print(f"training path ({family} trainer CLI, preset scaled, K={K}, [256, 128], "
+                  f"batch {TRAIN_BATCH}, {ZOO_CLI_STEPS} steps): launches {train['launches']}; "
+                  f"mean loss first 10 steps {train['loss_first10']:.5f}, last 10 "
+                  f"{train['loss_last10']:.5f}; final eval {train['metrics']}; "
+                  f"{train['seconds']:.2f} s with data load and evals; its export answered "
+                  f"/predict {train['predict']} [{gpu}]")
 
         # 6. the flagship step
         flag = main_path["flagship_step"] = flagship_step(dev, gen, work)
@@ -966,12 +1319,29 @@ def main(argv=None) -> int:
         print(f"check: flagship step gradients card vs CPU: loss {grads['loss_cuda']:.6f} vs "
               f"{grads['loss_cpu']:.6f}; relative L2 per leaf "
               f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
+
+        # 6b. the DLRM and xDeepFM zoo steps
+        for family, rows in (("dlrm", FLAGSHIP_BATCH), ("xdeep_fm", 512)):
+            zoo = main_path[f"zoo_step_{family}"] = zoo_step(family, dev, gen, work)
+            busy = zoo["profile"]["device_busy_ms"]
+            print(f"zoo step {family} (_bench_zoo.py config, batch {FLAGSHIP_BATCH}): median "
+                  f"{zoo['step_ms']:.4f} ms, {zoo['examples_per_s']:.0f} examples/s; launches "
+                  f"per step {zoo['launches_per_step']}; device busy "
+                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} per step in "
+                  f"{zoo['profile']['device_launches']:.0f} device launches; top kernels "
+                  f"{[(k, round(t, 4)) for k, t in zoo['profile']['top_kernels_ms']]}; host: "
+                  f"{zoo['profile']['host_aten_ops']:.0f} aten ops per step [{gpu}]")
+            grads = main_path[f"zoo_grads_{family}"] = check_zoo_grads(family, dev, gen, work,
+                                                                       rows)
+            print(f"check: {family} zoo step gradients card vs CPU ({rows} rows): loss "
+                  f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
+                  f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # 7. times
     floor, rows = time_kernels(dev, gen)
-    train_rows = time_train_kernels(dev, gen)
+    train_rows = time_train_kernels(dev, gen) + time_zoo_kernels(dev, gen)
     scatter_parts = profile_scatter(dev, gen)
     print(f"time: floor of this method (a one-element add) {floor:.4f} ms [{gpu}]")
     for label, parts in scatter_parts.items():
@@ -979,20 +1349,28 @@ def main(argv=None) -> int:
               f"{[(k, round(t, 4)) for k, t in parts]} [{gpu}]")
     for r in rows + train_rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if r.get("library"):
+            lib += f" ({r['library']})"
         at = f"B={r['batch']}" if "batch" in r else f"rows={r['v_rows']}"
         print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {at}: kernel "
               f"{r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
               f"ms, library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{gpu}]")
 
-    # launches: the serving path for the serving kernels, the trainer CLI for
-    # the training kernels, the flagship step for fused Adam (the CLI's Adam,
-    # like rectpu's, names no fused leaves)
+    # launches: the serving path for the serving kernels, the trainer CLIs for
+    # the training kernels (DeepFM's; DLRM's for the interaction, xDeepFM's for
+    # the CIN), the flagship step for fused Adam (the CLIs' Adam, like rectpu's,
+    # names no fused leaves)
     launches = {**main_path["deep_fm_k64_bf16"]["launches"],
                 **main_path["train_cli"]["launches"],
-                "fused_adam": main_path["flagship_step"]["launches"]["fused_adam"]}
+                "fused_adam": main_path["flagship_step"]["launches"]["fused_adam"],
+                "interaction": main_path["train_cli_dlrm"]["launches"]["interaction"],
+                "cin": main_path["train_cli_xdeep_fm"]["launches"]["cin"],
+                "cin_dw": main_path["train_cli_xdeep_fm"]["launches"]["cin_dw"]}
     heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
              "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
-             "fused_adam": ("m bf16, v bf16-SR", "flagship")}
+             "fused_adam": ("m bf16, v bf16-SR", "flagship"),
+             "interaction": ("bfloat16", FLAGSHIP_BATCH), "cin": ("bfloat16", f"H={CIN_O}"),
+             "cin_dw": ("bfloat16", f"H={CIN_O}")}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         dtype, at = heads[name]

@@ -1,17 +1,20 @@
-"""Carry DeepFM weights and Adam state between rectpu's tree layout and the port.
+"""Carry model weights and Adam state between rectpu's tree layout and the port.
 
-rectpu's DeepFM parameter tree (``DeepFMModel.init`` / ``export.load_model``'s
-``params``, numpy arrays or tensors) comes in either form rectpu writes:
+A rectpu parameter tree (``Model.init`` / ``export.load_model``'s ``params``,
+numpy arrays or tensors) is nested dicts and lists of leaves, e.g. DeepFM's
 
-    packed:   {"table": [V, K+1(+pad)], "linear": {"b", ["w_num"]}, ...}
+    packed:   {"table": [V, K+1(+pad)], "linear": {"b", ["w_num"]}, "mlp": [...]}
     unpacked: {"emb": [V, K], "linear": {"w": [V], "b", ["w_num"]}, ...}
 
-plus ``num_emb`` [1, N, K] with numeric features and ``mlp`` [{"kernel",
-"bias"}, ...] with the DNN. ``load_deep_fm_params`` makes each leaf an
-``nn.Parameter`` of the model, named after its key path (``mlp/0/kernel`` ->
-``mlp.0.kernel``), in the leaf's own dtype: the fp32 masters stay fp32 and a
-bf16 master (``table_dtype="bfloat16"``) stays bf16. ``deep_fm_tree`` is the
-way back, for export and checkpoint.
+DLRM's ``{"emb", "top": [...], ["bot": [...]]}`` or xDeepFM's ``{"table",
+"linear", "cin": [{"w"}, ...], "cin_out": {"w", "b"}, "mlp"}``.
+``load_params`` registers every leaf as an ``nn.Parameter`` of the model,
+named after its key path (``mlp/0/kernel`` -> ``mlp.0.kernel``): a top-level
+leaf is an attribute, a dict of leaves an ``nn.ParameterDict``, a dict holding
+subtrees an ``nn.ModuleDict``, a list an ``nn.ModuleList`` (or an
+``nn.ParameterList`` of leaves). Each leaf keeps its own dtype: the fp32
+masters stay fp32 and a bf16 master (``table_dtype="bfloat16"``) stays bf16.
+``params_tree`` is the way back, for export and checkpoint.
 
 ``adam_state_tree`` / ``adam_state_from_tree`` do the same for the Adam state
 ``{"m": tree, "v": tree, "t": int32}``, whose m and v trees mirror the
@@ -33,38 +36,68 @@ def flat_params(model: nn.Module) -> dict:
     return {name.replace(".", _SEP): p for name, p in model.named_parameters()}
 
 
-def load_deep_fm_params(model, params: dict, device=None):
+def _is_leaf(node) -> bool:
+    return not isinstance(node, (dict, list, tuple))
+
+
+def _carry(node, param):
+    """A subtree as the module (or parameter) that holds it."""
+    if _is_leaf(node):
+        return param(node)
+    if isinstance(node, dict):
+        if all(_is_leaf(v) for v in node.values()):
+            return nn.ParameterDict({k: param(v) for k, v in node.items()})
+        return nn.ModuleDict({k: _carry(v, param) for k, v in node.items()})
+    if node and all(_is_leaf(v) for v in node):
+        return nn.ParameterList(param(v) for v in node)
+    return nn.ModuleList(_carry(v, param) for v in node)
+
+
+def load_params(model: nn.Module, params: dict, device=None) -> nn.Module:
     """Register rectpu's tree ``params`` as the model's parameters (on
-    ``device``); returns the model."""
+    ``device``), replacing any it held under the same names; returns the
+    model."""
     device = torch.device("cpu") if device is None else torch.device(device)
 
     def param(leaf):
         return nn.Parameter(to_tensor(leaf).detach().to(device).contiguous().clone())
 
-    for name in ("table", "emb", "num_emb"):
-        if name in params:
-            setattr(model, name, param(params[name]))
-    if "linear" in params:
-        model.linear = nn.ParameterDict({k: param(v) for k, v in params["linear"].items()})
-    if "mlp" in params:
-        model.mlp = nn.ModuleList(
-            nn.ParameterDict({k: param(v) for k, v in layer.items()}) for layer in params["mlp"])
+    for name, node in params.items():
+        if node is None:
+            continue  # an empty subtree, as in JAX
+        if hasattr(model, name) and name not in model._parameters and name not in model._modules:
+            raise ValueError(f"parameter {name!r} would shadow the model's attribute")
+        model._parameters.pop(name, None)
+        model._modules.pop(name, None)
+        setattr(model, name, _carry(node, param))
     return model
 
 
-def deep_fm_tree(model) -> dict:
+def _tree_of(module):
+    if isinstance(module, nn.Parameter):
+        return module.detach().cpu()
+    if isinstance(module, nn.ParameterDict):
+        return {k: p.detach().cpu() for k, p in module.items()}
+    if isinstance(module, nn.ModuleDict):
+        return {k: _tree_of(m) for k, m in module.items()}
+    if isinstance(module, nn.ParameterList):
+        return [p.detach().cpu() for p in module]
+    if isinstance(module, nn.ModuleList):
+        return [_tree_of(m) for m in module]
+    raise TypeError(f"not a parameter container: {type(module).__name__}")
+
+
+def params_tree(model: nn.Module) -> dict:
     """rectpu's parameter tree of the model: detached CPU tensors."""
     tree = {name: p.detach().cpu() for name, p in model.named_parameters(recurse=False)}
-    if "linear" in model._modules:
-        tree["linear"] = {k: p.detach().cpu() for k, p in model.linear.items()}
-    if "mlp" in model._modules:
-        tree["mlp"] = [{k: p.detach().cpu() for k, p in layer.items()} for layer in model.mlp]
+    for name, module in model.named_children():
+        tree[name] = _tree_of(module)
     return tree
 
 
 def adam_state_tree(model, state: dict) -> dict:
     """The port's Adam state as rectpu's ``{"m": tree, "v": tree, "t"}``."""
-    template = _treedef_template(deep_fm_tree(model))
+    template = _treedef_template(params_tree(model))
     return {
         "m": _rebuild(template, {k: t.detach().cpu() for k, t in state["m"].items()}),
         "v": _rebuild(template, {k: t.detach().cpu() for k, t in state["v"].items()}),

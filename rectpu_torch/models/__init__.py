@@ -1,8 +1,10 @@
 from rectpu_torch.models.base import TowerConfig
 from rectpu_torch.models.deep_fm import DeepFMModel
+from rectpu_torch.models.dlrm import DLRMModel
+from rectpu_torch.models.xdeep_fm import XDeepFMModel
 
 # rectpu's other families, still to port (ROADMAP.md queue A)
-_NOT_PORTED = ("linear", "deep", "linear_deep", "dlrm", "dcn", "xdeep_fm", "autoint")
+_NOT_PORTED = ("linear", "deep", "linear_deep", "dcn", "autoint")
 
 
 class _Registry(dict):
@@ -10,10 +12,10 @@ class _Registry(dict):
         if name in _NOT_PORTED:
             raise NotImplementedError(
                 f"model family {name!r} is not ported to rectpu_torch yet "
-                "(ROADMAP.md queue A); only 'deep_fm' is")
+                f"(ROADMAP.md queue A); ported: {sorted(self)}")
         raise KeyError(name)
 
 
-MODEL_REGISTRY = _Registry(deep_fm=DeepFMModel)
+MODEL_REGISTRY = _Registry(deep_fm=DeepFMModel, dlrm=DLRMModel, xdeep_fm=XDeepFMModel)
 
-__all__ = ["TowerConfig", "DeepFMModel", "MODEL_REGISTRY"]
+__all__ = ["TowerConfig", "DeepFMModel", "DLRMModel", "XDeepFMModel", "MODEL_REGISTRY"]

@@ -105,6 +105,21 @@ def step_seed32(seed: int, step: int) -> int:
     return h ^ (h >> 16)
 
 
+def tower_seed32(seed32: int | None, salt: int) -> int | None:
+    """The dropout seed of one tower of a model with several (DLRM's top
+    MLP): rectpu folds a salt into the step's key (``fold_in(rng, 2)``,
+    ``rectpu/models/dlrm.py:164``); the port mixes the salt into the step's
+    seed32 with the murmur3 finalizer. None stays None (no dropout seed)."""
+    if seed32 is None:
+        return None
+    h = (seed32 ^ ((salt * 0x9E3779B9) & MASK32)) & MASK32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & MASK32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & MASK32
+    return h ^ (h >> 16)
+
+
 def _layer_seed(seed32: int, i: int) -> int:
     """rectpu's per-layer salt: seed32 + 0x7FEB352D * (i + 1) in uint32 (base.py:164-165)."""
     return (seed32 + 0x7FEB352D * (i + 1)) & MASK32
@@ -236,6 +251,18 @@ def lookup_fields(table: torch.Tensor, cat_ids: torch.Tensor, cfg: TowerConfig) 
     emb = lookup(table, cat_ids, impl=cfg.embedding_impl, gather_dtype=dtype,
                  grad_dtype=cfg.torch_table_grad_dtype)
     return emb.to(dtype) if dtype is not None else emb
+
+
+def linear_tower_logit(linear, cat_ids: torch.Tensor, num_vals: torch.Tensor | None,
+                       impl: str = "auto") -> torch.Tensor:
+    """rectpu's ``apply_linear_tower`` (base.py:286-291): sum_f w[id] + b
+    (+ num_vals . w_num) -> [B] fp32, the [V] weight gathered as a [V, 1]
+    table."""
+    lin = lookup(linear["w"].reshape(-1, 1), cat_ids, impl=impl)[..., 0].sum(dim=1)
+    lin = lin + linear["b"]
+    if "w_num" in linear and num_vals is not None:
+        lin = lin + num_vals.float() @ linear["w_num"]
+    return lin
 
 
 def numeric_field_embeddings(num_emb: torch.Tensor, num_vals: torch.Tensor) -> torch.Tensor:

@@ -44,12 +44,12 @@ from rectpu_torch.models.base import (
     TowerConfig,
     apply_mlp,
     init_mlp,
+    linear_tower_logit,
     lookup_fields,
     numeric_field_embeddings,
     pack_fused_table,
     truncated_normal,
 )
-from rectpu_torch.ops.embedding import lookup
 from rectpu_torch.ops.fm import fm_cross, fm_cross3_xla
 
 
@@ -148,13 +148,8 @@ class DeepFMModel(nn.Module):
             return self._forward_flat(cat_ids, train, seed32)
         logits = torch.zeros(cat_ids.shape[0], dtype=torch.float32, device=cat_ids.device)
         if self.use_linear and not self.fused:
-            # rectpu's apply_linear_tower: a [V]-weight gather, here the
-            # lookup over the weight viewed as a [V, 1] table
-            lin = lookup(self.linear["w"].reshape(-1, 1), cat_ids, impl=self.cfg.embedding_impl)
-            lin = lin[..., 0].sum(dim=1) + self.linear["b"]
-            if "w_num" in self.linear and num_vals is not None:
-                lin = lin + num_vals.float() @ self.linear["w_num"]
-            logits = logits + lin
+            logits = logits + linear_tower_logit(self.linear, cat_ids, num_vals,
+                                                 self.cfg.embedding_impl)
         if self.use_mf or self.use_dnn:
             table = self.fused_table() if self.fused else self.emb
             looked = lookup_fields(table, cat_ids, self.cfg)

@@ -1,0 +1,225 @@
+"""The CIN core (xDeepFM's Compressed Interaction Network): the port of
+``rectpu/ops/cin.py``.
+
+    out[b, o, k] = sum_{h, m} w[h, m, o] * x[b, h, k] * y[b, m, k]
+
+Numerics of every rectpu form (``cin_core_xla``, both Pallas variants): each
+product x*y is rounded to x's dtype, the products times w (cast to x's dtype)
+are summed in fp32, and the result is rounded to x's dtype. The gradients are
+rectpu's ``_cin_bwd`` (:220-236): g is cast to x's dtype, and
+
+    dx = cin(g, y, w.permute(2, 1, 0))     dy = cin(g, x, w.permute(2, 0, 1))
+    dw[h, m, o] = sum_{b, k} round(x*y)[b, h, m, k] * g[b, o, k]   (fp32, cast to w's dtype)
+
+so no [B, H, M, K] expansion and no cotangent of it is ever formed.
+
+``cin_core`` ([B, *, K] operands) and ``cin_core_kmajor`` ([B, K, *]
+operands, rectpu :264-303) compute the same function and run the same two
+kernels of ``kernels/csrc/cin.cu`` on CUDA tensors, with the layout passed as
+strides: the contraction (the port of the Pallas ``_cin_fwd_kernel``, :70,
+and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy, and the
+weight gradient (``_cin_dw_kernel``, :101). On CPU tensors they run the plain
+versions ``cin_plain`` and ``cin_dw_plain``, which form the expansion and are
+meant for small CPU shapes only.
+
+rectpu pins its "auto" to "xla" even on the TPU (:199), a speed choice; the
+port has no XLA and no counterpart of that pin: on a CUDA tensor it always
+launches the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rectpu_torch.kernels import LaunchCount, build
+
+LAYOUTS = ("legacy", "kmajor")
+
+launches = LaunchCount("cin")
+dw_launches = LaunchCount("cin_dw")
+
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "rectpu_cin": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 9
+        + [ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "rectpu_cin_dw": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [_LL] * 9
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+_DW_SLICE_ROWS = 4096  # rows (b, k) per dw partial: fixed, so the sum order is too
+_DW_MAX_SLICES = 128
+
+
+def _bok(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """A [B, *, K] view of an operand in ``layout``."""
+    return t if layout == "legacy" else t.transpose(1, 2)
+
+
+def _expand(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """round(x*y) in x's dtype, [B, H, M, K], from [B, *, K] operands."""
+    return x[:, :, None, :] * y.to(x.dtype)[:, None, :, :]
+
+
+def cin_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+              layout: str = "legacy") -> torch.Tensor:
+    """Plain version of the contraction in ``layout`` ("legacy": [B, H, K] x
+    [B, M, K] -> [B, O, K]; "kmajor": [B, K, H] x [B, K, M] -> [B, K, O])."""
+    z = _expand(_bok(x, layout), _bok(y, layout))
+    out = torch.einsum("bhmk,hmo->bok", z.float(), w.to(x.dtype).float()).to(x.dtype)
+    return _bok(out, layout).contiguous()
+
+
+def cin_dw_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                 layout: str = "legacy") -> torch.Tensor:
+    """Plain version of the weight gradient: [H, M, O] fp32."""
+    z = _expand(_bok(x, layout), _bok(y, layout))
+    return torch.einsum("bhmk,bok->hmo", z.float(), _bok(g, layout).to(x.dtype).float())
+
+
+def _check_operands(who: str, layout: str, *ts: torch.Tensor) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    dev = ts[0].device
+    for t in ts:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{who} needs its operands on one CUDA device, got {t.device}")
+        if t.dim() != 3 or t.dtype != ts[0].dtype or t.dtype not in (torch.float32,
+                                                                      torch.bfloat16):
+            raise ValueError(f"{who}: operands must be 3-D float32 or bfloat16 of one dtype, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if max(t.shape) >= 2**31:
+            raise ValueError(f"{who}: {tuple(t.shape)} is outside the kernel's extents")
+    b, k = ts[0].shape[0], _bok(ts[0], layout).shape[2]
+    for t in ts:
+        if t.shape[0] != b or _bok(t, layout).shape[2] != k:
+            raise ValueError(f"{who}: batch and K must agree, got "
+                             f"{[tuple(u.shape) for u in ts]} ({layout})")
+
+
+def _strides(t: torch.Tensor, layout: str) -> list[int]:
+    """(batch, field, k) strides in elements of an operand in ``layout``."""
+    return list(_bok(t, layout).stride())
+
+
+def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+             layout: str = "legacy") -> torch.Tensor:
+    """Launch the contraction kernel: x, y of one dtype (fp32 or bf16) in
+    ``layout``, any strides, on one card; w [H, M, O] (cast to x's dtype and
+    made contiguous here: it is small). Returns a contiguous tensor in x's
+    dtype and ``layout``."""
+    _check_operands("cin_cuda", layout, x, y)
+    b, h, k = _bok(x, layout).shape
+    m = _bok(y, layout).shape[1]
+    if w.dim() != 3 or tuple(w.shape[:2]) != (h, m):
+        raise ValueError(f"w must be [{h}, {m}, O], got {tuple(w.shape)}")
+    o = w.shape[2]
+    w2 = w.to(device=x.device, dtype=x.dtype).contiguous()
+    shape = (b, o, k) if layout == "legacy" else (b, k, o)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if h * m >= 2**31 or b * k >= 2**31:
+        raise ValueError(f"cin_cuda: B*K={b * k} or H*M={h * m} exceeds the kernel's extents")
+    lib = build.load("cin", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rectpu_cin(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                             b, h, m, o, k, *_strides(x, layout), *_strides(y, layout),
+                             *_strides(out, layout), int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"cin kernel launch failed: cudaError {err}")
+    launches.add()
+    return out
+
+
+def dw_slices(rows: int) -> tuple[int, int]:
+    """(slices, rows per slice) of the dw reduction over ``rows`` = B*K:
+    a function of the shape only, so two launches sum in the same order."""
+    slices = max(1, min(_DW_MAX_SLICES, -(-rows // _DW_SLICE_ROWS)))
+    per = -(-rows // slices)
+    return slices, -(-per // 32) * 32
+
+
+def cin_dw_cuda(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                layout: str = "legacy") -> torch.Tensor:
+    """Launch the weight-gradient kernel: x [B, H, K], y [B, M, K], g [B, O, K]
+    (or the K-major forms), one dtype, any strides, on one card -> dw [H, M, O]
+    fp32, bitwise equal across launches."""
+    _check_operands("cin_dw_cuda", layout, x, y, g)
+    b, h, k = _bok(x, layout).shape
+    m = _bok(y, layout).shape[1]
+    o = _bok(g, layout).shape[1]
+    dw = torch.empty(h, m, o, dtype=torch.float32, device=x.device)
+    if dw.numel() == 0:
+        return dw
+    if b * k == 0:
+        return dw.zero_()
+    if h * m * o >= 2**31 or b * k >= 2**31:
+        raise ValueError(f"cin_dw_cuda: [{h}, {m}, {o}] or B*K={b * k} exceeds the kernel's "
+                         "extents")
+    slices, per = dw_slices(b * k)
+    partial = torch.empty(slices, o, h * m, dtype=torch.float32, device=x.device)
+    lib = build.load("cin", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rectpu_cin_dw(x.data_ptr(), y.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                dw.data_ptr(), b, h, m, o, k, *_strides(x, layout),
+                                *_strides(y, layout), *_strides(g, layout), slices, per,
+                                int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"cin dw kernel launch failed: cudaError {err}")
+    dw_launches.add()
+    return dw
+
+
+def _contract(x, y, w, layout):
+    if x.device.type == "cpu":
+        return cin_plain(x, y, w, layout)
+    return cin_cuda(x, y, w, layout)
+
+
+def _weight_grad(x, y, g, layout):
+    if x.device.type == "cpu":
+        return cin_dw_plain(x, y, g, layout)
+    return cin_dw_cuda(x, y, g, layout)
+
+
+class _CinCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, w, layout):
+        ctx.save_for_backward(x, y, w)
+        ctx.layout = layout
+        return _contract(x, y, w, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, w = ctx.saved_tensors
+        layout = ctx.layout
+        g = g.to(x.dtype)
+        dx = dy = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _contract(g, y, w.permute(2, 1, 0), layout)
+        if ctx.needs_input_grad[1]:
+            dy = _contract(g, x, w.permute(2, 0, 1), layout).to(y.dtype)
+        if ctx.needs_input_grad[2]:
+            dw = _weight_grad(x, y, g, layout).to(w.dtype)
+        return dx, dy, dw, None
+
+
+def cin_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[b,o,k] = sum_{h,m} w[h,m,o] x[b,h,k] y[b,m,k], differentiable:
+    x [B, H, K], y [B, M, K], w [H, M, O] -> [B, O, K] in x's dtype."""
+    return _CinCore.apply(x, y, w, "legacy")
+
+
+def cin_core_kmajor(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The same function in K-major layout: x [B, K, H], y [B, K, M], w
+    [H, M, O] -> [B, K, O], differentiable."""
+    return _CinCore.apply(x, y, w, "kmajor")

@@ -34,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from rectpu_torch.convert import load_deep_fm_params
+from rectpu_torch.convert import load_params
 from rectpu_torch.device import resolve_device
 from rectpu_torch.features.schema import GENRE, FeatureSet, is_string_column, ml_100k_feature_set
 from rectpu_torch.models import MODEL_REGISTRY, TowerConfig
@@ -267,7 +267,7 @@ def load_model(export_dir: str | Path, use_serialized: bool = False,
         packed_linear=tc.get("packed_linear", False),
     )
     model = MODEL_REGISTRY[meta["model"]](cfg, **meta.get("model_kwargs", {}))
-    load_deep_fm_params(model, params, device)
+    load_params(model, params, device)
     row_perm = None
     if meta.get("row_placement"):
         row_perm = np.load(export_dir / "row_perm.npy")

@@ -36,10 +36,10 @@ import torch
 from rectpu_torch.convert import (
     adam_state_from_tree,
     adam_state_tree,
-    deep_fm_tree,
     flat_params,
     flatten_tree,
-    load_deep_fm_params,
+    load_params,
+    params_tree,
 )
 from rectpu_torch.io.loader import DataState
 from rectpu_torch.models.base import step_seed32
@@ -235,7 +235,7 @@ class Trainer:
 
     def _save(self, step: int, data_state) -> dict:
         """Checkpoint {params, opt_state} in rectpu's layout; returns the params tree."""
-        params = deep_fm_tree(self.model)
+        params = params_tree(self.model)
         self.ckpt.save(step, {"params": params,
                               "opt_state": adam_state_tree(self.model, self.opt_state)},
                        extra_meta={"data_state": dataclasses.asdict(data_state)
@@ -254,14 +254,14 @@ class Trainer:
             # TF semantics: warm start seeds a fresh run; a restored
             # checkpoint (below) overwrites it
             params = self._warm_start(params)
-        load_deep_fm_params(self.model, params, self.device)
+        load_params(self.model, params, self.device)
         self.opt_state = self.optimizer.init(flat_params(self.model))
         step, data_state = 0, None
         if restore:
             snapshot = self.ckpt.restore()
             if snapshot is not None:
                 tree, meta = snapshot
-                load_deep_fm_params(self.model, tree["params"], self.device)
+                load_params(self.model, tree["params"], self.device)
                 self.opt_state = adam_state_from_tree(tree["opt_state"], self.device)
                 step = meta["step"]
                 if meta.get("data_state"):

@@ -197,7 +197,7 @@ def check_supported(args, model) -> None:
     if args.table_store != "float32":
         _not_ported("--table-store bfloat16", "A5")
     mode = getattr(args, "fast_step", "off")
-    cols = model.cfg.embedding_size + (1 if model.use_linear else 0)
+    cols = model.cfg.embedding_size + (1 if getattr(model, "use_linear", False) else 0)
     if mode == "on" or (mode == "auto" and model.cfg.padded_buckets * cols >= _FAST_STEP_ELEMS):
         _not_ported("the sparse fast step (--fast-step)", "A11")
 

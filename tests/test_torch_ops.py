@@ -182,7 +182,7 @@ def test_export_roundtrip_matches_rectpu_checkpoint_format(tmp_path):
 def test_convert_packed_equals_unpacked():
     """Both tree forms carry across to the same fused [V, K+1] table, and the
     other parameters to the same leaves."""
-    from rectpu_torch.convert import deep_fm_tree, load_deep_fm_params
+    from rectpu_torch.convert import load_params, params_tree
     from rectpu_torch.features.schema import ml_100k_feature_set
     from rectpu_torch.models import DeepFMModel, TowerConfig
     from rectpu_torch.models.base import pack_fused_table
@@ -196,13 +196,13 @@ def test_convert_packed_equals_unpacked():
     w = rng.normal(size=(v,)).astype(np.float32)
     mlp = [{"kernel": rng.normal(size=s).astype(np.float32), "bias": np.zeros(s[1], np.float32)}
            for s in [(104, 16), (16, 16), (16, 1)]]
-    load_deep_fm_params(unpacked, {"emb": emb, "linear": {"w": w, "b": np.float32(0.5)},
+    load_params(unpacked, {"emb": emb, "linear": {"w": w, "b": np.float32(0.5)},
                                    "mlp": mlp}, "cpu")
     table = pack_fused_table(torch.from_numpy(emb), torch.from_numpy(w)).numpy()
-    load_deep_fm_params(packed, {"table": table, "linear": {"b": np.float32(0.5)},
+    load_params(packed, {"table": table, "linear": {"b": np.float32(0.5)},
                                  "mlp": mlp}, "cpu")
     assert torch.equal(unpacked.fused_table(), packed.fused_table())
-    a, b = deep_fm_tree(unpacked), deep_fm_tree(packed)
+    a, b = params_tree(unpacked), params_tree(packed)
     assert torch.equal(a["linear"]["b"], b["linear"]["b"])
     for la, lb in zip(a["mlp"], b["mlp"]):
         assert la.keys() == lb.keys()

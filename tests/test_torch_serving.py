@@ -159,7 +159,8 @@ def test_http_predict_through_port_server(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_rectpu():
-    """Every rectpu_torch module (the training slice's among them), and
+    """Every rectpu_torch module (the training slice's and the DLRM and
+    xDeepFM slice's among them), and
     chip_smoke.py, import without pulling in jax, any module of rectpu, or
     pandas (the machine with the card has none)."""
     code = (
@@ -169,8 +170,11 @@ def test_port_imports_neither_jax_nor_rectpu():
         "need = {'rectpu_torch.ops.scatter_rows', 'rectpu_torch.ops.fused_adam',\n"
         "        'rectpu_torch.train.optimizers', 'rectpu_torch.train.loop',\n"
         "        'rectpu_torch.io.loader', 'rectpu_torch.data.synthetic',\n"
-        "        'rectpu_torch.trainers.common', 'rectpu_torch.trainers.deep_fm'}\n"
-        "assert need <= set(mods) and len(mods) > 25, mods\n"
+        "        'rectpu_torch.trainers.common', 'rectpu_torch.trainers.deep_fm',\n"
+        "        'rectpu_torch.ops.interaction', 'rectpu_torch.ops.cin',\n"
+        "        'rectpu_torch.models.dlrm', 'rectpu_torch.models.xdeep_fm',\n"
+        "        'rectpu_torch.trainers.dlrm', 'rectpu_torch.trainers.xdeep_fm'}\n"
+        "assert need <= set(mods) and len(mods) > 30, mods\n"
         "for name in mods: importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"

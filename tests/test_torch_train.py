@@ -27,7 +27,7 @@ from rectpu.train.checkpoint import Checkpointer as JaxCheckpointer
 from rectpu.train.metrics import sigmoid_xent as jax_xent
 from rectpu.train.optimizers import BF16_SR as JAX_BF16_SR
 from rectpu.train.optimizers import adam as jax_adam
-from rectpu_torch.convert import deep_fm_tree, flat_params, load_deep_fm_params
+from rectpu_torch.convert import flat_params, load_params, params_tree
 from rectpu_torch.data.synthetic import write_synthetic_dataset
 from rectpu_torch.features.schema import ml_100k_feature_set
 from rectpu_torch.io.loader import CsvDataset
@@ -104,7 +104,7 @@ def test_three_adam_steps_match_rectpu(case, tmp_path):
     model_t = DeepFMModel(TowerConfig(feature_set=ml_100k_feature_set(), dropout=0.0,
                                       **spec["cfg"]))
     tree0 = jax.tree.map(np.asarray, params_j)
-    load_deep_fm_params(model_t, tree0)
+    load_params(model_t, tree0)
     slots_t = {"m": torch.bfloat16, "v": BF16_SR} if spec["slots"] else None
     opt_t = adam(learning_rate=1e-3, slot_dtype=slots_t)
     trainer = Trainer(model_t, opt_t, None, None, tmp_path, TrainConfig(seed=0))
@@ -118,7 +118,7 @@ def test_three_adam_steps_match_rectpu(case, tmp_path):
         assert abs(float(loss_t) - float(loss_j)) <= spec["loss_rtol"] * abs(float(loss_j)), i
 
     want = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, params_j))[0]
-    got = deep_fm_tree(model_t)
+    got = params_tree(model_t)
     start = dict(jax.tree_util.tree_flatten_with_path(tree0)[0])
     for path, w in want:
         leaf = got
@@ -175,7 +175,7 @@ def test_trainer_cli_on_cpu_writes_an_export_both_packages_read(tmp_path):
     assert meta["step"] == 10 and meta["data_state"]["index"] == 640
     assert int(np.asarray(tree["opt_state"]["t"])) == 10
     np.testing.assert_array_equal(np.asarray(tree["params"]["emb"]),
-                                  deep_fm_tree(trainer.model)["emb"].numpy())
+                                  params_tree(trainer.model)["emb"].numpy())
     # both packages serve the export it wrote
     export = latest_export(job)
     features = {"user_id": np.array([1, 50]), "item_id": np.array([10, 7]),
