@@ -32,6 +32,13 @@ failed check raises, and the script exits nonzero without the final line:
    and 128 slices) against an fp64 oracle built in 512-row blocks, within
    a per-element fp32 bound of the kernel's order and DW_REL_L2 relative L2,
    and bitwise equal across two launches.
+   The sparse fast step's kernels: the row set (scatter_rows_dma) with
+   25,088 deduplicated rows (sentinels among them) into the full-width
+   [6,000,640, 128] fp32 table and the [6,000,640, 256] m|v slab, fp32 and
+   bf16, and at narrow widths (65, 2, 1 fp32; 3, 1 bf16): bitwise equal to
+   the plain version, every row outside the update unchanged; the dedupe's
+   segment sum (R=212,992 x 128 -> [25,088, 128]) within the fp32 bound of
+   an fp64 oracle and bitwise equal across launches and dedupe runs.
 4. Serving path: DeepFM at the flagship widths (K=64, hidden [256, 128])
    from a seeded torch.Generator, in bf16 and in fp32, written by the port's
    export_model and served by the port's HTTP server (micro-batching on) on
@@ -60,10 +67,21 @@ failed check raises, and the script exits nonzero without the final line:
    xDeepFM zoo steps (benchmarks/_bench_zoo.py:79-112, batch 8192): median
    wall, examples/s, launches per step, the device's busy time, and one
    step's gradients against a CPU copy (xDeepFM on 512 rows).
+6c. Sparse fast step at full width (benchmarks/_ablate_bigtable.py's
+   run_sparse(packed=True, scatter_backend="dma"): DeepFM K=64 [256, 128],
+   6,000,640-row table lane-padded to 128 columns, fp32 m|v slab [.., 256],
+   batch 8192): one step changes the rows its batch touched and no other;
+   the median of BIG_STEPS steps, examples/s, launches per step (the row set
+   exactly twice: table and m|v) and the device's busy share; one step
+   against a CPU copy at bench.py's 311,296-row table (each leaf's update
+   and the m|v rows). Then the trainer CLI with --preset scaled --fast-step
+   on --sparse-scatter dma (batch 4096) trains and its export is served.
 7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (for the
-   interaction, torch.bmm forming the full z, a superset of the work).
+   interaction, torch.bmm forming the full z, a superset of the work; for
+   the row set, index_copy_ of the valid rows). The fast step's dedupe and
+   lazy-Adam row update are timed whole beside them.
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -101,14 +119,18 @@ from rectpu_torch.features.schema import (
 )
 from rectpu_torch.kernels import build
 from rectpu_torch.models import DeepFMModel, DLRMModel, TowerConfig, XDeepFMModel
+from rectpu_torch.models.base import init_mlp
 from rectpu_torch.ops import cin as cin_ops
 from rectpu_torch.ops import embedding as emb_ops
 from rectpu_torch.ops import fm as fm_ops
 from rectpu_torch.ops import fused_adam as adam_ops
 from rectpu_torch.ops import interaction as int_ops
+from rectpu_torch.ops import scatter_dma as dma_ops
 from rectpu_torch.ops import scatter_rows as scatter_ops
 from rectpu_torch.serve.export import export_model, latest_export, load_model
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
+from rectpu_torch.train import sparse as sparse_ops
+from rectpu_torch.train.fast_step import make_sparse_step
 from rectpu_torch.train.loop import TrainConfig, Trainer
 from rectpu_torch.train.optimizers import BF16_SR, adam
 from rectpu_torch.trainers import deep_fm as deep_fm_cli
@@ -136,6 +158,13 @@ TRAIN_BATCH, TRAIN_STEPS = 4096, 40  # the trainer CLI phase
 FLAGSHIP_BATCH, FLAGSHIP_STEPS = 8192, 20
 CIN_O = 64  # xDeepFM's cin_units (64, 64)
 ZOO_CLI_STEPS, ZOO_STEPS = 30, 10  # the DLRM / xDeepFM trainer CLIs and zoo steps
+BIG_BATCH, BIG_STEPS = 8192, 25  # the sparse fast step at full width (_ablate_bigtable.py)
+# fast step card vs CPU, relative L2 of the table rows' one-step update: twice
+# the gradients' GRAD_REL_L2 (an Adam step from zero is ~lr * sign(g), so a
+# gradient near 0 can take the other sign on the two sides, as the CPU tests
+# of tests/test_torch_train.py allow). m = 0.1 g is held to GRAD_REL_L2 and
+# v = 0.001 g^2, which doubles a relative error, to twice it.
+FAST_UPDATE_REL_L2 = 2 * GRAD_REL_L2
 
 
 class SmokeFailure(AssertionError):
@@ -506,6 +535,117 @@ def check_zoo_kernels(dev, gen) -> dict:
     return errs
 
 
+# --- phase 3c: the sparse fast step's kernels against their plain versions --
+
+
+def big_feature_set() -> FeatureSet:
+    """benchmarks/_ablate_bigtable.py:13-27: the ml-100k schema with user 3M,
+    item 2.5M and zipcode 500k hash buckets (6,000,106 ids)."""
+    feats = [
+        HashFeature("user_id", 3_000_000, dtype="int32"),
+        HashFeature("item_id", 2_500_000, dtype="int32"),
+        BucketizedFeature("age", tuple(range(15, 66, 10))),
+        VocabFeature("gender", ("F", "M"), num_oov_buckets=1),
+        HashFeature("occupation", 50),
+        HashFeature("zipcode", 500_000, dtype="int32"),
+        BucketizedFeature("release_year", tuple(range(1930, 1991, 10))),
+    ]
+    feats.extend(IdentityFeature(g, 2) for g in GENRE)
+    return FeatureSet(categorical=tuple(feats))
+
+
+def update_rows(ids: torch.Tensor, cap: int, sentinel: int) -> torch.Tensor:
+    """[cap] int32: the sorted unique ids (torch.unique, independent of the
+    port's dedupe), then ``sentinel`` in the unused slots."""
+    uniq = torch.unique(ids.reshape(-1))
+    rows = torch.full((cap,), sentinel, dtype=torch.int32, device=ids.device)
+    rows[:uniq.numel()] = uniq
+    return rows
+
+
+def check_set_rows(base, rows, vals, v_valid: int, label: str) -> None:
+    """The row-set kernel on a copy of ``base`` against the plain version on
+    another: bitwise equal, every valid row its val row, every other row
+    (untouched, pad, sentinel) the base's."""
+    got = dma_ops.scatter_rows_dma_cuda(base.clone(), rows, vals, v_valid=v_valid)
+    want = dma_ops.scatter_rows_dma_plain(base.clone(), rows, vals, v_valid=v_valid)
+    torch.cuda.synchronize()
+    check(same_bits(got, want), f"scatter_rows_dma {label}: kernel != plain bitwise")
+    valid = (rows >= 0) & (rows < v_valid)
+    idx = rows[valid].long()
+    check(same_bits(got[idx], vals[valid]), f"scatter_rows_dma {label}: an updated row is not "
+                                            "its val row")
+    view = torch.int32 if base.dtype == torch.float32 else torch.int16
+    changed = (got.view(view) != base.view(view)).any(1)
+    changed[idx] = False
+    check(not bool(changed.any()), f"scatter_rows_dma {label}: rows outside the update changed")
+
+
+def check_fast_kernels(dev, gen) -> dict:
+    """The row set at the fast step's full width (25,088 rows into the
+    [6,000,640, 128] table and the [.., 256] m|v slab, fp32 and bf16) and at
+    narrow widths, and the dedupe's segment sum over a full-width batch."""
+    errs = {"scatter_rows_dma": 0.0, "segment_sum": 0.0}
+    cgen = torch.Generator(device=dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+    fs = big_feature_set()
+    v_rows, v_valid = padded_rows(fs), fs.total_buckets
+    ids = torch.from_numpy(random_ids(fs, BIG_BATCH, np.random.default_rng(8))).to(dev)
+    cap = sparse_ops.unique_capacity(fs.field_sizes, BIG_BATCH, ids.numel())
+    rows = update_rows(ids, cap, v_rows)
+    n_valid = int((rows < v_valid).sum())
+    for label, width, dtype in (("table", 128, torch.float32), ("m|v", 256, torch.float32),
+                                ("m|v", 256, torch.bfloat16)):
+        base = torch.randn(v_rows, width, generator=cgen, device=dev).to(dtype)
+        vals = torch.randn(cap, width, generator=cgen, device=dev).to(dtype)
+        check_set_rows(base, rows, vals, v_valid, f"{label} [{v_rows}, {width}] {dtype}")
+        del base, vals
+    # narrow widths take the 8-, 4- and 2-byte copies; a row past v_valid, one
+    # between v_valid and the slab's end and one far past it are dropped
+    small_ids = torch.from_numpy(random_ids(ml_100k_feature_set(), 128,
+                                            np.random.default_rng(9))).to(dev)
+    small = update_rows(small_ids, 1024, 6144)
+    n_small = int((small < 6144).sum())
+    small[n_small:n_small + 2] = torch.tensor([4106, 4200], dtype=torch.int32)
+    small[-1] = 2**31 - 1
+    for width, dtype in ((65, torch.float32), (2, torch.float32), (1, torch.float32),
+                         (3, torch.bfloat16), (1, torch.bfloat16)):
+        base = torch.randn(6144, width, generator=cgen, device=dev).to(dtype)
+        vals = torch.randn(1024, width, generator=cgen, device=dev).to(dtype)
+        check_set_rows(base, small, vals, 4106, f"[6144, {width}] {dtype}")
+    print(f"check: scatter_rows_dma {cap} rows ({n_valid} valid) into [{v_rows}, 128] fp32 and "
+          f"[{v_rows}, 256] fp32 and bf16, and [6144, 65|2|1] fp32, [6144, 3|1] bf16: bitwise "
+          "equal to plain, every other row unchanged")
+
+    grads = torch.randn(ids.numel(), 128, generator=cgen, device=dev)
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    new_run = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new_run[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
+    got = scatter_ops.segment_sum_cuda(seg, order, grads, cap)
+    again = scatter_ops.segment_sum_cuda(seg, order, grads, cap)
+    plain = scatter_ops.segment_sum_plain(seg, order, grads, cap)
+    exact, mag, count = scatter_oracle(seg, grads[order], cap)
+    torch.cuda.synchronize()
+    check(got.shape == (cap, 128) and got.dtype == torch.float32, "segment_sum shape/dtype")
+    check(same_bits(got, again), "segment_sum: two launches differ")
+    tol = scatter_tolerance(mag, count, torch.float32, exact)
+    check(bool(((got.double() - exact).abs() <= tol).all()),
+          f"segment_sum: max err {(got.double() - exact).abs().max().item()} vs the fp64 oracle")
+    check(bool(((plain.double() - exact).abs() <= tol).all()),
+          "segment_sum: the plain version is outside the tolerance")
+    errs["segment_sum"] = (got.double() - plain.double()).abs().max().item()
+    # the dedupe as the fast step runs it: the same rows and bits, launch after launch
+    runs = [sparse_ops.dedupe_rows(ids.reshape(-1), grads, v_rows, cap) for _ in range(2)]
+    check(torch.equal(runs[0][0], rows) and torch.equal(runs[1][0], rows),
+          "dedupe_rows: rows differ from the sorted unique ids")
+    check(same_bits(runs[0][1], got) and same_bits(runs[1][1], got),
+          "dedupe_rows: sums differ between launches")
+    print(f"check: segment_sum (dedupe_rows) R={ids.numel()} W=128 -> [{cap}, 128] within "
+          "tolerance of the fp64 oracle, bitwise equal across launches and dedupe runs (max "
+          f"|kernel - plain| {errs['segment_sum']:.3g}, max segment {int(count.max())} rows)")
+    return errs
+
+
 # --- phase 4: the serving path ----------------------------------------------
 
 
@@ -710,7 +850,8 @@ def profile_forward(model, instances: list, reps: int = 20) -> dict:
 
 def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
               counters=(emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
-                        scatter_ops.launches), steps: int = TRAIN_STEPS) -> dict:
+                        scatter_ops.launches), steps: int = TRAIN_STEPS,
+              extra_args: tuple = ()) -> dict:
     """Train through a trainer CLI on the card, then serve its export."""
     data_dir = work / "data"
     if not (data_dir / "train.csv").exists():
@@ -720,7 +861,7 @@ def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
             "--batch-size", str(TRAIN_BATCH), "--train-steps", str(steps),
             "--save-checkpoints-steps", str(steps), "--steps-per-loop", "10",
             "--train-csv", str(data_dir / "train.csv"), "--test-csv", str(data_dir / "test.csv"),
-            "--job-dir", str(job_dir), "--device", "cuda", "--seed", str(seed)]
+            "--job-dir", str(job_dir), "--device", "cuda", "--seed", str(seed), *extra_args]
     args = cli.build_parser().parse_args(argv)
     for c in counters:
         c.reset()
@@ -791,12 +932,15 @@ def flagship_trainer(model, work: Path) -> Trainer:
     return trainer
 
 
-def flagship_batch(rng, dev, rows: int | None = None) -> dict:
-    fs = bench_feature_set()
-    rows = rows or FLAGSHIP_BATCH
+def random_batch(fs: FeatureSet, rng, dev, rows: int) -> dict:
+    """[rows, F] uniform ids per field, no numeric features, 20 % positives."""
     return {"cat_ids": torch.from_numpy(random_ids(fs, rows, rng)).to(dev),
             "num_vals": torch.zeros(rows, 0, device=dev),
             "labels": torch.from_numpy((rng.random(rows) < 0.2).astype(np.float32)).to(dev)}
+
+
+def flagship_batch(rng, dev, rows: int | None = None) -> dict:
+    return random_batch(bench_feature_set(), rng, dev, rows or FLAGSHIP_BATCH)
 
 
 def flagship_step(dev, gen, work: Path) -> dict:
@@ -974,6 +1118,166 @@ def check_zoo_grads(family: str, dev, gen, work: Path, rows: int) -> dict:
     cpu = zoo_model(family, 0.0, "cpu", params=params_tree(card))
     batch = flagship_batch(np.random.default_rng(7), dev, rows=rows)
     return grads_card_vs_cpu(card, cpu, batch, lambda m: zoo_trainer(m, work, rows), family)
+
+
+# --- phase 6c: the sparse fast step at full width --------------------------
+
+
+def fast_model(fs: FeatureSet, dropout: float, device, seed: int = 0, params=None):
+    """benchmarks/_ablate_bigtable.py:78-96's model (``run_sparse(packed=True,
+    scatter_backend="dma")``): DeepFM K=64 [256, 128], bf16 towers, one
+    packed table lane-padded to 128 columns, table_padding 2048; from
+    ``params`` or random weights made on ``device`` from ``seed`` (K columns
+    N(0, 1/K), the linear column N(0, 0.05^2), zero pad, glorot MLP)."""
+    cfg = TowerConfig(feature_set=fs, embedding_size=K, hidden_units=(256, 128),
+                      dropout=dropout, compute_dtype="bfloat16", table_padding=2048,
+                      packed_linear=True, packed_col_pad=128)
+    model = DeepFMModel(cfg)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        table = torch.zeros(cfg.padded_buckets, 128, device=device)
+        table[:, :K] = torch.randn(cfg.padded_buckets, K, generator=gen, device=device) * K ** -0.5
+        table[:, K] = torch.randn(cfg.padded_buckets, generator=gen, device=device) * 0.05
+        params = {"table": table, "linear": {"b": torch.zeros(())},
+                  "mlp": init_mlp(torch.Generator().manual_seed(seed), cfg.num_fields * K,
+                                  cfg.hidden_units)}
+    return load_params(model, params, device)
+
+
+def fast_trainer(model, work: Path, batch: int) -> Trainer:
+    """A Trainer on the sparse fast step with the dma row set, as
+    ``--fast-step on --sparse-scatter dma`` builds it (fp32 m|v slab)."""
+    fast = make_sparse_step(model, learning_rate=1e-3, scatter_backend="dma")
+    device = next(model.parameters()).device
+    trainer = Trainer(model, adam(learning_rate=1e-3), None, None, work / f"fast_{device.type}",
+                      TrainConfig(batch_size=batch, seed=0), device=device, fast_step=fast)
+    trainer.opt_state = fast[0](flat_params(model))
+    return trainer
+
+
+def touched_rows(ids: torch.Tensor, v_rows: int) -> torch.Tensor:
+    touched = torch.zeros(v_rows, dtype=torch.bool, device=ids.device)
+    touched[ids.reshape(-1).long()] = True
+    return touched
+
+
+def fast_counters() -> tuple:
+    return (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+            scatter_ops.segment_launches, dma_ops.launches, scatter_ops.launches)
+
+
+def fast_step_full_width(dev, seed: int, work: Path) -> dict:
+    """The fast step at full width on the card: untouched table rows bitwise
+    unchanged by a step, then the median of BIG_STEPS steps, launches per
+    step (the row set twice: table and m|v) and the device's busy time."""
+    fs = big_feature_set()
+    v_rows = padded_rows(fs)
+    model = fast_model(fs, 0.1, dev, seed)
+    trainer = fast_trainer(model, work, BIG_BATCH)
+    mv = trainer.opt_state["mv_sparse"]["table"]
+    check(tuple(model.table.shape) == (v_rows, 128) and tuple(mv.shape) == (v_rows, 256)
+          and mv.dtype == torch.float32, f"fast step: table {tuple(model.table.shape)}, m|v "
+                                         f"{tuple(mv.shape)} {mv.dtype}")
+    cap = sparse_ops.unique_capacity(fs.field_sizes, BIG_BATCH, BIG_BATCH * fs.num_fields)
+    rng = np.random.default_rng(2)
+    batches = [random_batch(fs, rng, dev, BIG_BATCH) for _ in range(4)]
+    for i in range(3):  # warm-up
+        trainer.train_step(batches[i % 4], i)
+    before = model.table.detach().clone()
+    trainer.train_step(batches[3], 3)
+    changed = (model.table.detach().view(torch.int32) != before.view(torch.int32)).any(1)
+    touched = touched_rows(batches[3]["cat_ids"], v_rows)
+    n_changed, n_touched = int(changed.sum()), int(touched.sum())
+    check(not bool(changed[~touched].any()), "fast step: a row outside the batch changed")
+    check(n_changed >= 0.99 * n_touched, f"fast step: {n_changed} of {n_touched} touched rows "
+                                         "changed")
+    del before, changed, touched
+    torch.cuda.synchronize()
+    counters = fast_counters()
+    for c in counters:
+        c.reset()
+    times, losses = [], []
+    for i in range(BIG_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step(batches[i % 4], 4 + i))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = {c.name: c.value for c in counters}
+    losses = torch.stack(losses).float().cpu().tolist()
+    check(all(np.isfinite(losses)), f"fast step: non-finite loss {losses}")
+    check(launches["scatter_rows_dma"] == 2 * BIG_STEPS,
+          f"fast step: {launches['scatter_rows_dma']} row-set launches in {BIG_STEPS} steps")
+    check(launches["scatter_rows"] == 0, "fast step: a dense table gradient was built")
+    for name, n in launches.items():
+        check(n > 0 or name == "scatter_rows", f"fast step: kernel {name} was not launched")
+    profile = profile_step(trainer, batches[0])
+    ms = statistics.median(times)
+    busy = profile["device_busy_ms"]
+    return {"step_ms": ms, "step_ms_all": times, "examples_per_s": BIG_BATCH / (ms / 1e3),
+            "launches": launches,
+            "launches_per_step": {k: v / BIG_STEPS for k, v in launches.items()},
+            "losses": losses, "profile": profile, "v_rows": v_rows, "capacity": cap,
+            "device_busy_share": None if busy is None else busy / ms,
+            "rows_changed_by_a_step": n_changed, "rows_touched_by_a_step": n_touched}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def check_fast_step_vs_cpu(dev, seed: int, work: Path) -> dict:
+    """One fast step on the card against a CPU copy of the port at bench.py's
+    flagship table (311,296 rows), same weights and batch, dropout 0: the
+    loss within 1e-2 relative; the table's update on the touched rows within
+    FAST_UPDATE_REL_L2 relative L2; m (0.1 g on step 1) of the m|v rows and
+    of every other leaf within GRAD_REL_L2, v within twice that; untouched
+    rows unchanged and their m|v zero on both sides."""
+    fs = bench_feature_set()
+    card = fast_model(fs, 0.0, dev, seed)
+    cpu = fast_model(fs, 0.0, "cpu", params=params_tree(card))
+    batch = random_batch(fs, np.random.default_rng(3), dev, BIG_BATCH)
+    res = {}
+    for name, model, b in (("cuda", card, batch),
+                           ("cpu", cpu, {k: v.cpu() for k, v in batch.items()})):
+        trainer = fast_trainer(model, work, BIG_BATCH)
+        # a copy: on the CPU the parameter's storage, which the step updates in place
+        before = model.table.detach().cpu().clone()
+        loss = float(trainer.train_step(b, 0))
+        state = trainer.opt_state
+        res[name] = (loss, before, model.table.detach().cpu(),
+                     state["mv_sparse"]["table"].detach().cpu(),
+                     {f"{mv} {k}": t.detach().cpu() for mv in ("m", "v")
+                      for k, t in state[mv]["rest"].items()})
+    out = {"loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0], "rel_l2": {}}
+    check(abs(out["loss_cuda"] - out["loss_cpu"]) <= 1e-2 * abs(out["loss_cpu"]),
+          f"fast step loss card {out['loss_cuda']} vs CPU {out['loss_cpu']}")
+    touched = touched_rows(batch["cat_ids"].cpu(), card.table.shape[0])
+    for name in ("cuda", "cpu"):
+        _, before, after, mv, _ = res[name]
+        check(same_bits(after[~touched], before[~touched]),
+              f"fast step ({name}): an untouched table row changed")
+        check(not bool(mv[~touched].any()), f"fast step ({name}): untouched m|v rows not zero")
+    before = res["cpu"][1][touched].double()
+    check(bool((res["cpu"][2][touched].double() != before).any(1).all()),
+          "fast step (cpu): a touched table row did not move")
+    rel = rel_l2(res["cuda"][2][touched].double() - before,
+                 res["cpu"][2][touched].double() - before)
+    out["rel_l2"]["update table"] = rel
+    check(rel <= FAST_UPDATE_REL_L2, f"fast step table update: relative L2 {rel:.3g} card "
+                                     "vs CPU")
+    mv_card, mv_cpu = res["cuda"][3][touched], res["cpu"][3][touched]
+    pairs = {"m table": (mv_card[:, :K + 1], mv_cpu[:, :K + 1]),
+             "v table": (mv_card[:, 128:128 + K + 1], mv_cpu[:, 128:128 + K + 1])}
+    pairs.update({k: (t, res["cpu"][4][k]) for k, t in res["cuda"][4].items()})
+    for key, (a, b) in pairs.items():
+        rel = rel_l2(a, b)
+        out["rel_l2"][key] = rel
+        limit = GRAD_REL_L2 if key.startswith("m ") else 2 * GRAD_REL_L2
+        check(rel <= limit, f"fast step {key}: relative L2 {rel:.3g} card vs CPU")
+    return out
 
 
 # --- phase 7: times ---------------------------------------------------------
@@ -1175,6 +1479,90 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+def time_fast_kernels(dev, gen) -> list[dict]:
+    """CUDA-event times at the fast step's full width: the row set into the
+    [6,000,640, 128] table and the [.., 256] m|v slab (fp32, and bf16 for a
+    bf16 slab), the dedupe's segment sum, and (as "times" rows with no kernel
+    of their own) the whole dedupe and the lazy-Adam row update."""
+    flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    cgen = torch.Generator(device=dev).manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
+    fs = big_feature_set()
+    v_rows, v_valid = padded_rows(fs), fs.total_buckets
+    ids = torch.from_numpy(random_ids(fs, BIG_BATCH, np.random.default_rng(10))).to(dev)
+    cap = sparse_ops.unique_capacity(fs.field_sizes, BIG_BATCH, ids.numel())
+    rows = update_rows(ids, cap, v_rows)
+    valid = rows < v_valid
+    n_valid, idx = int(valid.sum()), rows[valid].long()
+    out = []
+    for label, width, dtype in (("table C=128", 128, torch.float32),
+                                ("m|v C=256", 256, torch.float32),
+                                ("m|v C=256", 256, torch.bfloat16)):
+        es = torch.empty((), dtype=dtype).element_size()
+        slab = torch.randn(v_rows, width, generator=cgen, device=dev).to(dtype)
+        vals = torch.randn(cap, width, generator=cgen, device=dev).to(dtype)
+        kept = vals[valid]
+        ms_b, by = bound(cap * 4 + 2 * n_valid * width * es, 0)
+        out.append({
+            "name": "scatter_rows_dma", "dtype": str(dtype).split(".")[-1], "shape": label,
+            "v_rows": v_rows, "updates": cap, "valid_updates": n_valid,
+            "ms": time_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
+                                                                v_valid=v_valid), flush),
+            "warm_ms": time_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
+                                                                     v_valid=v_valid), None),
+            "plain_ms": time_ms(lambda: dma_ops.scatter_rows_dma_plain(slab, rows, vals,
+                                                                       v_valid=v_valid), flush),
+            "library_ms": time_ms(lambda: slab.index_copy_(0, idx, kept), flush),
+            "library": "index_copy_ of the valid rows", "bound_ms": ms_b, "bound_by": by,
+        })
+        del slab, vals, kept
+
+    r = ids.numel()
+    grads = torch.randn(r, 128, generator=cgen, device=dev)
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    new_run = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new_run[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
+    seg_l, g_sorted = seg.long(), grads[order]
+    zeros = torch.zeros(cap, 128, device=dev)
+    ms_b, by = bound(r * (4 + 8) + r * 128 * 4 + cap * 128 * 4, r * 128)
+    out.append({
+        "name": "segment_sum", "dtype": "float32", "shape": f"R={r} -> [{cap}, 128]",
+        "updates": r,
+        "ms": time_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), flush),
+        "warm_ms": time_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), None),
+        "plain_ms": time_ms(lambda: scatter_ops.segment_sum_plain(seg, order, grads, cap), flush),
+        "library_ms": time_ms(lambda: torch.index_add(zeros, 0, seg_l, g_sorted), flush),
+        "library": "index_add of the sorted rows (fp32 atomics)", "bound_ms": ms_b,
+        "bound_by": by,
+    })
+    flat_ids = ids.reshape(-1)
+    out.append({
+        "name": "dedupe_rows", "dtype": "float32", "shape": f"R={r} -> [{cap}, 128]",
+        "updates": r, "kernel": False,
+        "ms": time_ms(lambda: sparse_ops.dedupe_rows(flat_ids, grads, v_rows, cap), flush,
+                      iters=20),
+        "warm_ms": None, "plain_ms": None, "library_ms": None, "bound_ms": ms_b,
+        "bound_by": by,
+    })
+    table = torch.randn(v_rows, 128, generator=cgen, device=dev)
+    mv = torch.zeros(v_rows, 256, device=dev)
+    row_grads = grads[:cap]
+    lr_t = sparse_ops.adam_lr_t(1e-3, 7)
+    # reads p and m|v rows and the gradient rows, writes p and m|v rows
+    ms_b, by = bound(cap * 4 + n_valid * (2 * (128 + 256) * 4 + 128 * 4), 12 * n_valid * 128)
+    out.append({
+        "name": "sparse_adam_rows_packed", "dtype": "float32",
+        "shape": f"{cap} rows of [{v_rows}, 128] + m|v [{v_rows}, 256], dma", "updates": cap,
+        "kernel": False,
+        "ms": time_ms(lambda: sparse_ops.sparse_adam_rows_packed(
+            table, mv, rows, row_grads, lr_t, scatter_backend="dma", v_valid=v_valid), flush,
+            iters=20),
+        "warm_ms": None, "plain_ms": None, "library_ms": None, "bound_ms": ms_b,
+        "bound_by": by,
+    })
+    return out
+
+
 def profile_scatter(dev, gen) -> dict:
     """Device time of each kernel one scatter_rows_cuda call launches (the
     stable sort, the chunk pass, the finish pass), at both stream sizes."""
@@ -1215,6 +1603,11 @@ KERNELS = {
                     "rectpu/ops/interaction.py:55, rectpu/ops/interaction.py:77"),
     "cin": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:70, rectpu/ops/cin.py:88"),
     "cin_dw": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:101"),
+    "scatter_rows_dma": ("rectpu_torch/kernels/csrc/scatter_dma.cu",
+                         "rectpu/ops/scatter_dma.py:49"),
+    # the dedupe's segment sum runs the scatter kernel on segment ordinals; in
+    # rectpu it is XLA's jax.ops.segment_sum, not a Pallas kernel
+    "segment_sum": ("rectpu_torch/kernels/csrc/scatter_rows.cu", "rectpu/train/sparse.py:104"),
 }
 
 
@@ -1246,6 +1639,7 @@ def main(argv=None) -> int:
     errs = check_kernels(dev, gen)
     errs.update(check_train_kernels(dev, gen))
     errs.update(check_zoo_kernels(dev, gen))
+    errs.update(check_fast_kernels(dev, gen))
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     main_path = {}
@@ -1336,22 +1730,59 @@ def main(argv=None) -> int:
             print(f"check: {family} zoo step gradients card vs CPU ({rows} rows): loss "
                   f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
                   f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
+
+        # 6c. the sparse fast step at full width, against a CPU copy, and its CLI
+        fast = main_path["fast_step"] = fast_step_full_width(dev, args.seed, work)
+        busy = fast["profile"]["device_busy_ms"]
+        busy_txt = ("not measured" if busy is None else
+                    f"{busy:.4f} ms ({100 * fast['device_busy_share']:.1f} % of the step)")
+        print(f"fast step (_ablate_bigtable.py run_sparse packed dma: table "
+              f"[{fast['v_rows']}, 128] fp32, m|v [{fast['v_rows']}, 256] fp32, batch "
+              f"{BIG_BATCH}, capacity {fast['capacity']} rows): median {fast['step_ms']:.4f} ms "
+              f"over {BIG_STEPS} steps, {fast['examples_per_s']:.0f} examples/s; launches per "
+              f"step {fast['launches_per_step']}; device busy {busy_txt} per step in "
+              f"{fast['profile']['device_launches']:.0f} device launches; top kernels "
+              f"{[(k, round(t, 4)) for k, t in fast['profile']['top_kernels_ms']]}; host: "
+              f"{fast['profile']['host_aten_ops']:.0f} aten ops per step; one step changed "
+              f"{fast['rows_changed_by_a_step']} of the {fast['rows_touched_by_a_step']} rows "
+              f"its batch touched and no other [{gpu}]")
+        grads = main_path["fast_step_vs_cpu"] = check_fast_step_vs_cpu(dev, args.seed, work)
+        print(f"check: fast step card vs CPU at [{padded_rows(bench_feature_set())}, 128]: loss "
+              f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 "
+              f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
+        train = main_path["train_cli_fast"] = train_cli(
+            work, args.seed, deep_fm_cli, "deep_fm_fast_step",
+            (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, dma_ops.launches,
+             scatter_ops.segment_launches),
+            extra_args=("--fast-step", "on", "--sparse-scatter", "dma"))
+        print(f"training path (deep_fm trainer CLI, preset scaled, --fast-step on "
+              f"--sparse-scatter dma, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps): launches "
+              f"{train['launches']}; mean loss first 10 steps {train['loss_first10']:.5f}, last "
+              f"10 {train['loss_last10']:.5f}; final eval {train['metrics']}; "
+              f"{train['seconds']:.2f} s with data load and evals; its export answered "
+              f"/predict {train['predict']} [{gpu}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # 7. times
     floor, rows = time_kernels(dev, gen)
-    train_rows = time_train_kernels(dev, gen) + time_zoo_kernels(dev, gen)
+    train_rows = (time_train_kernels(dev, gen) + time_zoo_kernels(dev, gen)
+                  + time_fast_kernels(dev, gen))
     scatter_parts = profile_scatter(dev, gen)
     print(f"time: floor of this method (a one-element add) {floor:.4f} ms [{gpu}]")
     for label, parts in scatter_parts.items():
         print(f"profile scatter_rows {label}: device ms per call by kernel "
               f"{[(k, round(t, 4)) for k, t in parts]} [{gpu}]")
     for r in rows + train_rows:
+        if not r.get("kernel", True):
+            print(f"time: {r['name']} {r['dtype']} {r['shape']} (plain PyTorch around the "
+                  f"kernels): {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                  f"[{gpu}]")
+            continue
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         if r.get("library"):
             lib += f" ({r['library']})"
-        at = f"B={r['batch']}" if "batch" in r else f"rows={r['v_rows']}"
+        at = f"B={r['batch']}" if "batch" in r else f"rows={r.get('v_rows', r.get('updates'))}"
         print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {at}: kernel "
               f"{r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
               f"ms, library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{gpu}]")
@@ -1359,23 +1790,27 @@ def main(argv=None) -> int:
     # launches: the serving path for the serving kernels, the trainer CLIs for
     # the training kernels (DeepFM's; DLRM's for the interaction, xDeepFM's for
     # the CIN), the flagship step for fused Adam (the CLIs' Adam, like rectpu's,
-    # names no fused leaves)
+    # names no fused leaves), the full-width fast step for the row set and the
+    # dedupe's segment sum
     launches = {**main_path["deep_fm_k64_bf16"]["launches"],
                 **main_path["train_cli"]["launches"],
                 "fused_adam": main_path["flagship_step"]["launches"]["fused_adam"],
                 "interaction": main_path["train_cli_dlrm"]["launches"]["interaction"],
                 "cin": main_path["train_cli_xdeep_fm"]["launches"]["cin"],
-                "cin_dw": main_path["train_cli_xdeep_fm"]["launches"]["cin_dw"]}
+                "cin_dw": main_path["train_cli_xdeep_fm"]["launches"]["cin_dw"],
+                "scatter_rows_dma": main_path["fast_step"]["launches"]["scatter_rows_dma"],
+                "segment_sum": main_path["fast_step"]["launches"]["segment_sum"]}
     heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
              "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
              "fused_adam": ("m bf16, v bf16-SR", "flagship"),
              "interaction": ("bfloat16", FLAGSHIP_BATCH), "cin": ("bfloat16", f"H={CIN_O}"),
-             "cin_dw": ("bfloat16", f"H={CIN_O}")}
+             "cin_dw": ("bfloat16", f"H={CIN_O}"),
+             "scatter_rows_dma": ("float32", "m|v C=256"), "segment_sum": ("float32", None)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         dtype, at = heads[name]
         head = next(r for r in rows + train_rows if r["name"] == name and r["dtype"] == dtype
-                    and at in (r.get("batch"), r.get("shape")))
+                    and (at is None or at in (r.get("batch"), r.get("shape"))))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],

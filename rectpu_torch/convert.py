@@ -18,7 +18,12 @@ masters stay fp32 and a bf16 master (``table_dtype="bfloat16"``) stays bf16.
 
 ``adam_state_tree`` / ``adam_state_from_tree`` do the same for the Adam state
 ``{"m": tree, "v": tree, "t": int32}``, whose m and v trees mirror the
-parameter tree (``rectpu/train/optimizers.py:138-142``).
+parameter tree (``rectpu/train/optimizers.py:138-142``), and
+``sparse_state_tree`` / ``sparse_state_from_tree`` for the sparse fast step's
+``{"m": {"rest": tree}, "v": {"rest": tree}, "mv_sparse": {...}, "t"}``
+(``rectpu/train/fast_step.py:197-215``): the rest tree is the parameter tree
+without the table leaves, its ``linear`` subtree (less an unpacked ``w``)
+renamed ``linear_rest``.
 """
 
 from __future__ import annotations
@@ -111,6 +116,41 @@ def adam_state_from_tree(tree: dict, device=None) -> dict:
         return {k: to_tensor(v).to(device).contiguous() for k, v in flatten_tree(sub).items()}
 
     return {"m": flat(tree["m"]), "v": flat(tree["v"]),
+            "t": to_tensor(tree["t"]).to(torch.int32).reshape(())}
+
+
+_LINEAR, _LINEAR_REST = "linear" + _SEP, "linear_rest" + _SEP
+
+
+def sparse_state_tree(model, state: dict) -> dict:
+    """The fast step's state (``train/fast_step.py``, flat rest subtrees) as
+    rectpu's tree."""
+    template = _treedef_template(params_tree(model))
+    rest = {k: v for k, v in template.items() if k not in state["mv_sparse"] and k != "linear"}
+    if "linear" in template:
+        rest["linear_rest"] = {k: None for k in template["linear"]
+                               if _LINEAR + k in state["m"]["rest"]}
+
+    def tree(sub):
+        renamed = {(_LINEAR_REST + k[len(_LINEAR):] if k.startswith(_LINEAR) else k):
+                   t.detach().cpu() for k, t in sub["rest"].items()}
+        return {"rest": _rebuild(rest, renamed)}
+
+    return {"m": tree(state["m"]), "v": tree(state["v"]),
+            "mv_sparse": {k: t.detach().cpu() for k, t in state["mv_sparse"].items()},
+            "t": state["t"].detach().cpu().to(torch.int32)}
+
+
+def sparse_state_from_tree(tree: dict, device=None) -> dict:
+    """rectpu's fast-step state tree -> the port's (flat rest subtrees)."""
+    def flat(sub):
+        return {"rest": {(_LINEAR + k[len(_LINEAR_REST):] if k.startswith(_LINEAR_REST) else k):
+                         to_tensor(v).to(device).contiguous()
+                         for k, v in flatten_tree(sub["rest"]).items()}}
+
+    return {"m": flat(tree["m"]), "v": flat(tree["v"]),
+            "mv_sparse": {k: to_tensor(v).to(device).contiguous()
+                          for k, v in tree["mv_sparse"].items()},
             "t": to_tensor(tree["t"]).to(torch.int32).reshape(())}
 
 

@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("embedding_lookup", "fm", "scatter_rows", "fused_adam", "interaction", "cin")
+SOURCES = ("embedding_lookup", "fm", "scatter_rows", "fused_adam", "interaction", "cin",
+           "scatter_dma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

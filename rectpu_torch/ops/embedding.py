@@ -87,7 +87,9 @@ def lookup_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` outside autograd (zero rows for out-of-range ids): the
+    plain version for CPU tensors, the gather kernel for CUDA tensors."""
     if table.device.type == "cpu" and ids.device.type == "cpu":
         return lookup_take(table, ids)
     return lookup_cuda(table, ids)
@@ -99,7 +101,7 @@ class _Lookup(torch.autograd.Function):
         ctx.save_for_backward(ids)
         ctx.table_meta = (table.shape[0], table.dtype, grad_dtype)
         source = table.to(gather_dtype) if gather_dtype is not None else table
-        return _gather(source.contiguous(), ids)
+        return gather_rows(source.contiguous(), ids)
 
     @staticmethod
     def backward(ctx, g):

@@ -19,6 +19,12 @@ the backward of ``lookup_pallas``).
 Ids outside ``[0, v_rows)`` contribute nothing: ``DROP_SENTINEL``, negative
 ids, and ids past the table (the one-hot rule of ``_bwd_kernel``).
 
+``segment_sum`` runs the same kernel on an already sorted stream whose ids
+are segment ordinals: the compact ``[num_out, W]`` per-unique-row sums of
+the sparse fast step's ``dedupe_rows`` (rectpu's ``jax.ops.segment_sum``,
+``rectpu/train/sparse.py:104``), in a fixed order, so two launches give the
+same bits (an fp32 ``index_add_`` on the card sums duplicates with atomics).
+
 One difference from rectpu: when a tile of its sorted stream holds more than
 ``capacity`` updates, rectpu's ``lax.cond`` fallback scatters with XLA and
 accumulates in ``out_dtype`` (``scatter_rows.py:309-317``), so a bf16
@@ -40,6 +46,7 @@ DROP_SENTINEL = 2**31 // 2 - 1
 CHUNK = 32
 
 launches = LaunchCount("scatter_rows")
+segment_launches = LaunchCount("segment_sum")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIGNATURES = {
@@ -114,3 +121,69 @@ def scatter_rows_dense(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
     if ids.device.type == "cpu" and updates.device.type == "cpu":
         return scatter_rows_plain(ids, updates, v_rows, out_dtype)
     return scatter_rows_cuda(ids, updates, v_rows, out_dtype)
+
+
+def segment_sum_plain(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tensor,
+                      num_out: int) -> torch.Tensor:
+    """Plain version: ``out[s] = sum of updates[order[r]] over r with seg[r]
+    == s`` -> [num_out, W] fp32, summed in the order of r; segments at or
+    past ``num_out`` are dropped."""
+    seg = seg.long()
+    keep = seg < num_out
+    out = torch.zeros(num_out, updates.shape[1], dtype=torch.float32, device=updates.device)
+    out.index_add_(0, seg[keep], updates[order[keep]].float())
+    return out
+
+
+def segment_sum_cuda(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tensor,
+                     num_out: int) -> torch.Tensor:
+    """Launch the scatter kernel on a sorted stream: seg [R] int32
+    nondecreasing (segment ordinals), order [R] int64 (the row of
+    ``updates`` at each position), updates [n, W] fp32 or bf16, all
+    contiguous on one card -> [num_out, W] fp32. Raises on anything the
+    kernel does not take."""
+    if not (seg.is_cuda and order.is_cuda and updates.is_cuda
+            and seg.device == order.device == updates.device):
+        raise ValueError(f"segment_sum_cuda needs seg, order and updates on one CUDA device, "
+                         f"got {seg.device}, {order.device}, {updates.device}")
+    if seg.dim() != 1 or seg.dtype != torch.int32 or order.dtype != torch.int64 \
+            or order.shape != seg.shape:
+        raise ValueError(f"seg must be [R] int32 and order [R] int64, got {tuple(seg.shape)} "
+                         f"{seg.dtype} and {tuple(order.shape)} {order.dtype}")
+    if updates.dim() != 2 or updates.dtype not in _DTYPES:
+        raise ValueError(f"updates must be [n, W] float32 or bfloat16, got "
+                         f"{tuple(updates.shape)} {updates.dtype}")
+    if not (seg.is_contiguous() and order.is_contiguous() and updates.is_contiguous()):
+        raise ValueError("segment_sum_cuda needs contiguous seg, order and updates")
+    n, w = seg.shape[0], updates.shape[1]
+    if max(n, num_out, w) >= 2**31 or num_out < 0:
+        raise ValueError(f"{n} positions of width {w} into {num_out} segments exceed the "
+                         "kernel's int32 extents")
+    out = torch.empty(num_out, w, dtype=torch.float32, device=updates.device)
+    if out.numel() == 0:
+        return out
+    n_chunks = -(-n // CHUNK)
+    part_first = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
+    part_last = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
+    spans = torch.empty(num_out, 2, dtype=torch.int32, device=updates.device)
+    lib = build.load("scatter_rows", _SIGNATURES)
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        err = lib.rectpu_scatter_rows(
+            seg.data_ptr(), order.data_ptr(), updates.data_ptr(), out.data_ptr(),
+            part_first.data_ptr(), part_last.data_ptr(), spans.data_ptr(), n, num_out, w,
+            CHUNK, int(updates.dtype == torch.bfloat16), 0, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: cudaError {err}")
+    segment_launches.add()
+    return out
+
+
+def segment_sum(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tensor,
+                num_out: int) -> torch.Tensor:
+    """Per-segment fp32 sums of a sorted stream -> [num_out, W] (see
+    ``segment_sum_plain``). CPU tensors take the plain version, CUDA tensors
+    the kernel."""
+    if updates.device.type == "cpu" and seg.device.type == "cpu":
+        return segment_sum_plain(seg, order, updates, num_out)
+    return segment_sum_cuda(seg, order, updates, num_out)

@@ -20,7 +20,11 @@ What differs from rectpu, and why:
     index stream, so training is the same either way.
 
 A step is forward, ``sigmoid_xent`` reduced by mean or sum (``loop.py:140-147``),
-backward, and the optimizer's in-place update.
+backward, and the optimizer's in-place update. Given ``fast_step`` (the
+``(init_opt_state, step)`` pair of ``train/fast_step.make_sparse_step``), the
+sparse lazy-Adam step replaces all three and its ``init_opt_state`` makes the
+optimizer state (``loop.py:105-113, 152-158, 505-508``); the optimizer then
+only names the semantics.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from rectpu_torch.convert import (
     flatten_tree,
     load_params,
     params_tree,
+    sparse_state_from_tree,
+    sparse_state_tree,
 )
 from rectpu_torch.io.loader import DataState
 from rectpu_torch.models.base import step_seed32
@@ -73,9 +79,10 @@ class TrainConfig:
 
 class Trainer:
     def __init__(self, model, optimizer, train_ds, eval_ds, job_dir: str | Path,
-                 config: TrainConfig, exporter=None, device=None):
+                 config: TrainConfig, exporter=None, device=None, fast_step=None):
         self.model = model
         self.optimizer = optimizer
+        self.fast_step = fast_step
         self.train_ds = train_ds
         self.eval_ds = eval_ds
         self.job_dir = Path(job_dir)
@@ -102,6 +109,9 @@ class Trainer:
         """Forward, backward and the optimizer update of step ``step``; returns
         the loss (a device scalar, not waited for)."""
         params = flat_params(self.model)
+        if self.fast_step is not None:
+            return self.fast_step[1](params, self.opt_state, batch,
+                                     step_seed32(self.config.seed, step))
         for p in params.values():
             p.grad = None
         loss = self.loss(batch, train=True, step=step)
@@ -236,8 +246,9 @@ class Trainer:
     def _save(self, step: int, data_state) -> dict:
         """Checkpoint {params, opt_state} in rectpu's layout; returns the params tree."""
         params = params_tree(self.model)
+        to_tree = sparse_state_tree if self.fast_step is not None else adam_state_tree
         self.ckpt.save(step, {"params": params,
-                              "opt_state": adam_state_tree(self.model, self.opt_state)},
+                              "opt_state": to_tree(self.model, self.opt_state)},
                        extra_meta={"data_state": dataclasses.asdict(data_state)
                                    if data_state else None,
                                    "model": getattr(self.model, "name", "model")})
@@ -255,14 +266,19 @@ class Trainer:
             # checkpoint (below) overwrites it
             params = self._warm_start(params)
         load_params(self.model, params, self.device)
-        self.opt_state = self.optimizer.init(flat_params(self.model))
+        if self.fast_step is not None:
+            self.opt_state = self.fast_step[0](flat_params(self.model))
+        else:
+            self.opt_state = self.optimizer.init(flat_params(self.model))
         step, data_state = 0, None
         if restore:
             snapshot = self.ckpt.restore()
             if snapshot is not None:
                 tree, meta = snapshot
                 load_params(self.model, tree["params"], self.device)
-                self.opt_state = adam_state_from_tree(tree["opt_state"], self.device)
+                from_tree = (sparse_state_from_tree if self.fast_step is not None
+                             else adam_state_from_tree)
+                self.opt_state = from_tree(tree["opt_state"], self.device)
                 step = meta["step"]
                 if meta.get("data_state"):
                     data_state = DataState(**meta["data_state"])

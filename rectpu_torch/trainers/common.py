@@ -4,10 +4,12 @@ The same flags and defaults as rectpu's parser (``common.py:20-222``), so a
 rectpu command line runs here unchanged, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
 port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
-queue instead of being ignored: sharding and EP (queue A12), the sparse fast
-step (A11), ``--streaming-io`` and ``--exporter best`` (A7), ``--autotune``
-and ``--profile-dir`` (A13), ``--table-store bfloat16`` (A5). The JAX
+queue instead of being ignored: sharding and EP (queue A12),
+``--streaming-io`` and ``--exporter best`` (A7), ``--autotune`` and
+``--profile-dir`` (A13), ``--table-store bfloat16`` (A5). The JAX
 compilation cache flag is accepted and has nothing to configure.
+``--fast-step`` and ``--sparse-scatter`` build the sparse lazy-Adam step
+(``train/fast_step.py``) as rectpu's ``_resolve_fast_step`` does.
 """
 
 from __future__ import annotations
@@ -136,11 +138,22 @@ def add_deep_args(parser: ArgumentParser) -> None:
                              "--packed-linear, --optimizer-slot-dtype bfloat16-sr. Only "
                              "knobs still at their defaults are overridden")
     parser.add_argument("--fast-step", choices=["auto", "on", "off"], default="auto",
-                        help="sparse lazy-Adam step (not ported yet: 'on' raises; 'auto' "
-                             "keeps the dense step below rectpu's crossover and raises "
-                             "above it)")
-    parser.add_argument("--sparse-scatter", choices=["auto", "xla", "dma"], default="auto",
-                        help="state scatter of the sparse fast step (not ported yet)")
+                        help="sparse lazy-Adam training step (train/fast_step): "
+                             "gathers rows outside the differentiated function and "
+                             "updates only the touched table rows — TF "
+                             "_apply_sparse semantics. 'auto' = on when the table "
+                             "exceeds ~850M elements PER SHARD (~13M rows at "
+                             "K=64, rectpu's measured crossover with lane-aligned "
+                             "state) and the run is Adam-compatible; 'on' forces it "
+                             "(errors on incompatibility). Adam only; fp32 "
+                             "table/slots")
+    parser.add_argument("--sparse-scatter", choices=["auto", "xla", "dma"],
+                        default="auto",
+                        help="state scatter backend for the sparse fast step: "
+                             "xla (.at[].set semantics) or dma (the row-set "
+                             "kernel of ops/scatter_dma; bitwise-equal). On the "
+                             "card both run the row-set kernel. auto = xla "
+                             "(default: %(default)s)")
 
 
 # --preset scaled: knob -> (parser default, preset value) (rectpu common.py:227-235)
@@ -196,10 +209,65 @@ def check_supported(args, model) -> None:
         _not_ported("--profile-dir", "A13")
     if args.table_store != "float32":
         _not_ported("--table-store bfloat16", "A5")
-    mode = getattr(args, "fast_step", "off")
+
+
+def resolve_fast_step(args, model, optimizer):
+    """The (init, step) pair for --fast-step, or None (rectpu's
+    ``_resolve_fast_step``, ``trainers/common.py:264-338``).
+
+    'auto' turns the sparse step on past the dense-sweep crossover (850M
+    table elements per shard) when the run is compatible, and otherwise logs
+    and keeps the dense step; 'on' raises on an incompatibility instead. EP
+    sharding is not ported (``check_supported`` raises first), so rectpu's
+    EP-only check has no counterpart here."""
+    mode = getattr(args, "fast_step", "off") or "off"
+    if mode == "off":
+        return None
+
+    def fail(msg):
+        if mode == "on":
+            raise ValueError(f"--fast-step on: {msg}")
+        logger.info("--fast-step auto: staying on the dense step (%s)", msg)
+        return None
+
+    if not hasattr(model, "apply_looked"):
+        return fail(f"{model.name} has no apply_looked hook")
     cols = model.cfg.embedding_size + (1 if getattr(model, "use_linear", False) else 0)
-    if mode == "on" or (mode == "auto" and model.cfg.padded_buckets * cols >= _FAST_STEP_ELEMS):
-        _not_ported("the sparse fast step (--fast-step)", "A11")
+    elems_per_shard = (model.cfg.padded_buckets * cols
+                       // max(getattr(args, "num_model_shards", 1), 1))
+    if mode == "auto" and elems_per_shard < _FAST_STEP_ELEMS:
+        return None
+    if optimizer.name != "Adam":
+        return fail(f"requires Adam (got {optimizer.name}); the sparse step IS "
+                    "lazy Adam (tf _apply_sparse semantics)")
+    slot_dtype = "float32"
+    if getattr(args, "optimizer_slot_dtype", None):
+        if "optimizer_slot_dtype" in getattr(args, "_preset_applied", ()):
+            # --preset scaled injected it for the dense sweep; the sparse step
+            # keeps fp32 rows unless the flag is typed
+            logger.info("fast step: ignoring the preset's bf16-sr slot dtype "
+                        "(sparse rows keep fp32 m/v; pass the flag "
+                        "explicitly for the bf16 slab)")
+        elif args.optimizer_slot_dtype in ("bfloat16-sr", "bfloat16_sr"):
+            slot_dtype = "bfloat16_sr"
+            logger.info("fast step: bf16 m|v slab (v stochastically rounded)")
+        else:
+            return fail("sparse rows support float32 or bfloat16-sr slots; "
+                        f"got {args.optimizer_slot_dtype}")
+    if getattr(args, "table_dtype", "float32") != "float32" or \
+            getattr(args, "table_store", "float32") != "float32":
+        return fail("needs fp32 tables (no bf16 master/store)")
+    from rectpu_torch.train.fast_step import make_sparse_step
+
+    fns = make_sparse_step(
+        model,
+        learning_rate=getattr(args, "learning_rate", 0.001),
+        loss_reduction=getattr(args, "loss_reduction", "mean"),
+        scatter_backend=getattr(args, "sparse_scatter", "auto"),
+        slot_dtype=slot_dtype,
+    )
+    logger.info("fast step on: sparse lazy-Adam table updates")
+    return fns
 
 
 def build_trainer(args, model, optimizer):
@@ -209,6 +277,7 @@ def build_trainer(args, model, optimizer):
     from rectpu_torch.train.loop import TrainConfig, Trainer
 
     check_supported(args, model)
+    fast_step = resolve_fast_step(args, model, optimizer)
     device = resolve_device(args.device)
     if not args.restore:
         shutil.rmtree(args.job_dir, ignore_errors=True)
@@ -233,7 +302,7 @@ def build_trainer(args, model, optimizer):
         export_model(params, model, args.job_dir, step)
 
     trainer = Trainer(model, optimizer, train_ds, eval_ds, args.job_dir, config,
-                      exporter=exporter, device=device)
+                      exporter=exporter, device=device, fast_step=fast_step)
     trainer.warm_start_from = args.warm_start_from
     trainer.warm_start_vars = args.warm_start_vars
     return trainer
