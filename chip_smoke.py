@@ -39,6 +39,12 @@ failed check raises, and the script exits nonzero without the final line:
    the plain version, every row outside the update unchanged; the dedupe's
    segment sum (R=212,992 x 128 -> [25,088, 128]) within the fp32 bound of
    an fp64 oracle and bitwise equal across launches and dedupe runs.
+3d. The autotuner's kernels: the flat FM forward (the fp32 logit and S in
+   v2's type) and backward (from the kernel's S) against their plain
+   versions, fp32 and bf16, at B=8192 F=26 K=64 and at ragged shapes (rows
+   padded by 8 for the 16-byte path, by 1 and K=37 for the scalar path); the
+   scatter at every chunk the autotuner sweeps (16, 32, 64), within the fp32
+   bound of an fp64 oracle and bitwise equal across launches.
 4. Serving path: DeepFM at the flagship widths (K=64, hidden [256, 128])
    from a seeded torch.Generator, in bf16 and in fp32, written by the port's
    export_model and served by the port's HTTP server (micro-batching on) on
@@ -58,6 +64,11 @@ failed check raises, and the script exits nonzero without the final line:
    writes is then served on the card and answers one /predict. Then the
    DLRM and xDeepFM trainer CLIs the same way (lookup, scatter and
    interaction, or CIN and CIN-dw counts grown).
+5b. The DeepFM trainer CLI with --autotune and --profile-dir (--preset
+   scaled, K=64, batch 4096, 20 steps in windows of 5): the autotuner times
+   the port's kernels at the trainer's shapes (the flat FM kernels' launch
+   counts must grow) and logs its picks; the second window's trace is
+   written and names fm.cu's kernels. The pins are put back afterwards.
 6. Flagship step: bench.py's configuration (310k-row table, batch 8192,
    bf16 towers and table gradient, hash dropout, Adam with bf16 m and
    stochastically rounded v, the table on the fused kernel): the step's
@@ -81,7 +92,8 @@ failed check raises, and the script exits nonzero without the final line:
    where one PyTorch call computes the same function, that call (for the
    interaction, torch.bmm forming the full z, a superset of the work; for
    the row set, index_copy_ of the valid rows). The fast step's dedupe and
-   lazy-Adam row update are timed whole beside them.
+   lazy-Adam row update are timed whole beside them. The flat FM forward and
+   backward at B=8192, F=26, K=64.
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -92,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import shutil
 import statistics
 import subprocess
@@ -127,6 +140,7 @@ from rectpu_torch.ops import fused_adam as adam_ops
 from rectpu_torch.ops import interaction as int_ops
 from rectpu_torch.ops import scatter_dma as dma_ops
 from rectpu_torch.ops import scatter_rows as scatter_ops
+from rectpu_torch.ops.autotune import SCATTER_CHUNKS
 from rectpu_torch.serve.export import export_model, latest_export, load_model
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
 from rectpu_torch.train import sparse as sparse_ops
@@ -136,6 +150,7 @@ from rectpu_torch.train.optimizers import BF16_SR, adam
 from rectpu_torch.trainers import deep_fm as deep_fm_cli
 from rectpu_torch.trainers import dlrm as dlrm_cli
 from rectpu_torch.trainers import xdeep_fm as xdeep_fm_cli
+from rectpu_torch.utils.timing import event_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -155,6 +170,7 @@ GRAD_REL_L2 = 1e-2  # card vs CPU gradient, relative L2 per leaf: ~2 bf16 ulps (
 # systematic shrink of ~4e-6, while one dropped row of 524,288 moves it ~1.4e-3
 DW_REL_L2 = 1e-5
 TRAIN_BATCH, TRAIN_STEPS = 4096, 40  # the trainer CLI phase
+AUTOTUNE_CLI_STEPS, AUTOTUNE_CLI_LOOP = 20, 5  # --autotune --profile-dir: window 2 traced
 FLAGSHIP_BATCH, FLAGSHIP_STEPS = 8192, 20
 CIN_O = 64  # xDeepFM's cin_units (64, 64)
 ZOO_CLI_STEPS, ZOO_STEPS = 30, 10  # the DLRM / xDeepFM trainer CLIs and zoo steps
@@ -646,6 +662,80 @@ def check_fast_kernels(dev, gen) -> dict:
     return errs
 
 
+# --- phase 3d: the autotuner's kernels against their plain versions ---------
+
+
+# (B, F, K, extra row stride, std): the bench's and the autotuner's full
+# width (the autotuner's v2 is std-1 [TRAIN_BATCH, F*K]) and ragged shapes,
+# rows padded so that the 16-byte path (+8) and the scalar path (+1, K=37) run
+FLAT_CASES = ((FLAGSHIP_BATCH, FIELDS, K, 0, 0.3), (TRAIN_BATCH, FIELDS, K, 0, 1.0),
+              (37, FIELDS, K, 8, 0.3), (37, FIELDS, K, 1, 0.3), (37, 3, 37, 0, 0.3))
+
+
+def flat_input(b: int, f: int, k: int, pad: int, std: float, dtype, dev,
+               gen) -> torch.Tensor:
+    """v2 [b, f*k] of normal values with ``std``, in ``dtype`` on ``dev``, as
+    a view of rows ``pad`` wider."""
+    rows = (torch.randn(b, f * k + pad, generator=gen) * std).to(dtype).to(dev)
+    return rows[:, :f * k]
+
+
+def check_flat_kernels(dev, gen) -> dict:
+    """The flat FM forward (out, S) and backward against their plain versions,
+    and the scatter at every chunk the autotuner sweeps."""
+    errs = {"fm_cross_flat": 0.0, "fm_cross_flat_bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, f, k, pad, std in FLAT_CASES:
+            v2 = flat_input(b, f, k, pad, std, dtype, dev, gen)
+            g = torch.randn(b, generator=gen).to(dev)
+            out, s = fm_ops.fm_cross_flat_cuda(v2, f, k)
+            want_out, want_s = fm_ops.fm_cross_flat_plain(v2, f, k)
+            dv = fm_ops.fm_cross_flat_bwd_cuda(v2, s, g, f, k)
+            want_dv = fm_ops.fm_cross_flat_bwd_plain(v2, s, g, f, k)  # the kernel's S
+            torch.cuda.synchronize()
+            label = f"fm_cross_flat {dtype} B={b} F={f} K={k} row stride {v2.stride(0)}"
+            check(out.shape == (b,) and out.dtype == torch.float32, f"{label}: out shape/dtype")
+            check(s.shape == (b, k) and s.dtype == dtype, f"{label}: S shape/dtype")
+            check(dv.shape == (b, f * k) and dv.dtype == dtype, f"{label}: dv shape/dtype")
+            err = (out.double() - want_out.double()).abs()
+            check(bool((err <= fm_tolerance(v2.reshape(b, f, k), want_out)).all()),
+                  f"{label}: out max err {err.max().item()}")
+            # S: fp32 sums of F values in another order, plus one bf16 ulp
+            s_tol = FM_BWD_RTOL * v2.double().abs().reshape(b, f, k).sum(1)
+            if dtype == torch.bfloat16:
+                s_tol = s_tol + BF16_REL_ULP * want_s.double().abs()
+            s_err = (s.double() - want_s.double()).abs()
+            check(bool((s_err <= s_tol).all()), f"{label}: S max err {s_err.max().item()}")
+            # dv from the same S: the same fp32 operations, within one ulp
+            d = ulp_distance(dv, want_dv)
+            check(d <= 1, f"{label}: dv {d} ulp from the plain version")
+            errs["fm_cross_flat"] = max(errs["fm_cross_flat"], err.max().item(),
+                                        s_err.max().item())
+            errs["fm_cross_flat_bwd"] = max(errs["fm_cross_flat_bwd"],
+                                            (dv.double() - want_dv.double()).abs().max().item())
+        print(f"check: fm_cross_flat {dtype} forward (out, S) and backward at (B, F, K, "
+              f"row pad, std) {FLAT_CASES} within tolerance of plain (max abs err so far: forward "
+              f"{errs['fm_cross_flat']:.3g}, backward {errs['fm_cross_flat_bwd']:.3g})")
+
+    rng = np.random.default_rng(6)
+    for label, ids, v_rows in scatter_cases(rng):
+        ids = ids.to(dev)
+        upd = torch.randn(ids.shape[0], WIDTH, generator=gen).to(dev)
+        exact, mag, count = scatter_oracle(ids, upd, v_rows)
+        tol = scatter_tolerance(mag, count, torch.float32, exact)
+        for chunk in SCATTER_CHUNKS:
+            got = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, chunk=chunk)
+            again = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, chunk=chunk)
+            torch.cuda.synchronize()
+            check(same_bits(got, again), f"scatter {label} chunk {chunk}: two launches differ")
+            err = (got.double() - exact).abs()
+            check(bool((err <= tol).all()), f"scatter {label} chunk {chunk}: max err "
+                                            f"{err.max().item()} vs the fp64 oracle")
+        print(f"check: scatter_rows {label} R={ids.shape[0]} fp32 at chunks {SCATTER_CHUNKS}: "
+              "within tolerance of the fp64 oracle, bitwise equal across launches")
+    return errs
+
+
 # --- phase 4: the serving path ----------------------------------------------
 
 
@@ -851,7 +941,7 @@ def profile_forward(model, instances: list, reps: int = 20) -> dict:
 def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
               counters=(emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
                         scatter_ops.launches), steps: int = TRAIN_STEPS,
-              extra_args: tuple = ()) -> dict:
+              extra_args: tuple = (), steps_per_loop: int = 10) -> dict:
     """Train through a trainer CLI on the card, then serve its export."""
     data_dir = work / "data"
     if not (data_dir / "train.csv").exists():
@@ -859,7 +949,7 @@ def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
     job_dir = work / f"train_job_{label}"
     argv = ["--preset", "scaled", "--embedding-size", str(K), "--hidden-units", "256", "128",
             "--batch-size", str(TRAIN_BATCH), "--train-steps", str(steps),
-            "--save-checkpoints-steps", str(steps), "--steps-per-loop", "10",
+            "--save-checkpoints-steps", str(steps), "--steps-per-loop", str(steps_per_loop),
             "--train-csv", str(data_dir / "train.csv"), "--test-csv", str(data_dir / "test.csv"),
             "--job-dir", str(job_dir), "--device", "cuda", "--seed", str(seed), *extra_args]
     args = cli.build_parser().parse_args(argv)
@@ -903,6 +993,65 @@ def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
     return {"launches": launches, "losses": losses, "loss_first10": head, "loss_last10": tail,
             "metrics": metrics, "seconds": seconds, "export": export_dir.name,
             "predict": preds[0]}
+
+
+# --- phase 5b: --autotune and --profile-dir through the trainer CLI --------
+
+
+class LogLines(logging.Handler):
+    """The messages logged under the port's root logger while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def autotune_pins() -> list[tuple[dict, dict]]:
+    """(pin dict, a copy of it) for every pin the autotuner may set."""
+    pins = (fm_ops._FLAT_AUTO, int_ops._INTERACT_AUTO, scatter_ops._AUTO_CHUNK)
+    return [(p, dict(p)) for p in pins]
+
+
+def autotune_cli(work: Path, seed: int) -> dict:
+    """The DeepFM trainer CLI with --autotune and --profile-dir: the
+    autotuner launches the flat FM kernels at the trainer's shapes and logs
+    its picks; the second logging window is traced and the trace names the
+    FM kernels of fm.cu that the flat-layout step runs. The pins are put back
+    afterwards, so that later phases run as before."""
+    prof_dir = work / "profile"
+    saved = autotune_pins()
+    log = LogLines()
+    root = logging.getLogger("rectpu_torch")
+    root.addHandler(log)
+    try:
+        res = train_cli(work, seed, deep_fm_cli, "deep_fm_autotune",
+                        (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+                         scatter_ops.launches, fm_ops.flat_launches, fm_ops.flat_bwd_launches),
+                        steps=AUTOTUNE_CLI_STEPS, steps_per_loop=AUTOTUNE_CLI_LOOP,
+                        extra_args=("--autotune", "--profile-dir", str(prof_dir)))
+    finally:
+        root.removeHandler(log)
+        for pin, copy in saved:
+            pin.clear()
+            pin.update(copy)
+    picks = [m for m in log.lines if m.startswith("autotune on cuda:")]
+    check(len(picks) == 1, f"the autotuner logged {len(picks)} pick lines, not 1")
+    check(any(m.startswith("profile trace written to") for m in log.lines),
+          "the trainer logged no profile trace")
+    traces = sorted(prof_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"--profile-dir holds {len(traces)} traces, not 1")
+    text = traces[0].read_text()
+    for name in ("fm_fwd_kernel", "fm_bwd_kernel"):
+        check(name in text, f"the profile trace does not name fm.cu's {name}")
+    res["autotune_log"] = picks[0]
+    res["trace"] = {"file": traces[0].name, "bytes": len(text),
+                    "fm_kernels": [n for n in ("fm_fwd_kernel", "fm_bwd_kernel",
+                                               "fm_flat_fwd_kernel", "fm_flat_bwd_kernel")
+                                   if n in text]}
+    return res
 
 
 # --- phase 6: the flagship step ---------------------------------------------
@@ -1283,37 +1432,12 @@ def check_fast_step_vs_cpu(dev, seed: int, work: Path) -> dict:
 # --- phase 7: times ---------------------------------------------------------
 
 
-def time_ms(fn, flush: torch.Tensor | None, iters: int = 50) -> float:
-    """Median CUDA-event time of one call on the device. With ``flush``, a
-    read of a buffer larger than the 50 MB L2 precedes each launch, so the
-    call finds its inputs in device memory (a read leaves clean lines: a
-    flushing WRITE would leave 50 MB of dirty lines whose write-back lands
-    inside the timed call). A sleep kernel queued first keeps the card busy
-    while the host enqueues every launch, so no event pair spans host
-    overhead (a wrapper's Python and ctypes cost is tens of microseconds,
-    more than these kernels take)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(iters)]
-    torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles
-    for start, end in pairs:
-        if flush is not None:
-            flush.sum()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def time_kernels(dev, gen) -> tuple[float, list[dict]]:
     """(floor, rows): the floor is the same timing of a one-element add, the
     least any launch reads by this method; rows time each kernel."""
     flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
     one = torch.zeros(1, device=dev)
-    floor = time_ms(lambda: one.add_(1.0), None)
+    floor = event_ms(lambda: one.add_(1.0), None)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.empty((), dtype=dtype).element_size()
@@ -1326,10 +1450,10 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
             nbytes = n * 4 + V_ROWS * WIDTH * es + n * WIDTH * es
             rows.append({
                 "name": "embedding_lookup", "dtype": str(dtype).split(".")[-1], "batch": b,
-                "ms": time_ms(lambda: emb_ops.lookup_cuda(table, ids), flush),
-                "warm_ms": time_ms(lambda: emb_ops.lookup_cuda(table, ids), None),
-                "plain_ms": time_ms(lambda: emb_ops.lookup_take(table, ids), flush),
-                "library_ms": time_ms(lambda: torch.index_select(table, 0, ids_long), flush),
+                "ms": event_ms(lambda: emb_ops.lookup_cuda(table, ids), flush),
+                "warm_ms": event_ms(lambda: emb_ops.lookup_cuda(table, ids), None),
+                "plain_ms": event_ms(lambda: emb_ops.lookup_take(table, ids), flush),
+                "library_ms": event_ms(lambda: torch.index_select(table, 0, ids_long), flush),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             })
             looked = (torch.randn(b, FIELDS, K + 1, generator=gen) * 0.3).to(dtype).to(dev)
@@ -1339,9 +1463,9 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
             bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
             rows.append({
                 "name": "fm_cross", "dtype": str(dtype).split(".")[-1], "batch": b,
-                "ms": time_ms(lambda: fm_ops.fm_cross_cuda(v), flush),
-                "warm_ms": time_ms(lambda: fm_ops.fm_cross_cuda(v), None),
-                "plain_ms": time_ms(lambda: fm_ops.fm_cross_xla(v), flush),
+                "ms": event_ms(lambda: fm_ops.fm_cross_cuda(v), flush),
+                "warm_ms": event_ms(lambda: fm_ops.fm_cross_cuda(v), None),
+                "plain_ms": event_ms(lambda: fm_ops.fm_cross_xla(v), flush),
                 "library_ms": None,
                 "bound_ms": bound * 1e3,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
@@ -1376,11 +1500,11 @@ def time_train_kernels(dev, gen) -> list[dict]:
             rows.append({
                 "name": "scatter_rows", "dtype": str(dtype).split(".")[-1], "shape": label,
                 "v_rows": v_rows, "updates": n,
-                "ms": time_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), flush),
-                "warm_ms": time_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), None),
-                "plain_ms": time_ms(lambda: scatter_ops.scatter_rows_plain(ids, upd, v_rows),
-                                    flush),
-                "library_ms": time_ms(lambda: torch.index_add(zeros, 0, ids_long, upd), flush),
+                "ms": event_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), flush),
+                "warm_ms": event_ms(lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows), None),
+                "plain_ms": event_ms(lambda: scatter_ops.scatter_rows_plain(ids, upd, v_rows),
+                                     flush),
+                "library_ms": event_ms(lambda: torch.index_add(zeros, 0, ids_long, upd), flush),
                 "bound_ms": ms_b, "bound_by": by,
             })
             looked = (torch.randn(batch, FIELDS, K + 1, generator=gen) * 0.3).to(dtype).to(dev)
@@ -1390,9 +1514,9 @@ def time_train_kernels(dev, gen) -> list[dict]:
             rows.append({
                 "name": "fm_cross_bwd", "dtype": str(dtype).split(".")[-1], "shape": label,
                 "batch": batch,
-                "ms": time_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), flush),
-                "warm_ms": time_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), None),
-                "plain_ms": time_ms(lambda: fm_ops.fm_cross_bwd_xla(v, g), flush),
+                "ms": event_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), flush),
+                "warm_ms": event_ms(lambda: fm_ops.fm_cross_bwd_cuda(v, g), None),
+                "plain_ms": event_ms(lambda: fm_ops.fm_cross_bwd_xla(v, g), flush),
                 "library_ms": None, "bound_ms": ms_b, "bound_by": by,
             })
         for p_dt, m_dt, v_dt, g_dt in ((torch.float32, torch.bfloat16, torch.bfloat16,
@@ -1412,10 +1536,10 @@ def time_train_kernels(dev, gen) -> list[dict]:
             rows.append({
                 "name": "fused_adam", "dtype": "m bf16, v bf16-SR" if sr else "fp32 slots",
                 "shape": label, "v_rows": v_rows,
-                "ms": time_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), flush),
-                "warm_ms": time_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), None),
-                "plain_ms": time_ms(lambda: adam_ops.fused_adam_plain(p, m, vv, gg, 7, **kw),
-                                    flush, iters=10),
+                "ms": event_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), flush),
+                "warm_ms": event_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), None),
+                "plain_ms": event_ms(lambda: adam_ops.fused_adam_plain(p, m, vv, gg, 7, **kw),
+                                     flush, iters=10),
                 "library_ms": None, "bound_ms": ms_b, "bound_by": by,
             })
     return rows
@@ -1438,11 +1562,11 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
         ms_b, by = bound(b * FIELDS * K * es + b * p * 4, 2 * b * p * K)
         rows.append({
             "name": "interaction", "dtype": name, "batch": b, "shape": f"F={FIELDS} K={K}",
-            "ms": time_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), flush),
-            "warm_ms": time_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), None),
-            "plain_ms": time_ms(lambda: int_ops.interact_plain(x, FIELDS, K, False, True),
-                                flush, iters=10),
-            "library_ms": time_ms(lambda: torch.bmm(v3, v3.transpose(1, 2)), flush),
+            "ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), flush),
+            "warm_ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), None),
+            "plain_ms": event_ms(lambda: int_ops.interact_plain(x, FIELDS, K, False, True),
+                                 flush, iters=10),
+            "library_ms": event_ms(lambda: torch.bmm(v3, v3.transpose(1, 2)), flush),
             "library": "torch.bmm forming the full z (a superset of the work)",
             "bound_ms": ms_b, "bound_by": by,
         })
@@ -1456,11 +1580,11 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                              flops, peak)
             rows.append({
                 "name": "cin", "dtype": name, "batch": b, "shape": f"H={h}",
-                "ms": time_ms(lambda: cin_ops.cin_cuda(xx, yy, w), flush),
-                "warm_ms": time_ms(lambda: cin_ops.cin_cuda(xx, yy, w), None),
-                "plain_ms": time_ms(lambda: cin_ops.cin_plain(xx, yy, w), flush, iters=3),
-                "library_ms": time_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", xx, yy, w),
-                                      flush, iters=10),
+                "ms": event_ms(lambda: cin_ops.cin_cuda(xx, yy, w), flush),
+                "warm_ms": event_ms(lambda: cin_ops.cin_cuda(xx, yy, w), None),
+                "plain_ms": event_ms(lambda: cin_ops.cin_plain(xx, yy, w), flush, iters=3),
+                "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", xx, yy, w),
+                                       flush, iters=10),
                 "library": "torch.einsum of the same contraction",
                 "bound_ms": ms_b, "bound_by": by,
             })
@@ -1468,11 +1592,11 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                              + h * FIELDS * CIN_O * 4, flops, peak)
             rows.append({
                 "name": "cin_dw", "dtype": name, "batch": b, "shape": f"H={h}",
-                "ms": time_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), flush),
-                "warm_ms": time_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), None),
-                "plain_ms": time_ms(lambda: cin_ops.cin_dw_plain(xx, yy, gg), flush, iters=3),
-                "library_ms": time_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, yy, gg),
-                                      flush, iters=10),
+                "ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), flush),
+                "warm_ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), None),
+                "plain_ms": event_ms(lambda: cin_ops.cin_dw_plain(xx, yy, gg), flush, iters=3),
+                "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, yy, gg),
+                                       flush, iters=10),
                 "library": "torch.einsum of the same contraction",
                 "bound_ms": ms_b, "bound_by": by,
             })
@@ -1505,13 +1629,13 @@ def time_fast_kernels(dev, gen) -> list[dict]:
         out.append({
             "name": "scatter_rows_dma", "dtype": str(dtype).split(".")[-1], "shape": label,
             "v_rows": v_rows, "updates": cap, "valid_updates": n_valid,
-            "ms": time_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
-                                                                v_valid=v_valid), flush),
-            "warm_ms": time_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
-                                                                     v_valid=v_valid), None),
-            "plain_ms": time_ms(lambda: dma_ops.scatter_rows_dma_plain(slab, rows, vals,
-                                                                       v_valid=v_valid), flush),
-            "library_ms": time_ms(lambda: slab.index_copy_(0, idx, kept), flush),
+            "ms": event_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
+                                                                 v_valid=v_valid), flush),
+            "warm_ms": event_ms(lambda: dma_ops.scatter_rows_dma_cuda(slab, rows, vals,
+                                                                      v_valid=v_valid), None),
+            "plain_ms": event_ms(lambda: dma_ops.scatter_rows_dma_plain(slab, rows, vals,
+                                                                        v_valid=v_valid), flush),
+            "library_ms": event_ms(lambda: slab.index_copy_(0, idx, kept), flush),
             "library": "index_copy_ of the valid rows", "bound_ms": ms_b, "bound_by": by,
         })
         del slab, vals, kept
@@ -1528,10 +1652,10 @@ def time_fast_kernels(dev, gen) -> list[dict]:
     out.append({
         "name": "segment_sum", "dtype": "float32", "shape": f"R={r} -> [{cap}, 128]",
         "updates": r,
-        "ms": time_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), flush),
-        "warm_ms": time_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), None),
-        "plain_ms": time_ms(lambda: scatter_ops.segment_sum_plain(seg, order, grads, cap), flush),
-        "library_ms": time_ms(lambda: torch.index_add(zeros, 0, seg_l, g_sorted), flush),
+        "ms": event_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), flush),
+        "warm_ms": event_ms(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap), None),
+        "plain_ms": event_ms(lambda: scatter_ops.segment_sum_plain(seg, order, grads, cap), flush),
+        "library_ms": event_ms(lambda: torch.index_add(zeros, 0, seg_l, g_sorted), flush),
         "library": "index_add of the sorted rows (fp32 atomics)", "bound_ms": ms_b,
         "bound_by": by,
     })
@@ -1539,8 +1663,8 @@ def time_fast_kernels(dev, gen) -> list[dict]:
     out.append({
         "name": "dedupe_rows", "dtype": "float32", "shape": f"R={r} -> [{cap}, 128]",
         "updates": r, "kernel": False,
-        "ms": time_ms(lambda: sparse_ops.dedupe_rows(flat_ids, grads, v_rows, cap), flush,
-                      iters=20),
+        "ms": event_ms(lambda: sparse_ops.dedupe_rows(flat_ids, grads, v_rows, cap), flush,
+                       iters=20),
         "warm_ms": None, "plain_ms": None, "library_ms": None, "bound_ms": ms_b,
         "bound_by": by,
     })
@@ -1554,13 +1678,46 @@ def time_fast_kernels(dev, gen) -> list[dict]:
         "name": "sparse_adam_rows_packed", "dtype": "float32",
         "shape": f"{cap} rows of [{v_rows}, 128] + m|v [{v_rows}, 256], dma", "updates": cap,
         "kernel": False,
-        "ms": time_ms(lambda: sparse_ops.sparse_adam_rows_packed(
+        "ms": event_ms(lambda: sparse_ops.sparse_adam_rows_packed(
             table, mv, rows, row_grads, lr_t, scatter_backend="dma", v_valid=v_valid), flush,
             iters=20),
         "warm_ms": None, "plain_ms": None, "library_ms": None, "bound_ms": ms_b,
         "bound_by": by,
     })
     return out
+
+
+def time_flat_kernels(dev, gen) -> list[dict]:
+    """CUDA-event times of the flat FM forward and backward at bench's batch
+    (B=8192, F=26, K=64), bf16 and fp32."""
+    flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    b, f, k = FLAGSHIP_BATCH, FIELDS, K
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.empty((), dtype=dtype).element_size()
+        v2 = flat_input(b, f, k, 0, 0.3, dtype, dev, gen)
+        g = torch.randn(b, generator=gen).to(dev)
+        _, s = fm_ops.fm_cross_flat_cuda(v2, f, k)
+        # forward: read v2, write out (fp32) and S; 3 operations per value
+        ms_b, by = bound(b * f * k * es + b * 4 + b * k * es, 3 * b * f * k)
+        rows.append({
+            "name": "fm_cross_flat", "dtype": str(dtype).split(".")[-1], "batch": b,
+            "ms": event_ms(lambda: fm_ops.fm_cross_flat_cuda(v2, f, k), flush),
+            "warm_ms": event_ms(lambda: fm_ops.fm_cross_flat_cuda(v2, f, k), None),
+            "plain_ms": event_ms(lambda: fm_ops.fm_cross_flat_plain(v2, f, k), flush),
+            "library_ms": None, "bound_ms": ms_b, "bound_by": by,
+        })
+        # backward: read v2, S and g (fp32), write dv2; 2 operations per value
+        ms_b, by = bound(2 * b * f * k * es + b * k * es + b * 4, 2 * b * f * k)
+        rows.append({
+            "name": "fm_cross_flat_bwd", "dtype": str(dtype).split(".")[-1], "batch": b,
+            "ms": event_ms(lambda: fm_ops.fm_cross_flat_bwd_cuda(v2, s, g, f, k), flush),
+            "warm_ms": event_ms(lambda: fm_ops.fm_cross_flat_bwd_cuda(v2, s, g, f, k), None),
+            "plain_ms": event_ms(lambda: fm_ops.fm_cross_flat_bwd_plain(v2, s, g, f, k),
+                                 flush),
+            "library_ms": None, "bound_ms": ms_b, "bound_by": by,
+        })
+    return rows
 
 
 def profile_scatter(dev, gen) -> dict:
@@ -1608,6 +1765,8 @@ KERNELS = {
     # the dedupe's segment sum runs the scatter kernel on segment ordinals; in
     # rectpu it is XLA's jax.ops.segment_sum, not a Pallas kernel
     "segment_sum": ("rectpu_torch/kernels/csrc/scatter_rows.cu", "rectpu/train/sparse.py:104"),
+    "fm_cross_flat": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:146"),
+    "fm_cross_flat_bwd": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:156"),
 }
 
 
@@ -1640,6 +1799,7 @@ def main(argv=None) -> int:
     errs.update(check_train_kernels(dev, gen))
     errs.update(check_zoo_kernels(dev, gen))
     errs.update(check_fast_kernels(dev, gen))
+    errs.update(check_flat_kernels(dev, gen))
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     main_path = {}
@@ -1696,6 +1856,16 @@ def main(argv=None) -> int:
                   f"{train['loss_last10']:.5f}; final eval {train['metrics']}; "
                   f"{train['seconds']:.2f} s with data load and evals; its export answered "
                   f"/predict {train['predict']} [{gpu}]")
+
+        # 5b. --autotune and --profile-dir through the DeepFM trainer CLI
+        train = main_path["train_cli_autotune"] = autotune_cli(work, args.seed)
+        print(f"training path (deep_fm trainer CLI, preset scaled, --autotune --profile-dir, "
+              f"batch {TRAIN_BATCH}, {AUTOTUNE_CLI_STEPS} steps, window "
+              f"{AUTOTUNE_CLI_LOOP}): launches {train['launches']}; {train['autotune_log']}; "
+              f"mean loss first 10 steps {train['loss_first10']:.5f}, last 10 "
+              f"{train['loss_last10']:.5f}; final eval {train['metrics']}; "
+              f"{train['seconds']:.2f} s with the autotuner, data load and evals; trace "
+              f"{train['trace']} [{gpu}]")
 
         # 6. the flagship step
         flag = main_path["flagship_step"] = flagship_step(dev, gen, work)
@@ -1767,7 +1937,7 @@ def main(argv=None) -> int:
     # 7. times
     floor, rows = time_kernels(dev, gen)
     train_rows = (time_train_kernels(dev, gen) + time_zoo_kernels(dev, gen)
-                  + time_fast_kernels(dev, gen))
+                  + time_fast_kernels(dev, gen) + time_flat_kernels(dev, gen))
     scatter_parts = profile_scatter(dev, gen)
     print(f"time: floor of this method (a one-element add) {floor:.4f} ms [{gpu}]")
     for label, parts in scatter_parts.items():
@@ -1791,7 +1961,7 @@ def main(argv=None) -> int:
     # the training kernels (DeepFM's; DLRM's for the interaction, xDeepFM's for
     # the CIN), the flagship step for fused Adam (the CLIs' Adam, like rectpu's,
     # names no fused leaves), the full-width fast step for the row set and the
-    # dedupe's segment sum
+    # dedupe's segment sum, the --autotune CLI for the flat FM (its autotuner)
     launches = {**main_path["deep_fm_k64_bf16"]["launches"],
                 **main_path["train_cli"]["launches"],
                 "fused_adam": main_path["flagship_step"]["launches"]["fused_adam"],
@@ -1799,13 +1969,18 @@ def main(argv=None) -> int:
                 "cin": main_path["train_cli_xdeep_fm"]["launches"]["cin"],
                 "cin_dw": main_path["train_cli_xdeep_fm"]["launches"]["cin_dw"],
                 "scatter_rows_dma": main_path["fast_step"]["launches"]["scatter_rows_dma"],
-                "segment_sum": main_path["fast_step"]["launches"]["segment_sum"]}
+                "segment_sum": main_path["fast_step"]["launches"]["segment_sum"],
+                "fm_cross_flat": main_path["train_cli_autotune"]["launches"]["fm_cross_flat"],
+                "fm_cross_flat_bwd":
+                    main_path["train_cli_autotune"]["launches"]["fm_cross_flat_bwd"]}
     heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
              "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
              "fused_adam": ("m bf16, v bf16-SR", "flagship"),
              "interaction": ("bfloat16", FLAGSHIP_BATCH), "cin": ("bfloat16", f"H={CIN_O}"),
              "cin_dw": ("bfloat16", f"H={CIN_O}"),
-             "scatter_rows_dma": ("float32", "m|v C=256"), "segment_sum": ("float32", None)}
+             "scatter_rows_dma": ("float32", "m|v C=256"), "segment_sum": ("float32", None),
+             "fm_cross_flat": ("bfloat16", FLAGSHIP_BATCH),
+             "fm_cross_flat_bwd": ("bfloat16", FLAGSHIP_BATCH)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         dtype, at = heads[name]

@@ -34,3 +34,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (use 'cuda' or 'cpu')")
     return dev
+
+
+def device_key(x: torch.Tensor | torch.device | str) -> str:
+    """The key of the autotuner's pins for a tensor's or a device's type:
+    "cuda" or "cpu" (rectpu keys its pins "tpu" / "other")."""
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(x)
+    return "cuda" if dev.type == "cuda" else "cpu"

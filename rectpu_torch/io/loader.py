@@ -132,6 +132,11 @@ class CsvDataset:
         ds.size = ds.cat_ids.shape[0]
         return ds
 
+    def apply_row_permutation(self, perm: np.ndarray) -> None:
+        """Relabel the encoded row ids in place, id -> perm[id] (a stored row
+        placement, ``rectpu/io/loader.py:153``)."""
+        self.cat_ids = np.asarray(perm, dtype=np.int32)[self.cat_ids]
+
     def train_index_batches(self, batch_size: int, state: DataState | None = None,
                             seed: int = 0):
         """Infinite shuffled row-index batches of shape [batch_size]: yields

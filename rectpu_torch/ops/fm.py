@@ -3,9 +3,9 @@
     fm[b] = 0.5 * sum_k((sum_f v[b,f,k])^2 - sum_f v[b,f,k]^2)
     dv[b, f, k] = g[b] * (S[b,k] - v[b,f,k]),   S = sum_f v
 
-rectpu's ``fm_impl`` values ("auto", "xla", "pallas", "matmul") and its
-lane-packed ``fm_cross_flat`` are TPU choices; in the port each one runs this
-module's ``fm_cross``, a ``torch.autograd.Function``:
+rectpu's ``fm_impl`` values ("auto", "xla", "pallas", "matmul") are TPU
+choices; in the port each one runs this module's ``fm_cross``, a
+``torch.autograd.Function``:
 
   - on CUDA tensors, the hand-written kernels of ``kernels/csrc/fm.cu``: the
     forward (the port of the Pallas ``_fm_fwd_kernel``,
@@ -19,8 +19,29 @@ backward's in v's type. (For fp32 input that is also rectpu's XLA form; for
 bf16 input rectpu's XLA form rounds its intermediates to bf16 and the Pallas
 kernels do not.) ``out_dtype=torch.float32`` on bf16 input is the flat
 layout's FM logit (``fm_cross_flat``, :108-114), which is not rounded to
-bf16. The order-3 term ``fm_cross3_xla`` has no Pallas kernel in rectpu and
-stays plain PyTorch, differentiated by autograd.
+bf16. The
+order-3 term ``fm_cross3_xla`` has no Pallas kernel in rectpu and stays plain
+PyTorch, differentiated by autograd.
+
+The lane-packed flat FM on v2 [B, F*K] has rectpu's two routes, chosen by
+``fm_cross_flat_dispatch`` through the ``_FLAT_AUTO`` pin that the autotuner
+sets (``set_flat_auto_impl``; rectpu :254-268):
+
+  - "xla", ``fm_cross_flat``: ``fm_cross`` on the [B, F, K] view with an fp32
+    result, whose backward keeps the forward's fp32 S (rectpu's XLA form
+    rounds S and its backward math to v2's dtype: a documented deviation);
+  - "pallas", ``fm_cross_flat_pallas``: the flat kernels of ``fm.cu``, the
+    port of ``_fm_flat_fwd_kernel`` (:146) and ``_fm_flat_bwd_kernel`` (:156),
+    on CUDA tensors, and their plain versions ``fm_cross_flat_plain`` /
+    ``fm_cross_flat_bwd_plain`` on CPU tensors. The forward returns the fp32
+    logit and S in v2's dtype; the backward reads that stored S, as rectpu's
+    Pallas pair does.
+
+As in rectpu, "pallas" with ``F*K % 128 != 0`` takes the "xla" route, so the
+same inputs choose the same function (the kernels themselves take any F*K).
+Only the autotuner reaches the dispatcher: it times both routes through it
+and pins the faster. The flat-layout DeepFM calls ``fm_cross`` directly, as
+rectpu's ``_apply_flat`` calls ``fm_cross_flat``.
 """
 
 from __future__ import annotations
@@ -29,12 +50,19 @@ import ctypes
 
 import torch
 
+from rectpu_torch.device import device_key
 from rectpu_torch.kernels import LaunchCount, build
 
 IMPLS = ("auto", "xla", "pallas", "matmul")
 
 launches = LaunchCount("fm_cross")
 bwd_launches = LaunchCount("fm_cross_bwd")
+flat_launches = LaunchCount("fm_cross_flat")
+flat_bwd_launches = LaunchCount("fm_cross_flat_bwd")
+
+# the route "auto" takes in fm_cross_flat_dispatch, by device type (rectpu
+# keys "tpu" / "other")
+_FLAT_AUTO = {"cuda": "xla", "cpu": "xla"}
 
 _SIGNATURES = {
     "rectpu_fm_cross": (
@@ -47,6 +75,18 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "rectpu_fm_cross_flat": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "rectpu_fm_cross_flat_bwd": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -185,3 +225,158 @@ def fm_cross(v: torch.Tensor, impl: str = "auto",
     if impl not in IMPLS:
         raise ValueError(f"unknown fm_impl {impl!r} (expected one of {IMPLS})")
     return _FmCross.apply(v, out_dtype)
+
+
+# --- the lane-packed flat FM ---------------------------------------------------
+
+
+def _check_flat(v2: torch.Tensor, f: int, k: int) -> None:
+    if v2.dim() != 2 or v2.shape[1] != f * k:
+        raise ValueError(f"v2 must be [B, {f}*{k}], got {tuple(v2.shape)}")
+
+
+def fm_cross_flat_plain(v2: torch.Tensor, f: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the flat forward: v2 [B, F*K] -> (out [B] fp32, S
+    [B, K] in v2's dtype), S = sum over fields in fp32."""
+    _check_flat(v2, f, k)
+    v32 = v2.float()
+    s = v32.reshape(-1, f, k).sum(dim=1)
+    out = 0.5 * ((s * s).sum(dim=-1) - (v32 * v32).sum(dim=-1))
+    return out, s.to(v2.dtype)
+
+
+def fm_cross_flat_bwd_plain(v2: torch.Tensor, s: torch.Tensor, g: torch.Tensor, f: int,
+                            k: int) -> torch.Tensor:
+    """Plain version of the flat backward: dv2 = g * (S tiled over the F
+    fields - v2) in fp32 on the stored S, in v2's dtype."""
+    _check_flat(v2, f, k)
+    s_tiled = s.float().repeat(1, f)
+    return (g.float()[:, None] * (s_tiled - v2.float())).to(v2.dtype)
+
+
+def _flat_layout(v2: torch.Tensor, k: int, *others: torch.Tensor) -> tuple[int, int]:
+    """(vec, group) for the flat kernels: 16-byte vectors when K, the row
+    stride and every pointer allow them, and the lanes per row."""
+    width = 16 // v2.element_size()
+    vec = int(k % width == 0 and v2.stride(0) % width == 0
+              and all(t.data_ptr() % 16 == 0 for t in (v2, *others)))
+    return vec, _lanes_per_row(k // width if vec else k)
+
+
+def _check_flat_cuda(v2: torch.Tensor, f: int, k: int, who: str) -> None:
+    if not v2.is_cuda:
+        raise ValueError(f"{who} needs a CUDA tensor, got {v2.device}")
+    _check_flat(v2, f, k)
+    if v2.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"v2 must be float32 or bfloat16, got {v2.dtype}")
+    if f * k > 1 and v2.stride(1) != 1:
+        raise ValueError(f"v2's innermost stride must be 1, got strides {v2.stride()}")
+    if v2.shape[0] >= 2**31 or f * k >= 2**31:
+        raise ValueError(f"v2 of shape {tuple(v2.shape)} is outside the kernel's extents")
+
+
+def fm_cross_flat_cuda(v2: torch.Tensor, f: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the flat forward kernel on v2 [B, F*K], fp32 or bf16, rows of
+    any stride, on a CUDA device -> (out [B] fp32, S [B, K] in v2's dtype).
+    Raises on anything the kernel does not take."""
+    _check_flat_cuda(v2, f, k, "fm_cross_flat_cuda")
+    b = v2.shape[0]
+    out = torch.empty(b, dtype=torch.float32, device=v2.device)
+    s = torch.empty(b, k, dtype=v2.dtype, device=v2.device)
+    if b == 0:
+        return out, s
+    vec, group = _flat_layout(v2, k, s)
+    lib = build.load("fm", _SIGNATURES)
+    with torch.cuda.device(v2.device):
+        stream = torch.cuda.current_stream(v2.device).cuda_stream
+        err = lib.rectpu_fm_cross_flat(v2.data_ptr(), out.data_ptr(), s.data_ptr(), b, f, k,
+                                       v2.stride(0), group, int(v2.dtype == torch.bfloat16),
+                                       vec, stream)
+    if err != 0:
+        raise RuntimeError(f"fm_cross_flat kernel launch failed: cudaError {err}")
+    flat_launches.add()
+    return out, s
+
+
+def fm_cross_flat_bwd_cuda(v2: torch.Tensor, s: torch.Tensor, g: torch.Tensor, f: int,
+                           k: int) -> torch.Tensor:
+    """Launch the flat backward kernel: v2 [B, F*K] (as for the forward), S
+    [B, K] contiguous in v2's dtype, g [B] of any float dtype, all on one card
+    -> dv2 [B, F*K] contiguous in v2's dtype."""
+    _check_flat_cuda(v2, f, k, "fm_cross_flat_bwd_cuda")
+    b = v2.shape[0]
+    if s.device != v2.device or s.shape != (b, k) or s.dtype != v2.dtype \
+            or not s.is_contiguous():
+        raise ValueError(f"S must be [{b}, {k}] {v2.dtype} contiguous on {v2.device}, got "
+                         f"{tuple(s.shape)} {s.dtype} on {s.device}")
+    if g.device != v2.device or g.shape != (b,) or not g.is_floating_point():
+        raise ValueError(f"g must be [{b}] floating on {v2.device}, got {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device}")
+    dv = torch.empty(b, f * k, dtype=v2.dtype, device=v2.device)
+    if dv.numel() == 0:
+        return dv
+    g32 = g.float().contiguous()
+    vec, group = _flat_layout(v2, k, s, dv)
+    lib = build.load("fm", _SIGNATURES)
+    with torch.cuda.device(v2.device):
+        stream = torch.cuda.current_stream(v2.device).cuda_stream
+        err = lib.rectpu_fm_cross_flat_bwd(v2.data_ptr(), s.data_ptr(), g32.data_ptr(),
+                                           dv.data_ptr(), b, f, k, v2.stride(0), group,
+                                           int(v2.dtype == torch.bfloat16), vec, stream)
+    if err != 0:
+        raise RuntimeError(f"fm_cross_flat backward kernel launch failed: cudaError {err}")
+    flat_bwd_launches.add()
+    return dv
+
+
+class _FmCrossFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v2, f, k):
+        if v2.device.type == "cpu":
+            out, s = fm_cross_flat_plain(v2, f, k)
+        else:
+            out, s = fm_cross_flat_cuda(v2, f, k)
+        ctx.save_for_backward(v2, s)  # the backward reads the stored S
+        ctx.fk = (f, k)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        v2, s = ctx.saved_tensors
+        f, k = ctx.fk
+        if v2.device.type == "cpu":
+            return fm_cross_flat_bwd_plain(v2, s, g, f, k), None, None
+        return fm_cross_flat_bwd_cuda(v2, s, g, f, k), None, None
+
+
+def fm_cross_flat_pallas(v2: torch.Tensor, f: int, k: int) -> torch.Tensor:
+    """rectpu's "pallas" flat route: v2 [B, F*K] -> [B] fp32 through the flat
+    kernels (plain versions on the CPU), differentiable in v2."""
+    return _FmCrossFlat.apply(v2, f, k)
+
+
+def fm_cross_flat(v2: torch.Tensor, f: int, k: int) -> torch.Tensor:
+    """rectpu's "xla" flat route: ``fm_cross`` on the [B, F, K] view of v2
+    [B, F*K] -> [B] fp32, differentiable in v2."""
+    _check_flat(v2, f, k)
+    return fm_cross(v2.reshape(v2.shape[0], f, k), out_dtype=torch.float32)
+
+
+def set_flat_auto_impl(name: str, device_type: str = "cuda") -> None:
+    """Pin the route "auto" takes in ``fm_cross_flat_dispatch`` (the
+    autotuner's pick)."""
+    if name not in ("xla", "pallas"):
+        raise ValueError(f"flat FM impl must be 'xla' or 'pallas', got {name!r}")
+    _FLAT_AUTO[device_key(device_type)] = name
+
+
+def fm_cross_flat_dispatch(v2: torch.Tensor, f: int, k: int,
+                           impl: str = "auto") -> torch.Tensor:
+    """The flat FM entry point: "auto" resolves to the pin for v2's device;
+    "pallas" needs F*K % 128 == 0, as in rectpu, and takes the "xla" route
+    otherwise."""
+    if impl == "auto":
+        impl = _FLAT_AUTO[device_key(v2)]
+    if impl == "pallas" and v2.shape[1] % 128 == 0:
+        return fm_cross_flat_pallas(v2, f, k)
+    return fm_cross_flat(v2, f, k)

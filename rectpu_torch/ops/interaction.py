@@ -21,7 +21,9 @@ accumulation, cast to the input dtype. rectpu left that product to XLA; here
 it is ``torch.bmm``.
 
 ``impl`` takes rectpu's names, and on a CUDA tensor every one of them
-launches the kernel. "auto" is rectpu's accelerator pin "pallas-mxu" (:238),
+launches the kernel. "auto" resolves through the pin ``_INTERACT_AUTO``,
+keyed by device type, which the autotuner sets (``set_interact_auto_impl``,
+rectpu :238-243). Its default is rectpu's accelerator pin "pallas-mxu",
 rounded products, on both devices, so the CPU runs the card's function;
 "pallas" computes exact products, and so do "xla" and "xla-autodiff", whose
 rectpu forms (a batched matmul forming the full z, :246-269) compute the same
@@ -37,11 +39,15 @@ import ctypes
 import numpy as np
 import torch
 
+from rectpu_torch.device import device_key
 from rectpu_torch.kernels import LaunchCount, build
 
 IMPLS = ("auto", "xla", "pallas", "pallas-mxu", "xla-autodiff")
 
 launches = LaunchCount("interaction")
+
+# what "auto" resolves to, keyed "cuda" / "cpu" (rectpu: "tpu" / "other")
+_INTERACT_AUTO = {"cuda": "pallas-mxu", "cpu": "pallas-mxu"}
 
 _SIGNATURES = {
     "rectpu_interact": (
@@ -161,13 +167,23 @@ class _Interact(torch.autograd.Function):
         return interact_bwd(flat, g, n, k, itself), None, None, None, None
 
 
+def set_interact_auto_impl(name: str, device_type: str = "cuda") -> None:
+    """Pin what "auto" resolves to (the autotuner's pick)."""
+    if name not in ("xla", "pallas", "pallas-mxu"):
+        raise ValueError(f"interaction impl must be 'xla', 'pallas' or 'pallas-mxu', got "
+                         f"{name!r}")
+    _INTERACT_AUTO[device_key(device_type)] = name
+
+
 def interact_flat(flat: torch.Tensor, num_fields: int, k: int, itself: bool = False,
                   impl: str = "auto") -> torch.Tensor:
     """Pairwise-dot interactions from the flat [B, n*K] activation -> [B, P]
     fp32, differentiable in ``flat`` (see the module docstring for ``impl``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown interaction_impl {impl!r} (expected one of {IMPLS})")
-    rounded = impl in ("auto", "pallas-mxu")
+    if impl == "auto":
+        impl = _INTERACT_AUTO[device_key(flat)]
+    rounded = impl == "pallas-mxu"
     return _Interact.apply(flat.contiguous(), num_fields, k, itself, rounded)
 
 

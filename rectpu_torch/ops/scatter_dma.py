@@ -18,8 +18,9 @@ lazy-Adam rows of the table and of the m|v slab through it
 
 rectpu's 8-row windows, 16-row val tiles, per-window SMEM table
 (``plan_windows``), pad-row sentinel windows and 24k-window chunking are TPU
-layout devices and are not carried over. Its checks a caller sees are: at
-least 8 pad rows past ``v_valid`` and ``vals`` of shape ``[n, C]``.
+layout devices and are not carried over. Its checks a caller sees are kept:
+a slab whose row count is a multiple of 8 (a ``ValueError`` here), at least 8
+pad rows past ``v_valid`` and ``vals`` of shape ``[n, C]``.
 ``set_rows`` is the same function without the pad-row rule (any ``v_valid``
 up to the slab's row count): the port's ``.at[].set(mode="drop")``.
 """
@@ -114,8 +115,12 @@ def set_rows(slab: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 def scatter_rows_dma(slab: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor, *,
                      v_valid: int | None = None) -> torch.Tensor:
     """``slab.at[rows].set(vals)`` in place for sorted rows unique below
-    ``v_valid`` (default ``Vp - 256``); rows at or past it are dropped. At
-    least 8 slab rows must lie past ``v_valid``, as rectpu asserts."""
+    ``v_valid`` (default ``Vp - 256``); rows at or past it are dropped. The
+    slab's rows must be a multiple of 8 and at least 8 of them must lie past
+    ``v_valid``, as rectpu asserts."""
+    if slab.shape[0] % WROWS:
+        raise ValueError(f"the slab's row count must be a multiple of {WROWS}, got "
+                         f"{tuple(slab.shape)}")
     n = rows.shape[0]
     if v_valid is None:
         v_valid = slab.shape[0] - 256

@@ -25,6 +25,13 @@ the sparse fast step's ``dedupe_rows`` (rectpu's ``jax.ops.segment_sum``,
 ``rectpu/train/sparse.py:104``), in a fixed order, so two launches give the
 same bits (an fp32 ``index_add_`` on the card sums duplicates with atomics).
 
+The chunk pass's chunk length is the kernel's launch geometry (rectpu's
+tile geometry, ``_AUTO_TILE`` / ``set_auto_tile``, :65-75): ``scatter_rows_dense``
+takes the pin ``_AUTO_CHUNK`` that the autotuner sets through
+``set_auto_chunk``; ``segment_sum`` keeps ``CHUNK``. Another chunk groups the
+fp32 partials differently, so the bits may differ between chunks, never
+between two launches at one chunk.
+
 One difference from rectpu: when a tile of its sorted stream holds more than
 ``capacity`` updates, rectpu's ``lax.cond`` fallback scatters with XLA and
 accumulates in ``out_dtype`` (``scatter_rows.py:309-317``), so a bf16
@@ -44,6 +51,8 @@ from rectpu_torch.kernels import LaunchCount, build
 DROP_SENTINEL = 2**31 // 2 - 1
 # positions of the sorted stream per warp of the chunk pass
 CHUNK = 32
+# the chunk scatter_rows_dense launches with (the autotuner's pick)
+_AUTO_CHUNK = {"chunk": CHUNK}
 
 launches = LaunchCount("scatter_rows")
 segment_launches = LaunchCount("segment_sum")
@@ -70,11 +79,20 @@ def scatter_rows_plain(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
     return out.to(out_dtype or updates.dtype)
 
 
+def set_auto_chunk(chunk: int) -> None:
+    """Pin the chunk length ``scatter_rows_dense`` launches with."""
+    if int(chunk) < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    _AUTO_CHUNK["chunk"] = int(chunk)
+
+
 def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
-                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                      out_dtype: torch.dtype | None = None,
+                      chunk: int = CHUNK) -> torch.Tensor:
     """Sort the ids and launch the scatter kernel: ids [R] int32, updates
     [R, W] fp32 or bf16, both contiguous on one card; ``out_dtype`` fp32 or
-    bf16. Raises on anything the kernel does not take."""
+    bf16; ``chunk`` positions per warp of the chunk pass. Raises on anything
+    the kernel does not take."""
     if not (ids.is_cuda and updates.is_cuda and ids.device == updates.device):
         raise ValueError(f"scatter_rows_cuda needs ids and updates on one CUDA device, got "
                          f"{ids.device} and {updates.device}")
@@ -92,11 +110,13 @@ def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
     if max(n, v_rows, w) >= 2**31 or v_rows < 0:
         raise ValueError(f"{n} updates of width {w} into {v_rows} rows exceed the kernel's "
                          "int32 extents")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
     out = torch.empty(v_rows, w, dtype=out_dtype, device=updates.device)
     if out.numel() == 0:
         return out
     ids_sorted, order = torch.sort(ids, stable=True)
-    n_chunks = -(-n // CHUNK)
+    n_chunks = -(-n // chunk)
     part_first = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
     part_last = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
     seg = torch.empty(v_rows, 2, dtype=torch.int32, device=updates.device)
@@ -105,7 +125,7 @@ def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         err = lib.rectpu_scatter_rows(
             ids_sorted.data_ptr(), order.data_ptr(), updates.data_ptr(), out.data_ptr(),
-            part_first.data_ptr(), part_last.data_ptr(), seg.data_ptr(), n, v_rows, w, CHUNK,
+            part_first.data_ptr(), part_last.data_ptr(), seg.data_ptr(), n, v_rows, w, chunk,
             int(updates.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
@@ -114,13 +134,16 @@ def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
 
 
 def scatter_rows_dense(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
-                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                       out_dtype: torch.dtype | None = None,
+                       chunk: int | None = None) -> torch.Tensor:
     """``zeros([v_rows, W], out_dtype).index_add(ids, updates)`` with fp32
     collision sums; ids outside [0, v_rows) are dropped. CPU tensors take the
-    plain version, CUDA tensors the kernel."""
+    plain version, CUDA tensors the kernel, with ``chunk`` (default the
+    pinned ``_AUTO_CHUNK``)."""
     if ids.device.type == "cpu" and updates.device.type == "cpu":
         return scatter_rows_plain(ids, updates, v_rows, out_dtype)
-    return scatter_rows_cuda(ids, updates, v_rows, out_dtype)
+    return scatter_rows_cuda(ids, updates, v_rows, out_dtype,
+                             _AUTO_CHUNK["chunk"] if chunk is None else chunk)
 
 
 def segment_sum_plain(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tensor,

@@ -68,9 +68,13 @@ def export_model(
     job_dir: str | Path,
     step: int,
     exports_to_keep: int = 5,
+    row_perm=None,
 ) -> Path:
     """Write ``params`` (a rectpu-layout tree of tensors or arrays) under
-    <job_dir>/export/exporter/<ts>/ and prune old exports."""
+    <job_dir>/export/exporter/<ts>/ and prune old exports. ``row_perm``, the
+    row relabelling training applied, is written beside them as
+    ``row_perm.npy`` (int32) and marked ``row_placement`` in model.json, so
+    that serving encodes with the same map (``rectpu/serve/export.py:155-158``)."""
     if not isinstance(model.cfg.activation, str):
         raise ValueError(
             "export requires a string activation (got a callable); register "
@@ -105,6 +109,9 @@ def export_model(
             "model_kwargs": model_toggle_kwargs(model),
             "serialized_apply": False,
         }
+        if row_perm is not None:
+            np.save(tmp / "row_perm.npy", np.asarray(row_perm, dtype=np.int32))
+            meta["row_placement"] = True
         (tmp / "model.json").write_text(json.dumps(meta))
         tmp.rename(final)
     except BaseException:

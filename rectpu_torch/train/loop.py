@@ -19,6 +19,12 @@ What differs from rectpu, and why:
     ships only each batch's row indices; both placements consume the same
     index stream, so training is the same either way.
 
+``profile_dir``, when set, traces the second logging window of the run (the
+``steps_per_loop`` steps after the first, so that kernel builds and warm-up
+stay out of the trace) with ``utils.profiling.trace``, stops once that
+window's losses are on the host, logs the trace's path and clears the field
+(``loop.py:581-584, 641-646``).
+
 A step is forward, ``sigmoid_xent`` reduced by mean or sum (``loop.py:140-147``),
 backward, and the optimizer's in-place update. Given ``fast_step`` (the
 ``(init_opt_state, step)`` pair of ``train/fast_step.make_sparse_step``), the
@@ -29,6 +35,7 @@ only names the semantics.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -52,6 +59,7 @@ from rectpu_torch.models.base import step_seed32
 from rectpu_torch.train import metrics as metrics_lib
 from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
 from rectpu_torch.utils.logging import get_logger
+from rectpu_torch.utils.profiling import trace
 
 logger = get_logger(__name__)
 
@@ -93,6 +101,7 @@ class Trainer:
                                  async_write=config.async_checkpoint)
         self.warm_start_from: str | None = None
         self.warm_start_vars: list | None = None
+        self.profile_dir: str | None = None  # set to trace the second logging window
         self.step_losses: list[float] = []  # every step's loss, read back once per loop
         self.opt_state: dict | None = None
         self._eval_cache = None
@@ -290,15 +299,23 @@ class Trainer:
         t_loop = time.time()
         examples = 0
         last_metrics: dict = {}
+        windows = 0
         while step < cfg.train_steps:
             k = min(cfg.steps_per_loop, cfg.train_steps - step)
-            losses = []
-            for i in range(k):
-                batch, data_state = next(batches)
-                losses.append(self.train_step(batch, step + i))
+            traced = bool(self.profile_dir) and windows == 1
+            with (trace(self.profile_dir, cuda=self.device.type == "cuda") if traced
+                  else contextlib.nullcontext()) as capture:
+                losses = []
+                for i in range(k):
+                    batch, data_state = next(batches)
+                    losses.append(self.train_step(batch, step + i))
+                self.step_losses.extend(torch.stack(losses).float().cpu().tolist())
+            if traced:
+                logger.info("profile trace written to %s", capture.path)
+                self.profile_dir = None
             step += k
+            windows += 1
             examples += k * cfg.batch_size
-            self.step_losses.extend(torch.stack(losses).float().cpu().tolist())
             if cfg.log_every_steps and step % cfg.log_every_steps < cfg.steps_per_loop:
                 dt = time.time() - t_loop
                 logger.info("step %d: loss = %.5f (%.1f examples/sec)", step,

@@ -5,9 +5,14 @@ rectpu command line runs here unchanged, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
 port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
 queue instead of being ignored: sharding and EP (queue A12),
-``--streaming-io`` and ``--exporter best`` (A7), ``--autotune`` and
-``--profile-dir`` (A13), ``--table-store bfloat16`` (A5). The JAX
-compilation cache flag is accepted and has nothing to configure.
+``--streaming-io`` and ``--exporter best`` (A7), ``--table-store bfloat16``
+(A5). The JAX compilation cache flag is accepted and has nothing to
+configure. ``--autotune`` times the port's kernels at the run's shapes
+before the trainer is built and pins the winners (``ops/autotune.py``);
+``--profile-dir`` traces the second logging window (``train/loop.py``). A
+job dir that holds ``row_perm.npy`` (a stored row placement) has its train
+and eval ids relabelled through it, and every export carries it, as in
+rectpu (``common.py:453-459, 530-532``).
 ``--fast-step`` and ``--sparse-scatter`` build the sparse lazy-Adam step
 (``train/fast_step.py``) as rectpu's ``_resolve_fast_step`` does.
 """
@@ -17,6 +22,8 @@ from __future__ import annotations
 import shutil
 from argparse import ArgumentParser
 from pathlib import Path
+
+import numpy as np
 
 from rectpu_torch.device import resolve_device
 from rectpu_torch.utils.logging import get_logger
@@ -106,9 +113,11 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
                         help="'streaming' = 200-threshold tf.metrics.auc parity; 'exact' = "
                              "rank-based AUC on the gathered eval probabilities")
     parser.add_argument("--autotune", action="store_true",
-                        help="kernel autotuning (not ported yet)")
+                        help="time the port's kernels and launch geometries at this run's "
+                             "shapes and pin the fastest before training")
     parser.add_argument("--profile-dir", default=None,
-                        help="device trace of one loop (not ported yet)")
+                        help="write a torch.profiler trace of the second logging window "
+                             "here")
     parser.add_argument("--compilation-cache-dir", default="/tmp/jax_cache",
                         help="rectpu's persistent XLA cache; the port compiles nothing "
                              "per shape and ignores it")
@@ -203,10 +212,6 @@ def check_supported(args, model) -> None:
         _not_ported("--streaming-io", "A7")
     if args.exporter != "latest":
         _not_ported("--exporter best", "A7")
-    if args.autotune:
-        _not_ported("--autotune", "A13")
-    if args.profile_dir:
-        _not_ported("--profile-dir", "A13")
     if args.table_store != "float32":
         _not_ported("--table-store bfloat16", "A5")
 
@@ -279,12 +284,28 @@ def build_trainer(args, model, optimizer):
     check_supported(args, model)
     fast_step = resolve_fast_step(args, model, optimizer)
     device = resolve_device(args.device)
+    fs = model.cfg.feature_set
+    if args.autotune:
+        from rectpu_torch.ops.autotune import autotune
+
+        autotune(batch=args.batch_size, num_fields=model.cfg.num_fields,
+                 embedding_size=model.cfg.embedding_size, vocab_rows=model.cfg.padded_buckets,
+                 field_info=(tuple(int(o) for o in fs.offsets), tuple(fs.field_sizes)),
+                 device=device)
     if not args.restore:
         shutil.rmtree(args.job_dir, ignore_errors=True)
     Path(args.job_dir).mkdir(parents=True, exist_ok=True)
-    fs = model.cfg.feature_set
     train_ds = CsvDataset(args.train_csv, fs)
     eval_ds = CsvDataset(args.test_csv, fs)
+    row_perm = None
+    perm_path = Path(args.job_dir) / "row_perm.npy"
+    if perm_path.exists():
+        # the checkpoint or export in this job dir was trained with placement;
+        # ignoring the stored map would index the permuted table with raw ids
+        logger.info("applying stored row placement from %s", perm_path)
+        row_perm = np.load(perm_path)
+        train_ds.apply_row_permutation(row_perm)
+        eval_ds.apply_row_permutation(row_perm)
     config = TrainConfig(
         batch_size=args.batch_size,
         train_steps=args.train_steps,
@@ -299,10 +320,11 @@ def build_trainer(args, model, optimizer):
     )
 
     def exporter(params, step):
-        export_model(params, model, args.job_dir, step)
+        export_model(params, model, args.job_dir, step, row_perm=row_perm)
 
     trainer = Trainer(model, optimizer, train_ds, eval_ds, args.job_dir, config,
                       exporter=exporter, device=device, fast_step=fast_step)
+    trainer.profile_dir = args.profile_dir
     trainer.warm_start_from = args.warm_start_from
     trainer.warm_start_vars = args.warm_start_vars
     return trainer

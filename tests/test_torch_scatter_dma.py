@@ -75,6 +75,22 @@ def test_rejects_missing_pad_rows():
                          torch.zeros(8, 64))
 
 
+@pytest.mark.parametrize("v_rows", [515, 1020])
+def test_rejects_slab_rows_not_a_multiple_of_8(v_rows):
+    """rectpu asserts ``slab.shape[0] % 8 == 0``; the port raises too (a
+    ValueError), with enough pad rows past v_valid that only this rule is
+    broken."""
+    with pytest.raises(AssertionError):
+        jax_scatter_rows_dma(jnp.zeros((v_rows, 128), jnp.float32), jnp.zeros((8,), jnp.int32),
+                             jnp.zeros((8, 128), jnp.float32), v_valid=256, interpret=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        scatter_rows_dma(torch.zeros(v_rows, 128), torch.zeros(8, dtype=torch.int32),
+                         torch.zeros(8, 128), v_valid=256)
+    # the same call on a slab of a multiple of 8 rows goes through
+    scatter_rows_dma(torch.zeros(v_rows // 8 * 8, 128), torch.zeros(8, dtype=torch.int32),
+                     torch.zeros(8, 128), v_valid=256)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("width", [1, 65, 256])
 def test_plain_equals_at_set_drop(dtype, width):

@@ -160,7 +160,8 @@ def test_http_predict_through_port_server(tmp_path):
 
 def test_port_imports_neither_jax_nor_rectpu():
     """Every rectpu_torch module (the training slice's, the DLRM and
-    xDeepFM slice's and the sparse fast step's among them), and
+    xDeepFM slice's, the sparse fast step's and the autotuner's, timing's
+    and profiling's among them), and
     chip_smoke.py, import without pulling in jax, any module of rectpu, or
     pandas (the machine with the card has none)."""
     code = (
@@ -175,7 +176,8 @@ def test_port_imports_neither_jax_nor_rectpu():
         "        'rectpu_torch.models.dlrm', 'rectpu_torch.models.xdeep_fm',\n"
         "        'rectpu_torch.trainers.dlrm', 'rectpu_torch.trainers.xdeep_fm',\n"
         "        'rectpu_torch.ops.scatter_dma', 'rectpu_torch.train.sparse',\n"
-        "        'rectpu_torch.train.fast_step'}\n"
+        "        'rectpu_torch.train.fast_step', 'rectpu_torch.ops.autotune',\n"
+        "        'rectpu_torch.utils.timing', 'rectpu_torch.utils.profiling'}\n"
         "assert need <= set(mods) and len(mods) > 30, mods\n"
         "for name in mods: importlib.import_module(name)\n"
         "import chip_smoke\n"

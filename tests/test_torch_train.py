@@ -201,7 +201,7 @@ def test_trainer_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypa
 @pytest.mark.parametrize("flags,queue", [
     (["--num-data-shards", "2"], "A12"), (["--streaming-io"], "A7"),
     (["--exporter", "best"], "A7"), (["--table-store", "bfloat16"], "A5"),
-    (["--autotune"], "A13"), (["--optimizer", "Adagrad"], "A5"),
+    (["--ep-comm-compress", "bf16"], "A12"), (["--optimizer", "Adagrad"], "A5"),
 ])
 def test_unported_flags_raise(flags, queue, tmp_path):
     args = deep_fm_cli.build_parser().parse_args(
