@@ -24,11 +24,14 @@ failed check raises, and the script exits nonzero without the final line:
    within 1 ulp of the plain version and bitwise equal across two launches.
    DLRM and xDeepFM kernels against their plain versions: the pair-dot
    interaction at B in {1, 7, 512, 8192} x 26 or 27 vectors (a numeric one
-   appended), K=64, fp32 and bf16, itself both ways, exact and rounded
-   products; the CIN contraction at H in {26, 64}, M=26, O=64, K=64,
-   B=37, 128 and 8192 (rows 0-511 against the plain version, which forms
-   the expansion), forward and both transposed-weight calls, legacy and
-   K-major strided views; the CIN weight gradient at the same shapes (1, 2
+   appended) and 17 or 33 (off the kernel's 16-row tiles), K=64, and 27
+   vectors at K=4 (the element-load staging), fp32 and bf16, itself both
+   ways, exact and rounded products; the CIN contraction at H in {26, 64},
+   M=26, O=64, K=64, B=37, 128 and 8192 (rows 0-511 against the plain
+   version, which forms the expansion), and at B=37 with K=12 and K=24 (row
+   counts off the weight gradient's 64-row chunk), forward and both
+   transposed-weight calls, legacy and K-major strided views (and K-major
+   memory at K=12, 24); the CIN weight gradient at the same shapes (1, 2
    and 128 slices) against an fp64 oracle built in 512-row blocks, within
    a per-element fp32 bound of the kernel's order and DW_REL_L2 relative L2,
    and bitwise equal across two launches.
@@ -91,9 +94,10 @@ failed check raises, and the script exits nonzero without the final line:
    in device memory, and L2-warm) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (for the
    interaction, torch.bmm forming the full z, a superset of the work; for
-   the row set, index_copy_ of the valid rows). The fast step's dedupe and
-   lazy-Adam row update are timed whole beside them. The flat FM forward and
-   backward at B=8192, F=26, K=64.
+   the row set, index_copy_ of the valid rows): the interaction in both
+   product modes, the CIN weight gradient also with the model's strided y.
+   The fast step's dedupe and lazy-Adam row update are timed whole beside
+   them. The flat FM forward and backward at B=8192, F=26, K=64.
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -478,44 +482,56 @@ def check_dw(got, x, y, g, layout, label: str) -> tuple[float, float]:
     return err.max().item(), rel
 
 
+# (n, K) of the interaction checks: F fields and a numeric vector appended,
+# n off the kernel's 16-row tiles, and the DLRM CLI's default K=4 (8-byte bf16
+# vectors: the kernel's element-load staging)
+INTERACTION_CASES = ((FIELDS, K), (FIELDS + 1, K), (17, K), (33, K), (FIELDS + 1, 4))
+# (B, K) of the CIN checks: the path's K=64 at 1, 2 and 128 dw slices, then
+# row counts B*K off dw's 64-row chunk: K=12 (element loads) and K=24 (16-byte
+# copies with a partial last chunk)
+CIN_CASES = ((37, K), (128, K), (FLAGSHIP_BATCH, K), (37, 12), (37, 24))
+
+
 def check_zoo_kernels(dev, gen) -> dict:
     errs = {"interaction": 0.0, "cin": 0.0, "cin_dw": 0.0, "cin_dw_rel_l2": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (FIELDS, FIELDS + 1):  # F fields, and a numeric vector appended
+        for n, k in INTERACTION_CASES:
             for b in (1, 7, 512, FLAGSHIP_BATCH):
-                x = torch.randn(b, n * K, generator=gen).to(dtype).to(dev)
+                x = torch.randn(b, n * k, generator=gen).to(dtype).to(dev)
                 for itself in (False, True):
                     tol = interaction_tolerance(x, n, itself)
                     for rounded in (False, True):
-                        got = int_ops.interact_cuda(x, n, K, itself, rounded)
-                        want = int_ops.interact_plain(x, n, K, itself, rounded)
+                        got = int_ops.interact_cuda(x, n, k, itself, rounded)
+                        want = int_ops.interact_plain(x, n, k, itself, rounded)
                         torch.cuda.synchronize()
                         check(got.shape == want.shape and got.dtype == torch.float32,
                               f"interaction shape/dtype {tuple(got.shape)} {got.dtype}")
                         err = (got.double() - want.double()).abs()
                         check(bool((err <= tol).all()),
-                              f"interaction {dtype} B={b} n={n} itself={itself} "
+                              f"interaction {dtype} B={b} n={n} K={k} itself={itself} "
                               f"rounded={rounded}: max err {err.max().item()}")
                         errs["interaction"] = max(errs["interaction"], err.max().item())
-        print(f"check: interaction {dtype} B=1,7,512,{FLAGSHIP_BATCH} n={FIELDS},{FIELDS + 1} "
-              f"K={K}, itself both ways, exact and rounded products: within tolerance of "
-              f"plain (max abs err so far {errs['interaction']:.3g})")
+        print(f"check: interaction {dtype} B=1,7,512,{FLAGSHIP_BATCH} (n, K) in "
+              f"{list(INTERACTION_CASES)}, itself both ways, exact and rounded products: "
+              f"within tolerance of plain (max abs err so far {errs['interaction']:.3g})")
 
     rows = slice(0, 512)  # the plain version forms the expansion: compare a slice at B=8192
     for dtype in (torch.float32, torch.bfloat16):
         for h in (FIELDS, CIN_O):
             w = (torch.randn(h, FIELDS, CIN_O, generator=gen)
                  * (2.0 / (h * FIELDS + CIN_O)) ** 0.5).to(dtype).to(dev)
-            for b in (37, 128, FLAGSHIP_BATCH):  # dw in 1, 2 and 128 slices
-                x = torch.randn(b, h, K, generator=gen).to(dtype).to(dev)
+            for b, k in CIN_CASES:
+                x = torch.randn(b, h, k, generator=gen).to(dtype).to(dev)
                 # y as the model hands it over: looked[..., :K] of the fused gather
-                y = torch.randn(b, FIELDS, K + 1, generator=gen).to(dtype).to(dev)[..., :K]
-                g = torch.randn(b, CIN_O, K, generator=gen).to(dtype).to(dev)
-                for layout in cin_ops.LAYOUTS:
-                    if layout == "kmajor":  # [B, K, *] views, as x0 = emb.transpose(1, 2)
-                        xa, ya, ga = (t.transpose(1, 2) for t in (x, y, g))
-                    else:
-                        xa, ya, ga = x, y, g
+                y = torch.randn(b, FIELDS, k + 1, generator=gen).to(dtype).to(dev)[..., :k]
+                g = torch.randn(b, CIN_O, k, generator=gen).to(dtype).to(dev)
+                variants = [("legacy", x, y, g)]
+                # [B, K, *] views, as x0 = emb.transpose(1, 2)
+                variants.append(("kmajor", *(t.transpose(1, 2) for t in (x, y, g))))
+                if k != K:  # K-major memory, as a K-major layer's output and gradient
+                    variants.append(("kmajor", *(t.transpose(1, 2).contiguous()
+                                                 for t in (x, y, g))))
+                for layout, xa, ya, ga in variants:
                     calls = {"forward": (xa, ya, w), "dx": (ga, ya, w.permute(2, 1, 0)),
                              "dy": (ga, xa, w.permute(2, 0, 1))}
                     for name, (a, c, ww) in calls.items():
@@ -527,7 +543,7 @@ def check_zoo_kernels(dev, gen) -> dict:
                                             ww.shape[0] * ww.shape[1])
                         err = (got[rows].double() - want.double()).abs()
                         check(bool((err <= tol).all()),
-                              f"cin {name} {dtype} {layout} H={h} B={b}: max err "
+                              f"cin {name} {dtype} {layout} H={h} B={b} K={k}: max err "
                               f"{err.max().item()}")
                         errs["cin"] = max(errs["cin"], err.max().item())
                     got = cin_ops.cin_dw_cuda(xa, ya, ga, layout)
@@ -535,15 +551,16 @@ def check_zoo_kernels(dev, gen) -> dict:
                     torch.cuda.synchronize()
                     check(got.shape == (h, FIELDS, CIN_O) and got.dtype == torch.float32,
                           "cin_dw shape/dtype")
-                    check(same_bits(got, again), f"cin_dw {dtype} {layout} H={h} B={b}: two "
-                                                 "launches differ")
+                    check(same_bits(got, again), f"cin_dw {dtype} {layout} H={h} B={b} K={k}: "
+                                                 "two launches differ")
                     err, rel = check_dw(got, xa, ya, ga, layout,
-                                        f"{dtype} {layout} H={h} B={b}")
+                                        f"{dtype} {layout} H={h} B={b} K={k}")
                     errs["cin_dw"] = max(errs["cin_dw"], err)
                     errs["cin_dw_rel_l2"] = max(errs["cin_dw_rel_l2"], rel)
-        print(f"check: cin {dtype} H={FIELDS},{CIN_O} M={FIELDS} O={CIN_O} K={K} B=37,128,"
-              f"{FLAGSHIP_BATCH} (rows 0-511 against plain), forward and both transposed-"
-              f"weight calls, legacy and K-major strided views: within tolerance (max abs err "
+        print(f"check: cin {dtype} H={FIELDS},{CIN_O} M={FIELDS} O={CIN_O} (B, K) in "
+              f"{list(CIN_CASES)} (rows 0-511 against plain), forward and both transposed-"
+              f"weight calls, legacy and K-major strided views (and K-major memory off K=64): "
+              f"within tolerance (max abs err "
               f"{errs['cin']:.3g}); cin_dw in 1, 2 and 128 slices within its per-element "
               f"fp32 bound and {DW_REL_L2:g} relative L2 of the fp64 oracle, bitwise equal "
               f"across launches (max abs err {errs['cin_dw']:.3g}, max relative L2 "
@@ -1560,16 +1577,23 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
         v3 = x.reshape(b, FIELDS, K)
         p = int_ops.num_pairs(FIELDS, False)
         ms_b, by = bound(b * FIELDS * K * es + b * p * 4, 2 * b * p * K)
-        rows.append({
-            "name": "interaction", "dtype": name, "batch": b, "shape": f"F={FIELDS} K={K}",
-            "ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), flush),
-            "warm_ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, True), None),
-            "plain_ms": event_ms(lambda: int_ops.interact_plain(x, FIELDS, K, False, True),
-                                 flush, iters=10),
-            "library_ms": event_ms(lambda: torch.bmm(v3, v3.transpose(1, 2)), flush),
-            "library": "torch.bmm forming the full z (a superset of the work)",
-            "bound_ms": ms_b, "bound_by": by,
-        })
+        library_ms = event_ms(lambda: torch.bmm(v3, v3.transpose(1, 2)), flush)
+        # rounded products (the zoo step's and the CLI's "auto"), then exact
+        # (DLRM serving and the autotuner's "pallas")
+        for rounded in (True, False):
+            rows.append({
+                "name": "interaction", "dtype": name, "batch": b,
+                "mode": "rounded" if rounded else "exact", "shape": f"F={FIELDS} K={K}",
+                "ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, rounded),
+                               flush),
+                "warm_ms": event_ms(lambda: int_ops.interact_cuda(x, FIELDS, K, False, rounded),
+                                    None),
+                "plain_ms": event_ms(lambda: int_ops.interact_plain(x, FIELDS, K, False, rounded),
+                                     flush, iters=10),
+                "library_ms": library_ms,
+                "library": "torch.bmm forming the full z (a superset of the work)",
+                "bound_ms": ms_b, "bound_by": by,
+            })
         for h in (FIELDS, CIN_O):  # layer 1 (x = x0) and layer 2 of CIN (64, 64)
             xx = torch.randn(b, h, K, generator=gen).to(dtype).to(dev)
             yy = torch.randn(b, FIELDS, K, generator=gen).to(dtype).to(dev)
@@ -1596,6 +1620,19 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                 "warm_ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), None),
                 "plain_ms": event_ms(lambda: cin_ops.cin_dw_plain(xx, yy, gg), flush, iters=3),
                 "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, yy, gg),
+                                       flush, iters=10),
+                "library": "torch.einsum of the same contraction",
+                "bound_ms": ms_b, "bound_by": by,
+            })
+            # y as the model hands it over (looked[..., :K], rows K+1 apart):
+            # the kernel stages it with element loads
+            ys = torch.cat([yy, yy[..., :1]], dim=2)[..., :K]
+            rows.append({
+                "name": "cin_dw", "dtype": name, "batch": b, "shape": f"H={h} y=looked[..., :K]",
+                "ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, ys, gg), flush),
+                "warm_ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, ys, gg), None),
+                "plain_ms": event_ms(lambda: cin_ops.cin_dw_plain(xx, ys, gg), flush, iters=3),
+                "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, ys, gg),
                                        flush, iters=10),
                 "library": "torch.einsum of the same contraction",
                 "bound_ms": ms_b, "bound_by": by,
@@ -1953,6 +1990,8 @@ def main(argv=None) -> int:
         if r.get("library"):
             lib += f" ({r['library']})"
         at = f"B={r['batch']}" if "batch" in r else f"rows={r.get('v_rows', r.get('updates'))}"
+        if "mode" in r:
+            at += f" {r['mode']} products"
         print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {at}: kernel "
               f"{r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
               f"ms, library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{gpu}]")
@@ -1985,7 +2024,8 @@ def main(argv=None) -> int:
     for name, (source, replaces) in KERNELS.items():
         dtype, at = heads[name]
         head = next(r for r in rows + train_rows if r["name"] == name and r["dtype"] == dtype
-                    and (at is None or at in (r.get("batch"), r.get("shape"))))
+                    and (at is None or at in (r.get("batch"), r.get("shape")))
+                    and r.get("mode", "rounded") == "rounded")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],

@@ -30,25 +30,38 @@
 // expansion itself (1.7 GB in bf16 per layer at this shape) never touches
 // device memory.
 //
-// Design: one block of 8 warps computes a 128 x 64 output tile (contraction:
-// 128 rows r by 64 columns o; dw: 128 (h, m) by 64 o) and walks the reduction
-// in chunks of 32.
+// The weight gradient alone (dw) is 111.7 GFLOP at H=64 (0.113 ms at the
+// bf16 peak) against ~160 MB of distinct operands (0.05 ms at 3.35 TB/s):
+// operations bound it, and the design's job is to keep the tensor cores fed.
+//
+// Design of the contraction, and of dw in fp32: one block of 8 warps computes
+// a 128 x 64 output tile (contraction: 128 rows r by 64 columns o; dw: 128
+// (h, m) by 64 o) and walks the reduction in chunks of 32.
 //   - contraction: the block stages its 128 rows' x[r, :] and y[r, :] in
 //     shared memory once (transposed, so a warp reads 32 neighbouring rows),
 //     then per chunk builds kr[128 x 32] in shared memory (each product
 //     rounded to x's type) and loads the matching W[32 x 64] slice, and
 //     multiplies them.
-//   - dw: block (s, j-tile, o-tile) reduces rows [s*slice_rows, ...) of its
-//     slice: per chunk of 32 rows it stages x, y and g, builds kr^T[128 x 32]
-//     and multiplies it with g[32 x 64]. Its fp32 tile goes to a partial
-//     buffer [slices, O, H*M]; a second kernel sums the partials of each
-//     element in slice order. The slicing depends on the shape only, so two
-//     launches give the same bits (no atomics).
+//   - dw in fp32: block (s, j-tile, o-tile) reduces rows [s*slice_rows, ...)
+//     of its slice: per chunk of 32 rows it stages x, y and g, builds
+//     kr^T[128 x 32] and multiplies it with g[32 x 64].
 //   - the product of the two shared-memory tiles: for bf16, tensor cores
 //     through WMMA (m16n16k16, bf16 in, fp32 accumulate), which matches the
 //     numerics exactly, since kr is already rounded to bf16; for fp32, fp32
 //     FMAs on the CUDA cores, 8 x 4 outputs a thread (TF32 would round the
 //     operands). wgmma and TMA are later work.
+// Design of dw in bf16 (cin_dw_mma_kernel, whose note below has the details):
+// building kr^T in shared memory behind four barriers a 32-row chunk, with a
+// scalar load, a division and a modulo for every staged element, had held it
+// at 61x its bound. Now each warp forms its A fragments of mma.sync.m16n8k16
+// in registers from x and y (one h and 32 m a warp, so one g fragment feeds
+// two A fragments and 64 fp32 accumulators stay in registers), and 64-row
+// chunks are staged by cp.async in three buffers, copies overlapping the
+// mma, with one barrier a chunk.
+// Both dw forms write one fp32 tile a slice to a partial buffer [slices, O,
+// H*M]; a second kernel sums the partials of each element in slice order. The
+// slicing (fixed 4,096-row slices) depends on the shape only, so two launches
+// give the same bits (no atomics).
 
 #include <cstdint>
 
@@ -426,6 +439,214 @@ cin_dw_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw, int
   dw[j * o_dim + o] = s;
 }
 
+// --- the bf16 weight gradient on mma.sync -----------------------------------
+//
+// Block (h-block, m-block, o-block; slice) owns dw[h0 + 8) x [m0 + 32) x
+// [o0 + 64) over its slice's rows; warp w owns h = h0 + w, all 32 m (M padded
+// with zero rows in shared memory) and all 64 o: two m16 A fragments by eight
+// n8 B fragments, 64 fp32 accumulators a thread. Per 16 rows r a thread reads
+// x[r, h] and y[r, m] for 4 neighbouring r (8-byte loads) and forms its A
+// fragments in registers as mul.rn.bf16x2 products (rectpu's rounding of
+// x*y), so kr never touches shared memory; each B fragment (g, also 4
+// neighbouring r) feeds both A fragments. The fragments' 16 k slots hold the
+// 16 rows in a permuted order, the same for A and B, so the sum is unchanged.
+// Rows are staged as [field][row] tiles of kDwChunk rows in kDwStages
+// buffers, the copy of chunk c + 2 in flight while chunk c is multiplied:
+// 16-byte cp.async copies when every operand's k stride is 1 and K, its
+// strides and pointer keep 8-row runs 16-byte aligned (zero-filled past the
+// slice's end; the wrapper copies an operand such as the model's y =
+// looked[..., :K], rows K+1 apart, into that form), element loads otherwise.
+constexpr int kDwChunk = 64;              // rows (b, k) a stage
+constexpr int kDwStages = 3;
+constexpr int kDwPitch = kDwChunk + 16;   // 160 bytes: 32 modulo 128, no bank conflict
+constexpr int kDwH = 8, kDwM = 32, kDwO = 64;
+constexpr int kDwStageElems = (kDwH + kDwM + kDwO) * kDwPitch;
+constexpr int kDwSmem = kDwStages * kDwStageElems * 2;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or 16 zero bytes when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] * b[16 x 8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two bf16 products, each rounded once to bf16 (round to nearest even)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// one operand of a block: its first field, strides in elements, the fields
+// it stages and the first [field][row] row they take in a stage
+struct DwOperand {
+  const __nv_bfloat16* p;
+  int64_t sb, sf, sk;
+  int n_f, row0;
+};
+
+__device__ __forceinline__ void dw_stage(const DwOperand (&ops)[3], __nv_bfloat16* dst,
+                                         int64_t r0, int64_t row_end, int k_dim, bool vec) {
+  const int tid = threadIdx.x;
+  if (!vec) {  // element loads: this thread's row rr, fields tid / 64 + 4i
+    const int rr = tid & (kDwChunk - 1);
+    const bool ok = r0 + rr < row_end;
+    const int r = ok ? static_cast<int>(r0 + rr) : 0;
+    const int b = r / k_dim;
+    const int k = r - b * k_dim;
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      const __nv_bfloat16* src = ops[o].p + b * ops[o].sb + k * ops[o].sk;
+      __nv_bfloat16* d = dst + ops[o].row0 * kDwPitch + rr;
+      for (int f = tid / kDwChunk; f < ops[o].n_f; f += kThreads / kDwChunk) {
+        d[f * kDwPitch] = ok ? src[f * ops[o].sf] : __float2bfloat16(0.0f);
+      }
+    }
+    return;
+  }
+  // 16-byte copies: this thread's 8-row run q, fields tid / 8 + 32i
+  constexpr int kRuns = kDwChunk / 8;
+  const int q = tid & (kRuns - 1);
+  const bool ok = r0 + 8 * q < row_end;  // a run is whole: the row count is a multiple of 8
+  const int r = ok ? static_cast<int>(r0 + 8 * q) : 0;
+  const int b = r / k_dim;
+  const int k = r - b * k_dim;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const __nv_bfloat16* src = ops[o].p + b * ops[o].sb + k;
+    __nv_bfloat16* d = dst + ops[o].row0 * kDwPitch + 8 * q;
+    for (int f = tid / kRuns; f < ops[o].n_f; f += kThreads / kRuns) {
+      cp_async16(d + f * kDwPitch, src + f * ops[o].sf, ok);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+cin_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+                  const __nv_bfloat16* __restrict__ g, float* __restrict__ partial, int n_b,
+                  int h_dim, int m_dim, int o_dim, int k_dim, int64_t sxb, int64_t sxh,
+                  int64_t sxk, int64_t syb, int64_t sym, int64_t syk, int64_t sgb,
+                  int64_t sgo, int64_t sgk, int slice_rows, bool vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int n_hb = (h_dim + kDwH - 1) / kDwH;
+  const int n_mb = (m_dim + kDwM - 1) / kDwM;
+  const int hb = blockIdx.x % n_hb;
+  const int mb = (blockIdx.x / n_hb) % n_mb;
+  const int ob = blockIdx.x / (n_hb * n_mb);
+  const int h0 = hb * kDwH, m0 = mb * kDwM, o0 = ob * kDwO;
+  const int slice = blockIdx.y;
+  const DwOperand ops[3] = {
+      {x + h0 * sxh, sxb, sxh, sxk, min(kDwH, h_dim - h0), 0},
+      {y + m0 * sym, syb, sym, syk, min(kDwM, m_dim - m0), kDwH},
+      {g + o0 * sgo, sgb, sgo, sgk, min(kDwO, o_dim - o0), kDwH + kDwM}};
+  {  // zero every stage: padded rows (m, o, h past the extents) are never staged
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < kDwSmem / 16; i += kThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  const int64_t n_rows = static_cast<int64_t>(n_b) * k_dim;
+  const int64_t row_begin = static_cast<int64_t>(slice) * slice_rows;
+  const int64_t row_end = min(n_rows, row_begin + slice_rows);
+  const int n_chunks =
+      row_end > row_begin ? static_cast<int>((row_end - row_begin + kDwChunk - 1) / kDwChunk) : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const bool active = h0 + warp < h_dim;  // warp-uniform
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][f][e] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < kDwStages - 1; ++c) {
+    if (c < n_chunks) {
+      dw_stage(ops, st + c * kDwStageElems, row_begin + c * kDwChunk, row_end, k_dim, vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDwStages - 2) : "memory");
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1's buffer
+    const int cn = c + kDwStages - 1;
+    if (cn < n_chunks) {
+      dw_stage(ops, st + (cn % kDwStages) * kDwStageElems,
+               row_begin + static_cast<int64_t>(cn) * kDwChunk, row_end, k_dim, vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (!active) continue;
+    const __nv_bfloat16* buf = st + (c % kDwStages) * kDwStageElems;
+    const __nv_bfloat16* xs = buf + warp * kDwPitch + 4 * tq;
+    const __nv_bfloat16* ys = buf + (kDwH + gq) * kDwPitch + 4 * tq;
+    const __nv_bfloat16* gs = buf + (kDwH + kDwM + gq) * kDwPitch + 4 * tq;
+#pragma unroll
+    for (int r = 0; r < kDwChunk; r += 16) {
+      // rows r + 4tq + [0, 4): k slots 2tq, 2tq + 1 take the first two, slots
+      // 2tq + 8, 2tq + 9 the other two (A and B alike)
+      const uint2 xv = *reinterpret_cast<const uint2*>(xs + r);
+      uint2 yv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        yv[i] = *reinterpret_cast<const uint2*>(ys + i * 8 * kDwPitch + r);
+      }
+      // fragment a: rows m0 + 16a + gq (regs 0, 2) and + 8 (regs 1, 3)
+      uint32_t fa[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        fa[a][0] = mul_bf16x2(xv.x, yv[2 * a].x);
+        fa[a][1] = mul_bf16x2(xv.x, yv[2 * a + 1].x);
+        fa[a][2] = mul_bf16x2(xv.y, yv[2 * a].y);
+        fa[a][3] = mul_bf16x2(xv.y, yv[2 * a + 1].y);
+      }
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const uint2 gv = *reinterpret_cast<const uint2*>(gs + f * 8 * kDwPitch + r);
+        const uint32_t fb[2] = {gv.x, gv.y};
+        mma_bf16(acc[0][f], fa[0], fb);
+        mma_bf16(acc[1][f], fa[1], fb);
+      }
+    }
+  }
+  if (!active) return;
+  // partial[slice, o, h * M + m]; acc[a][f]: m = m0 + 16a + gq (+8 for
+  // elements 2, 3), o = o0 + 8f + 2tq (+1 for elements 1, 3)
+  const int hm = h_dim * m_dim;
+  const int h = h0 + warp;
+  float* dst = partial + static_cast<int64_t>(slice) * o_dim * hm + h * m_dim;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 16 * a + gq + 8 * (e >> 1);
+        const int o = o0 + 8 * f + 2 * tq + (e & 1);
+        if (m < m_dim && o < o_dim) dst[static_cast<int64_t>(o) * hm + m] = acc[a][f][e];
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -449,28 +670,62 @@ int launch_cin(const void* x, const void* y, const void* w, void* out, int n_b, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dw(const void* x, const void* y, const void* g, void* partial, void* dw, int n_b,
-              int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s, int slices,
-              int slice_rows, cudaStream_t stream) {
-  const int smem = dw_layout<T>(m_dim).total;
-  cudaError_t err = allow_smem(cin_dw_kernel<T>, smem);
+cudaError_t launch_dw_sum(const void* partial, void* dw, int slices, int o_dim, int hm,
+                          cudaStream_t stream) {
+  const int64_t n = static_cast<int64_t>(o_dim) * hm;
+  cin_dw_sum_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(static_cast<const float*>(partial), static_cast<float*>(dw),
+                                slices, o_dim, hm);
+  return cudaGetLastError();
+}
+
+// fp32: the CUDA-core tile kernel
+int launch_dw_fp32(const void* x, const void* y, const void* g, void* partial, void* dw,
+                   int n_b, int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s,
+                   int slices, int slice_rows, cudaStream_t stream) {
+  const int smem = dw_layout<float>(m_dim).total;
+  cudaError_t err = allow_smem(cin_dw_kernel<float>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int hm = h_dim * m_dim;
   const dim3 grid(static_cast<unsigned>(slices),
                   static_cast<unsigned>((hm + kTileRows - 1) / kTileRows),
                   static_cast<unsigned>((o_dim + kTileCols - 1) / kTileCols));
-  cin_dw_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(g),
+  cin_dw_kernel<float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(g),
       static_cast<float*>(partial), n_b, h_dim, m_dim, o_dim, k_dim, s[0], s[1], s[2], s[3],
       s[4], s[5], s[6], s[7], s[8], slice_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n = static_cast<int64_t>(o_dim) * hm;
-  cin_dw_sum_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
-                      stream>>>(static_cast<const float*>(partial), static_cast<float*>(dw),
-                                slices, o_dim, hm);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dw_sum(partial, dw, slices, o_dim, hm, stream));
+}
+
+// bf16: the mma.sync kernel
+int launch_dw_bf16(const void* x, const void* y, const void* g, void* partial, void* dw,
+                   int n_b, int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s,
+                   int slices, int slice_rows, bool vec, cudaStream_t stream) {
+  cudaError_t err = allow_smem(cin_dw_mma_kernel, kDwSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte copies only where every 8-row run of every operand is 16 bytes,
+  // aligned (ops/cin.py::dw_operands lays them out so)
+  auto runs = [k_dim](const void* p, int64_t sb, int64_t sf, int64_t sk) {
+    return sk == 1 && k_dim % 8 == 0 && sb % 8 == 0 && sf % 8 == 0 &&
+           (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  if (vec && !(runs(x, s[0], s[1], s[2]) && runs(y, s[3], s[4], s[5]) &&
+               runs(g, s[6], s[7], s[8]))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = static_cast<int64_t>((h_dim + kDwH - 1) / kDwH) *
+                        ((m_dim + kDwM - 1) / kDwM) * ((o_dim + kDwO - 1) / kDwO);
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(slices));
+  cin_dw_mma_kernel<<<grid, kThreads, kDwSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(g), static_cast<float*>(partial), n_b, h_dim, m_dim,
+      o_dim, k_dim, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], slice_rows, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dw_sum(partial, dw, slices, o_dim, h_dim * m_dim, stream));
 }
 
 }  // namespace
@@ -496,13 +751,14 @@ extern "C" int rectpu_cin(const void* x, const void* y, const void* w, void* out
 // type. partial: [slices, o_dim, h_dim * m_dim] fp32 scratch; dw: [h_dim,
 // m_dim, o_dim] fp32 contiguous. Slice s reduces rows (b, k) with
 // b * k_dim + k in [s * slice_rows, (s + 1) * slice_rows), slice_rows a
-// multiple of 32. Returns a cudaError_t as int.
+// multiple of 32. copy16 (bf16 only): stage x, y and g with 16-byte copies
+// (ops/cin.py::dw_operands). Returns a cudaError_t as int.
 extern "C" int rectpu_cin_dw(const void* x, const void* y, const void* g, void* partial,
                              void* dw, int n_b, int h_dim, int m_dim, int o_dim, int k_dim,
                              long long sxb, long long sxh, long long sxk, long long syb,
                              long long sym, long long syk, long long sgb, long long sgo,
-                             long long sgk, int slices, int slice_rows, int is_bf16,
-                             void* stream) {
+                             long long sgk, int slices, int slice_rows, int copy16,
+                             int is_bf16, void* stream) {
   if (h_dim < 1 || m_dim < 1 || o_dim < 1 || slices < 1 || slice_rows < 1 ||
       slice_rows % kDepth != 0 ||
       static_cast<int64_t>(slices) * slice_rows < static_cast<int64_t>(n_b) * k_dim) {
@@ -510,8 +766,8 @@ extern "C" int rectpu_cin_dw(const void* x, const void* y, const void* g, void* 
   }
   const int64_t s[9] = {sxb, sxh, sxk, syb, sym, syk, sgb, sgo, sgk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dw<__nv_bfloat16>(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim,
-                                            k_dim, s, slices, slice_rows, st)
-                 : launch_dw<float>(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim, k_dim, s,
-                                    slices, slice_rows, st);
+  return is_bf16 ? launch_dw_bf16(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                  slices, slice_rows, copy16 != 0, st)
+                 : launch_dw_fp32(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                  slices, slice_rows, st);
 }

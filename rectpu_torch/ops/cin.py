@@ -18,7 +18,9 @@ operands, rectpu :264-303) compute the same function and run the same two
 kernels of ``kernels/csrc/cin.cu`` on CUDA tensors, with the layout passed as
 strides: the contraction (the port of the Pallas ``_cin_fwd_kernel``, :70,
 and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy, and the
-weight gradient (``_cin_dw_kernel``, :101). On CPU tensors they run the plain
+weight gradient (``_cin_dw_kernel``, :101; in bf16 on ``mma.sync`` with the A
+operand built in registers, its operands laid out for 16-byte staging here
+by ``dw_operands``). On CPU tensors they run the plain
 versions ``cin_plain`` and ``cin_dw_plain``, which form the expansion and are
 meant for small CPU shapes only.
 
@@ -49,7 +51,7 @@ _SIGNATURES = {
     ),
     "rectpu_cin_dw": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [_LL] * 9
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -147,6 +149,37 @@ def dw_slices(rows: int) -> tuple[int, int]:
     return slices, -(-per // 32) * 32
 
 
+def _runs_aligned(t: torch.Tensor) -> bool:
+    """Whether every run of 8 rows (b, k) of a [B, *, K] operand is 16
+    bytes, aligned, so the bf16 weight-gradient kernel can stage it with
+    16-byte copies."""
+    sb, sf, sk = t.stride()
+    return sk == 1 and sb % 8 == 0 and sf % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def dw_operands(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                layout: str) -> tuple[list[torch.Tensor], bool]:
+    """The weight-gradient kernel's operands as [B, *, K] tensors, and
+    whether it stages them with 16-byte copies: in bf16 when K is a multiple
+    of 8, after copying each operand whose runs are not aligned into a
+    contiguous tensor (the model's y = looked[..., :K], rows K+1 apart; a
+    K-major operand), once for an operand passed twice (x = y = x0 in the
+    first layer). The copy reads and writes the operand once; element loads
+    inside the kernel stall its tensor cores. Otherwise the
+    kernel stages every operand with element loads, in place."""
+    views = [_bok(t, layout) for t in (x, y, g)]
+    if x.dtype != torch.bfloat16 or views[0].shape[2] % 8:
+        return views, False
+    out: list[torch.Tensor] = []
+    for v in views:
+        if not _runs_aligned(v):
+            key = (v.data_ptr(), v.shape, v.stride())
+            done = [o for w, o in zip(views, out) if (w.data_ptr(), w.shape, w.stride()) == key]
+            v = done[0] if done else v.contiguous()
+        out.append(v)
+    return out, True
+
+
 def cin_dw_cuda(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                 layout: str = "legacy") -> torch.Tensor:
     """Launch the weight-gradient kernel: x [B, H, K], y [B, M, K], g [B, O, K]
@@ -166,12 +199,13 @@ def cin_dw_cuda(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                          "extents")
     slices, per = dw_slices(b * k)
     partial = torch.empty(slices, o, h * m, dtype=torch.float32, device=x.device)
+    (xb, yb, gb), copies = dw_operands(x, y, g, layout)
     lib = build.load("cin", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rectpu_cin_dw(x.data_ptr(), y.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                dw.data_ptr(), b, h, m, o, k, *_strides(x, layout),
-                                *_strides(y, layout), *_strides(g, layout), slices, per,
+        err = lib.rectpu_cin_dw(xb.data_ptr(), yb.data_ptr(), gb.data_ptr(), partial.data_ptr(),
+                                dw.data_ptr(), b, h, m, o, k, *xb.stride(), *yb.stride(),
+                                *gb.stride(), slices, per, int(copies),
                                 int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"cin dw kernel launch failed: cudaError {err}")

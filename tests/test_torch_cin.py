@@ -13,6 +13,9 @@ terms. A bf16 result is rounded from those fp32 sums, so it may also land one
 bf16 ulp (<= 2^-7 of the value) apart.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -154,3 +157,88 @@ def test_layouts_agree_and_the_wrappers_refuse_cpu_tensors():
         t_cin.cin_dw_cuda(xt, yt, gt)
     assert t_cin.launches.value == 0 and t_cin.dw_launches.value == 0
     assert t_cin.dw_slices(524_288) == (128, 4096) and t_cin.dw_slices(100) == (1, 128)
+
+
+# --- the bf16 weight-gradient kernel's launch plan, held on the CPU -----------
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """The wrappers hand each C entry of kernels/csrc/cin.cu as many
+    arguments as it declares (ctypes would refuse the call on the card only)."""
+    text = (Path(t_cin.__file__).resolve().parent.parent / "kernels" / "csrc"
+            / "cin.cu").read_text()
+    for fn, (argtypes, _) in t_cin._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+        assert m and len(argtypes) == len(m.group(1).split(",")), fn
+
+
+def test_dw_operands_lay_out_16_byte_runs():
+    """In bf16 with K a multiple of 8 the weight-gradient kernel stages with
+    16-byte copies: aligned [B, *, K] operands (and the K-major views of such
+    memory) pass as they are, the model's y = looked[..., :K] (rows K+1
+    apart) and K-major memory are copied into contiguous [B, *, K] tensors
+    of the same values, an operand passed twice is copied once. With K=12 or
+    in fp32 every operand passes in place, for element loads."""
+    bf = torch.bfloat16
+    x = torch.randn(5, 26, 64).to(bf)
+    y = torch.randn(5, 26, 65).to(bf)[..., :64]
+    g = torch.randn(5, 64, 64).to(bf)
+    (xo, yo, go), copies = t_cin.dw_operands(x, y, g, "legacy")
+    assert copies and xo is x and go is g and yo.is_contiguous() and torch.equal(yo, y)
+    (xo, yo, go), copies = t_cin.dw_operands(y, y, g, "legacy")
+    assert copies and xo is yo and torch.equal(xo, y)
+    views = [t.transpose(1, 2) for t in (x, y, g)]
+    (xo, yo, go), copies = t_cin.dw_operands(*views, "kmajor")
+    assert copies and xo.data_ptr() == x.data_ptr() and torch.equal(yo, y)
+    memory = [t.transpose(1, 2).contiguous() for t in (x, y, g)]
+    ops, copies = t_cin.dw_operands(*memory, "kmajor")
+    assert copies and all(o.is_contiguous() for o in ops)
+    assert all(torch.equal(o, t) for o, t in zip(ops, (x, y, g)))
+    for args, layout in (([t[..., :12] for t in (x, y, g)], "legacy"),
+                         ([t.float() for t in (x, y, g)], "legacy")):
+        ops, copies = t_cin.dw_operands(*args, layout)
+        assert not copies and all(o is a for o, a in zip(ops, args))
+
+
+def _dw_emulated(x, y, g):
+    """The bf16 kernel's walk in plain PyTorch, [B, *, K] operands: the
+    fixed slices of dw_slices, each reduced in 64-row chunks of 16-row mma
+    steps (a step's 16 rows in the kernel's slot order, 4t + [0, 4) for the
+    four threads t) into fp32 tiles of 8 h x 32 m (M zero-padded) x 64 o;
+    each product x*y rounded to bf16; the slices summed in order."""
+    b, h, k = x.shape
+    m, o = y.shape[1], g.shape[1]
+    rows = b * k
+    xr, yr, gr = (t.transpose(1, 2).reshape(rows, -1).float() for t in (x, y, g))
+    slices, per = t_cin.dw_slices(rows)
+    m_pad = -(-m // 32) * 32
+    partial = torch.zeros(slices, h, m_pad, o)
+    for s in range(slices):
+        end = min(rows, (s + 1) * per)
+        for c0 in range(s * per, end, 64):
+            for r0 in range(c0, min(c0 + 64, end), 16):
+                order = torch.tensor([r0 + 4 * t + e for t in range(4) for e in range(4)])
+                order = order[order < end]
+                kr = torch.zeros(len(order), h, m_pad)
+                kr[:, :, :m] = (xr[order, :, None] * yr[order, None, :]).to(torch.bfloat16)
+                partial[s] += torch.einsum("rhm,ro->hmo", kr, gr[order])
+    dw = torch.zeros(h, m, o)
+    for s in range(slices):
+        dw += partial[s, :, :m]
+    return dw
+
+
+@pytest.mark.parametrize("b,k", [(37, 12), (37, 24), (9, 8)])
+def test_emulated_dw_tiling_matches_plain(b, k):
+    """The emulated walk, with B*K off the 64-row chunk (444 and 888 rows)
+    and a slice of 72 rows, equals cin_dw_plain within the fp32 bound of
+    its sum order, at H=26 (four 8-h blocks, the last with 2) and M=26
+    (padded to 32)."""
+    h, m, o = 26, 26, 8
+    (_, xt), (_, yt), (_, gt) = _arrays("bfloat16", 6 + k, (b, h, k), (b, m, k), (b, o, k))
+    got = _dw_emulated(xt, yt, gt)
+    want = t_cin.cin_dw_plain(xt, yt, gt)
+    z = (xt.double()[:, :, None, :] * yt.double()[:, None, :, :]).abs()
+    mag = torch.einsum("bhmk,bok->hmo", z, gt.double().abs()).numpy()
+    np.testing.assert_array_less(np.abs(got.numpy() - want.numpy()),
+                                 2 * b * k * 2.0 ** -24 * mag + 1e-30)

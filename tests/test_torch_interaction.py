@@ -12,6 +12,9 @@ an fp32 sum to bf16 on both sides, so it may land one bf16 ulp (<= 2^-7 of the
 value) apart, beyond the same sum-order bound.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,3 +139,157 @@ def test_impls_pick_the_kernel_flags_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         t_int.interact_cuda(xt, n, K)
     assert t_int.launches.value == 0
+
+
+# --- the kernel's launch plan (kernels/csrc/interaction.cu), held on the CPU ---
+
+
+def _unit_tiles(n, itself, path):
+    """The tiles the kernel walks on ``path``: each unit's run of tiles from
+    its origin."""
+    _, tj, _ = t_int.UNIT[path]
+    return [(i0, j0 + t * tj) for i0, j0, tiles in t_int.units(n, itself, path)
+            for t in range(tiles)]
+
+
+def _pair_column(i, j, n, itself):
+    """interaction.cu's closed form: entry (i, j) of the dot matrix goes to
+    column row_base(i) + j when in_triangle(i, j), else nowhere (-1)."""
+    skip = 0 if itself else 1
+    if j - i >= skip and j < n:
+        return i * (n - skip) - i * (i - 1) // 2 + j - i - skip
+    return -1
+
+
+@pytest.mark.parametrize("itself", [False, True])
+def test_pair_column_sends_each_pair_once_in_order(itself):
+    """For n in 1..40 the kernel's closed form gives every np.triu_indices
+    pair its column, and -1 to every other entry of the 16-padded matrix
+    (below the diagonal, past n), so each column is written once."""
+    for n in range(1, 41):
+        n_pad = -(-n // 16) * 16
+        iu, ju = t_int.pairs(n, itself)
+        got = [_pair_column(i, j, n, itself) for i, j in zip(iu, ju)]
+        assert got == list(range(len(iu)))
+        others = {(i, j) for i in range(n_pad) for j in range(n_pad)} - set(zip(iu, ju))
+        assert all(_pair_column(i, j, n, itself) == -1 for i, j in others)
+
+
+@pytest.mark.parametrize("path", ["gram", "ones", "tile"])
+@pytest.mark.parametrize("itself", [False, True])
+def test_units_cover_every_pair_once_and_skip_empty_tiles(itself, path):
+    """For n in 1..40 the tiles that the units of the gram (16 x 8, runs of
+    4), ones (4 x 4, runs of 4) and tile (4 x 4) paths walk lie inside the
+    16-padded matrix, do not overlap, hold every pair, and each unit's first
+    tile holds one (the tiles below the diagonal are skipped: at n=26 the
+    gram path walks 6 of 8 tiles in 2 units)."""
+    ti, tj, per = t_int.UNIT[path]
+    for n in range(1, 41):
+        n_pad = -(-n // 16) * 16
+        walked = _unit_tiles(n, itself, path)
+        assert len(walked) == len(set(walked))
+        assert all(i0 % ti == 0 and j0 % tj == 0 and i0 + ti <= n_pad and j0 + tj <= n_pad
+                   for i0, j0 in walked)
+        held = {(i, j) for i0, j0 in walked for i in range(i0, i0 + ti)
+                for j in range(j0, j0 + tj)}
+        pairs = set(zip(*t_int.pairs(n, itself)))
+        assert pairs <= held
+        for i0, j0, tiles in t_int.units(n, itself, path):
+            assert 1 <= tiles <= per and j0 + tj * tiles <= n_pad
+            assert any((i, j) in pairs for i in range(i0, i0 + ti)
+                       for j in range(j0, j0 + tj)), (n, i0, j0)
+    if path == "gram":
+        assert t_int.units(26, False, path) == [(0, 0, 4), (16, 16, 2)]
+        assert len(_unit_tiles(26, False, path)) == 6
+
+
+def _emulate(xt, n, k, itself, rounded):
+    """The kernel's walk in plain PyTorch: the rows staged as [n_pad, k_pad]
+    zero-padded tiles, each unit's tiles of the dot matrix computed (the
+    products rounded to the input's type in rounded mode) and written to
+    their columns by the closed form, each output once."""
+    pl = t_int.plan(n, k, itself, xt.dtype, rounded)
+    ti, tj, _ = t_int.UNIT[pl.path]
+    b = xt.shape[0]
+    v = torch.zeros(b, pl.n_pad, pl.k_pad, dtype=xt.dtype)
+    v[:, :n, :k] = xt.reshape(b, n, k)
+    out = torch.full((b, t_int.num_pairs(n, itself)), float("nan"))
+    for i0, j0 in _unit_tiles(n, itself, pl.path):
+        a, c = v[:, i0:i0 + ti].float(), v[:, j0:j0 + tj].float()
+        prod = a[:, :, None, :] * c[:, None, :, :]
+        if rounded:
+            prod = prod.to(xt.dtype).float()
+        tile = prod.sum(-1)
+        for x in range(ti):
+            for y in range(tj):
+                p = _pair_column(i0 + x, j0 + y, n, itself)
+                if p >= 0:
+                    assert torch.isnan(out[:, p]).all()
+                    out[:, p] = tile[:, x, y]
+    return out
+
+
+@pytest.mark.parametrize("rounded", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 5, 17, 27, 33])
+def test_emulated_tiling_matches_plain(n, dtype, rounded):
+    """A plain emulation of the path the plan picks (gram: bf16 exact, ones:
+    bf16 rounded, tile: fp32) fills every output once and agrees with
+    interact_plain within the fp32 sum bound, at n on and off the 16-row
+    tiles and with the diagonal both ways."""
+    for itself in (False, True):
+        if t_int.num_pairs(n, itself) == 0:
+            continue
+        _, xt = _inputs(7, n, dtype, seed=n + 2 * rounded)
+        got = _emulate(xt, n, K, itself, rounded)
+        assert not torch.isnan(got).any()
+        want = t_int.interact_plain(xt, n, K, itself, round_products=rounded)
+        np.testing.assert_array_less(np.abs(got.numpy() - want.numpy()),
+                                     _sum_tol(xt, n, itself) + 1e-30)
+
+
+def test_plan_paths_geometry_and_limit():
+    """The plan picks the path by dtype and rounding; its staged tile keeps
+    16-byte alignment, vectors 16 modulo 32 bytes apart (conflict-free
+    ldmatrix; 64 modulo 128 on the ones path) and batch rows 16 modulo 128
+    bytes apart; a group takes at most
+    8 rows and its shared memory holds two buffers and the outputs. Every
+    DLRM width the port trains or serves fits (n = 26 or 27 at K = 64, the
+    CLI's default K = 4); past one block's 227 KB the wrapper raises."""
+    for dtype, rounded, path in ((torch.bfloat16, False, "gram"), (torch.bfloat16, True, "ones"),
+                                 (torch.float32, False, "tile"), (torch.float32, True, "tile")):
+        es = 2 if dtype == torch.bfloat16 else 4
+        for n, k in ((26, 64), (27, 64), (27, 4), (1, 8), (40, 24)):
+            for itself in (False, True):
+                pl = t_int.plan(n, k, itself, dtype, rounded)
+                assert pl.path == path
+                assert pl.n_pad % 16 == 0 and pl.n_pad >= n and pl.k_pad % 16 == 0
+                assert (pl.ld * es) % (128 if path == "ones" else 32) == (64 if path == "ones"
+                                                                          else 16)
+                assert (pl.rs * es) % 128 == 16
+                assert pl.rs >= pl.n_pad * pl.ld and 1 <= pl.rows <= 8
+                p = t_int.num_pairs(n, itself)
+                assert pl.smem == pl.rows * (2 * pl.rs * es + 4 * p) <= 227 * 1024
+    assert t_int.plan(26, 64, False, torch.bfloat16, True).rows == 8
+    assert t_int.plan(272, 64, True, torch.bfloat16, False).rows == 1
+    with pytest.raises(ValueError, match="232448-byte limit"):
+        t_int.plan(273, 64, True, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_int.plan(226, 64, True, torch.float32, True)
+
+
+def c_arity(source: str, fn: str) -> int:
+    """The number of parameters of ``extern "C" int fn(...)`` in a kernel
+    source of rectpu_torch/kernels/csrc."""
+    text = (Path(t_int.__file__).resolve().parent.parent / "kernels" / "csrc"
+            / source).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    assert m, fn
+    return len(m.group(1).split(","))
+
+
+def test_ctypes_signature_matches_the_c_entry():
+    """The wrapper hands the kernel's C entry as many arguments as it
+    declares (ctypes would refuse the call on the card only)."""
+    for fn, (argtypes, _) in t_int._SIGNATURES.items():
+        assert len(argtypes) == c_arity("interaction.cu", fn), fn
