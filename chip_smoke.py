@@ -18,7 +18,10 @@ failed check raises, and the script exits nonzero without the final line:
    with 4096 x 26 ml-100k ids and at the flagship [311296, 65] with
    8192 x 26 ids, fp32 and bf16, with out-of-range ids and DROP_SENTINEL,
    within a stated fp32 tolerance of an fp64 oracle and bitwise equal
-   across two launches; the FM backward at [B, 26, 64] and [B, 26, 4] from
+   across two launches; then streams that stress its sort and its pieces:
+   every id on one row (ml-100k's R at every chunk the autotuner sweeps, the
+   flagship's R), no valid id, no update, and the reference default's
+   narrow rows (W=4 and 5, fp32, and W=5 bf16); the FM backward at [B, 26, 64] and [B, 26, 4] from
    the strided view; fused Adam at both table sizes with fp32 slots and
    with bf16 m / stochastically rounded bf16 v, fp32 and bf16 masters,
    within 1 ulp of the plain version and bitwise equal across two launches.
@@ -29,9 +32,11 @@ failed check raises, and the script exits nonzero without the final line:
    ways, exact and rounded products; the CIN contraction at H in {26, 64},
    M=26, O=64, K=64, B=37, 128 and 8192 (rows 0-511 against the plain
    version, which forms the expansion), and at B=37 with K=12 and K=24 (row
-   counts off the weight gradient's 64-row chunk), forward and both
-   transposed-weight calls, legacy and K-major strided views (and K-major
-   memory at K=12, 24); the CIN weight gradient at the same shapes (1, 2
+   counts off the weight gradient's 64-row chunk and the contraction's
+   32-row tile), forward and both transposed-weight calls (at B=8192 the
+   six call shapes of a xDeepFM zoo step: (H', M', O') = (26, 26, 64),
+   (64, 26, 26) twice, (64, 26, 64) twice, (64, 64, 26)), legacy and K-major
+   strided views (and K-major memory at K=12, 24); the CIN weight gradient at the same shapes (1, 2
    and 128 slices) against an fp64 oracle built in 512-row blocks, within
    a per-element fp32 bound of the kernel's order and DW_REL_L2 relative L2,
    and bitwise equal across two launches.
@@ -95,9 +100,12 @@ failed check raises, and the script exits nonzero without the final line:
    where one PyTorch call computes the same function, that call (for the
    interaction, torch.bmm forming the full z, a superset of the work; for
    the row set, index_copy_ of the valid rows): the interaction in both
-   product modes, the CIN weight gradient also with the model's strided y.
+   product modes, the CIN contraction at the six call shapes of a xDeepFM
+   zoo step (bf16), the CIN weight gradient also with the model's strided y.
    The fast step's dedupe and lazy-Adam row update are timed whole beside
-   them. The flat FM forward and backward at B=8192, F=26, K=64.
+   them. The flat FM forward and backward at B=8192, F=26, K=64. Then the
+   device operations of one scatter call (its sort and its sums) and of one
+   segment sum, by name, with their count a call (torch.profiler).
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -109,6 +117,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import re
 import shutil
 import statistics
 import subprocess
@@ -343,6 +352,55 @@ def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
+def check_scatter_edges(dev, gen, rng) -> float:
+    """The scatter on streams that stress its ordering and its pieces: every
+    id on one row (ml-100k's R at every chunk the autotuner sweeps, and the
+    flagship's R), no valid id at all, no update at all, and the reference
+    default's narrow rows (K=4: W=4 and the packed W=5) on ml-100k's ids.
+    Each within the fp32 bound of the fp64 oracle, bitwise equal across two
+    launches, untouched rows zero; returns the largest |kernel - plain|."""
+    worst = 0.0
+    ml_rows, fl_rows = padded_rows(ml_100k_feature_set()), padded_rows(bench_feature_set())
+    n_ml, n_fl = TRAIN_BATCH * FIELDS, FLAGSHIP_BATCH * FIELDS
+    bad = np.array([-1, ml_rows, scatter_ops.DROP_SENTINEL, -2**31, 2**31 - 1], np.int32)
+    ml_ids = random_ids(ml_100k_feature_set(), TRAIN_BATCH, rng).reshape(-1)
+    cases = [  # (label, ids, v_rows, width, dtypes, chunks)
+        ("every id on row 7", np.full(n_ml, 7, np.int32), ml_rows, WIDTH,
+         (torch.float32, torch.bfloat16), SCATTER_CHUNKS),
+        ("every id on the last row", np.full(n_fl, fl_rows - 1, np.int32), fl_rows, WIDTH,
+         (torch.bfloat16,), (scatter_ops.CHUNK,)),
+        ("no valid id", bad[np.arange(n_ml) % len(bad)], ml_rows, WIDTH,
+         (torch.float32, torch.bfloat16), (scatter_ops.CHUNK,)),
+        ("no update", np.zeros(0, np.int32), ml_rows, WIDTH, (torch.float32,),
+         (scatter_ops.CHUNK,)),
+        ("W=4", ml_ids, ml_rows, 4, (torch.float32,), SCATTER_CHUNKS),
+        ("W=5", ml_ids, ml_rows, 5, (torch.float32, torch.bfloat16), SCATTER_CHUNKS),
+    ]
+    for label, ids_np, v_rows, width, dtypes, chunks in cases:
+        ids = torch.from_numpy(ids_np).to(dev)
+        for dtype in dtypes:
+            upd = torch.randn(ids.shape[0], width, generator=gen).to(dtype).to(dev)
+            exact, mag, count = scatter_oracle(ids, upd, v_rows)
+            tol = scatter_tolerance(mag, count, dtype, exact)
+            plain = scatter_ops.scatter_rows_plain(ids, upd, v_rows)
+            for chunk in chunks:
+                got = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, chunk=chunk)
+                again = scatter_ops.scatter_rows_cuda(ids, upd, v_rows, chunk=chunk)
+                torch.cuda.synchronize()
+                what = f"scatter {label} [{v_rows}, {width}] R={ids.shape[0]} {dtype} chunk {chunk}"
+                check(got.shape == (v_rows, width) and got.dtype == dtype, f"{what}: shape/dtype")
+                check(same_bits(got, again), f"{what}: two launches differ")
+                err = (got.double() - exact).abs()
+                check(bool((err <= tol).all()), f"{what}: max err {err.max().item()} vs the "
+                                                "fp64 oracle")
+                check(not got[count == 0].any(), f"{what}: untouched rows not zero")
+                worst = max(worst, (got.double() - plain.double()).abs().max().item())
+        print(f"check: scatter_rows {label} [{v_rows}, {width}] R={ids.shape[0]} "
+              f"{[str(d).split('.')[-1] for d in dtypes]} at chunks {list(chunks)}: within "
+              "tolerance of the fp64 oracle, bitwise equal across launches, untouched rows zero")
+    return worst
+
+
 def check_train_kernels(dev, gen) -> dict:
     errs = {"scatter_rows": 0.0, "fm_cross_bwd": 0.0, "fused_adam": 0.0}
     rng = np.random.default_rng(1)
@@ -372,6 +430,8 @@ def check_train_kernels(dev, gen) -> dict:
         print(f"check: scatter_rows {label} [{v_rows}, {WIDTH}] R={ids.shape[0]} "
               "fp32/bf16: within tolerance of the fp64 oracle, bitwise equal across launches, "
               f"out-of-range ids dropped (max |kernel - plain| {errs['scatter_rows']:.3g})")
+
+    errs["scatter_rows"] = max(errs["scatter_rows"], check_scatter_edges(dev, gen, rng))
 
     for dtype in (torch.float32, torch.bfloat16):
         for k in (64, 4):
@@ -565,6 +625,20 @@ def check_zoo_kernels(dev, gen) -> dict:
               f"fp32 bound and {DW_REL_L2:g} relative L2 of the fp64 oracle, bitwise equal "
               f"across launches (max abs err {errs['cin_dw']:.3g}, max relative L2 "
               f"{errs['cin_dw_rel_l2']:.3g})")
+    # a bf16 contraction with M > 64 has no mma.sync plan (y's m values would
+    # not fit in registers): it takes the tile kernel, as fp32 does
+    x = torch.randn(37, 8, 12, generator=gen).to(torch.bfloat16).to(dev)
+    y = torch.randn(37, 80, 12, generator=gen).to(torch.bfloat16).to(dev)
+    w = (torch.randn(8, 80, 8, generator=gen) * 0.05).to(torch.bfloat16).to(dev)
+    check(cin_ops.contraction_plan(8, 80, 8) is None, "cin: M=80 should take the tile kernel")
+    got, want = cin_ops.cin_cuda(x, y, w), cin_ops.cin_plain(x, y, w)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    check(bool((err <= cin_tolerance(x, y, w, "legacy", want, 8 * 80)).all()),
+          f"cin bf16 M=80 (tile kernel): max err {err.max().item()}")
+    errs["cin"] = max(errs["cin"], err.max().item())
+    print(f"check: cin bf16 H=8 M=80 O=8 B=37 K=12 (no mma.sync plan: the tile kernel) within "
+          f"tolerance (max abs err {err.max().item():.3g})")
     return errs
 
 
@@ -1600,18 +1674,27 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
             w = (torch.randn(h, FIELDS, CIN_O, generator=gen) * 0.05).to(dtype).to(dev)
             gg = torch.randn(b, CIN_O, K, generator=gen).to(dtype).to(dev)
             flops = 2 * b * K * h * FIELDS * CIN_O
-            ms_b, by = bound((xx.numel() + yy.numel() + w.numel() + b * CIN_O * K) * es,
-                             flops, peak)
-            rows.append({
-                "name": "cin", "dtype": name, "batch": b, "shape": f"H={h}",
-                "ms": event_ms(lambda: cin_ops.cin_cuda(xx, yy, w), flush),
-                "warm_ms": event_ms(lambda: cin_ops.cin_cuda(xx, yy, w), None),
-                "plain_ms": event_ms(lambda: cin_ops.cin_plain(xx, yy, w), flush, iters=3),
-                "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", xx, yy, w),
-                                       flush, iters=10),
-                "library": "torch.einsum of the same contraction",
-                "bound_ms": ms_b, "bound_by": by,
-            })
+            # the step's three contraction calls of this layer: the forward,
+            # then (bf16, the zoo step's type) dx = cin(g, y, w^(2,1,0)) and
+            # dy = cin(g, x, w^(2,0,1)), whose (H', M', O') differ from it
+            calls = [("", xx, yy, w)]
+            if dtype == torch.bfloat16:
+                calls += [(" dx", gg, yy, w.permute(2, 1, 0)), (" dy", gg, xx, w.permute(2, 0, 1))]
+            for call, a, c, ww in calls:
+                out_numel = b * ww.shape[2] * K
+                ms_b, by = bound((a.numel() + c.numel() + ww.numel() + out_numel) * es, flops,
+                                 peak)
+                rows.append({
+                    "name": "cin", "dtype": name, "batch": b, "shape": f"H={h}{call}",
+                    "call": f"(H', M', O') = {tuple(ww.shape)}",
+                    "ms": event_ms(lambda: cin_ops.cin_cuda(a, c, ww), flush),
+                    "warm_ms": event_ms(lambda: cin_ops.cin_cuda(a, c, ww), None),
+                    "plain_ms": event_ms(lambda: cin_ops.cin_plain(a, c, ww), flush, iters=3),
+                    "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", a, c, ww),
+                                           flush, iters=10),
+                    "library": "torch.einsum of the same contraction",
+                    "bound_ms": ms_b, "bound_by": by,
+                })
             ms_b, by = bound((xx.numel() + yy.numel() + gg.numel()) * es
                              + h * FIELDS * CIN_O * 4, flops, peak)
             rows.append({
@@ -1758,9 +1841,25 @@ def time_flat_kernels(dev, gen) -> list[dict]:
 
 
 def profile_scatter(dev, gen) -> dict:
-    """Device time of each kernel one scatter_rows_cuda call launches (the
-    stable sort, the chunk pass, the finish pass), at both stream sizes."""
+    """Device time of each device operation one scatter_rows_cuda call runs
+    (kernels and memsets: the ordering, the sums), and the number of them a
+    call, at both stream sizes in bf16 and fp32, and for segment_sum at the
+    fast step's shape."""
     from torch.profiler import ProfilerActivity, profile
+
+    def split(fn, reps: int = 10) -> dict:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        return {"ms_by_op": sorted(((e.key[:50], e.self_device_time_total / reps / 1e3)
+                                    for e in events), key=lambda kv: -kv[1]),
+                "ops_per_call": sum(e.count for e in events) / reps}
 
     out = {}
     rng = np.random.default_rng(5)
@@ -1768,19 +1867,60 @@ def profile_scatter(dev, gen) -> dict:
                              ("flagship", bench_feature_set(), FLAGSHIP_BATCH)):
         v_rows = padded_rows(fs)
         ids = torch.from_numpy(random_ids(fs, batch, rng).reshape(-1)).to(dev)
-        upd = torch.randn(ids.shape[0], WIDTH, generator=gen).to(torch.bfloat16).to(dev)
-        scatter_ops.scatter_rows_cuda(ids, upd, v_rows)
-        torch.cuda.synchronize()
-        reps = 10
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                scatter_ops.scatter_rows_cuda(ids, upd, v_rows)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        out[label] = sorted(((e.key[:50], e.self_device_time_total / reps / 1e3)
-                             for e in events), key=lambda kv: -kv[1])
+        for dtype in (torch.bfloat16, torch.float32):
+            upd = torch.randn(ids.shape[0], WIDTH, generator=gen).to(dtype).to(dev)
+            out[f"{label} {str(dtype).split('.')[-1]}"] = split(
+                lambda: scatter_ops.scatter_rows_cuda(ids, upd, v_rows))
+    fs = big_feature_set()
+    ids = torch.from_numpy(random_ids(fs, BIG_BATCH, np.random.default_rng(10))).to(dev)
+    cap = sparse_ops.unique_capacity(fs.field_sizes, BIG_BATCH, ids.numel())
+    grads = torch.randn(ids.numel(), 128, generator=gen).to(dev)
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    new_run = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new_run[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(new_run, 0, dtype=torch.int32) - 1
+    out["segment_sum"] = split(lambda: scatter_ops.segment_sum_cuda(seg, order, grads, cap))
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A short name of a mangled kernel: its identifier and template
+    arguments (integers and types; a type repeated from before is S)."""
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while i < len(mangled) and mangled[i].isdigit():  # the nested name's parts
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if i < len(mangled) and mangled[i] == "I":
+        args, k, toks = mangled[i + 1:mangled.find("EEv", i)], 0, []
+        letters = {"f": "f32", "i": "i32", "l": "i64", "b": "bool", "h": "u8", "t": "u16"}
+        while k < len(args):
+            lit, sub = re.match(r"Li(\d+)E", args[k:]), re.match(r"S\d*_", args[k:])
+            if args.startswith("13__nv_bfloat16", k):
+                toks, k = toks + ["bf16"], k + 15
+            elif lit or sub:
+                toks, k = toks + [lit.group(1) if lit else "S"], k + (lit or sub).end()
+            else:
+                toks, k = toks + [letters.get(args[k], args[k])], k + 1
+        name += f"<{', '.join(toks)}>"
+    return name
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, bytes spilled) for each kernel in nvcc's -Xptxas -v
+    output."""
+    out, name, spill = [], "?", 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, spill = kernel_name(entry.group(1)), 0
+        found = re.search(r"(\d+) bytes spill stores", line)
+        if found:
+            spill = int(found.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out.append((name, int(regs.group(1)), spill))
     return out
 
 
@@ -1825,9 +1965,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for r in build.build():
         print(f"build: {r.name} -> {r.path.name} in {r.seconds:.2f} s")
-        for line in r.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {r.name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(r.log):
+            print(f"  ptxas {r.name}: {kernel}: {regs} registers, {spill} bytes spilled")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
 
     # 2-3. kernels against their plain versions
@@ -1978,8 +2117,9 @@ def main(argv=None) -> int:
     scatter_parts = profile_scatter(dev, gen)
     print(f"time: floor of this method (a one-element add) {floor:.4f} ms [{gpu}]")
     for label, parts in scatter_parts.items():
-        print(f"profile scatter_rows {label}: device ms per call by kernel "
-              f"{[(k, round(t, 4)) for k, t in parts]} [{gpu}]")
+        print(f"profile scatter_rows {label}: {parts['ops_per_call']:g} device operations a "
+              f"call; device ms per call by operation "
+              f"{[(k, round(t, 4)) for k, t in parts['ms_by_op']]} [{gpu}]")
     for r in rows + train_rows:
         if not r.get("kernel", True):
             print(f"time: {r['name']} {r['dtype']} {r['shape']} (plain PyTorch around the "

@@ -34,9 +34,18 @@
 // bf16 peak) against ~160 MB of distinct operands (0.05 ms at 3.35 TB/s):
 // operations bound it, and the design's job is to keep the tensor cores fed.
 //
-// Design of the contraction, and of dw in fp32: one block of 8 warps computes
-// a 128 x 64 output tile (contraction: 128 rows r by 64 columns o; dw: 128
-// (h, m) by 64 o) and walks the reduction in chunks of 32.
+// Design of the bf16 contraction (cin_mma_kernel, whose note below has the
+// details): the first design, below, rebuilt kr[128 x 32] in shared memory
+// every 32-column chunk with a division loop per element and loaded each W
+// slice by element loads behind two barriers, and sat at 21-24x its bound,
+// 17 of a xDeepFM step's 25 busy milliseconds. Now the rows (b, k) are
+// mma.sync's M, each warp forms its A fragments in registers from y (held
+// across the h loop) and x[r, h], and a persistent block stages its column
+// group of W once for ldmatrix.
+// Design of the contraction in fp32 (and in bf16 where M > 64 or no column
+// group of W fits in shared memory), and of dw in fp32: one block of 8 warps
+// computes a 128 x 64 output tile (contraction: 128 rows r by 64 columns o;
+// dw: 128 (h, m) by 64 o) and walks the reduction in chunks of 32.
 //   - contraction: the block stages its 128 rows' x[r, :] and y[r, :] in
 //     shared memory once (transposed, so a warp reads 32 neighbouring rows),
 //     then per chunk builds kr[128 x 32] in shared memory (each product
@@ -647,6 +656,308 @@ cin_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
+// --- the bf16 contraction on mma.sync ---------------------------------------
+//
+// out[r, o] = sum_{h, m} round(x[r, h] * y[r, m]) * W[h, m, o] over rows r =
+// (b, k), as a product whose M dimension is the rows, whose reduction is
+// (h, m) with m zero-padded to MP (32 or 64) inside each h, and whose N
+// dimension is o, in groups of 8 NT columns.
+//   - A in registers: in mma.sync.m16n8k16's A layout a thread holds rows g
+//     and g + 8 of a 16-row tile (g = lane / 4) and reduction columns 2t, 2t+1,
+//     2t+8, 2t+9 (t = lane % 4). With the reduction in (h, m) order and m
+//     padded to MP, those columns are the same m for every h, so the thread
+//     loads its y[r, m] once a row tile and keeps them across the whole h
+//     loop; each h then costs one x[r, h] a row and MP/16 x 4 mul.rn.bf16x2
+//     (the product rounded to bf16 exactly as rectpu rounds it). Padding m
+//     (26 -> 32) wastes 19 % of the mma; the flat (h, m) order would not, but
+//     its columns change with every step, so y could not stay in registers.
+//   - B from shared memory: the wrapper packs W per call as [group][8 NT
+//     o][H * MP] (zeros past M and O); a persistent block stages its group's
+//     slice once, rows 16 bytes longer than H * MP so ldmatrix's eight rows
+//     hit eight bank groups, and walks many row tiles. A group holds as many
+//     columns as fit in shared memory with the x tiles (at most 8 NT = 64;
+//     all 64 at H' = 26, 32 at H' = 64: two groups at O' = 64, and at M' = 64
+//     two groups of 16 for O' = 26), so the A fragments are built once a
+//     group.
+//   - A warp owns 32 rows (two m16 tiles, so each B fragment feeds two mma)
+//     and all 8 NT columns: 8 NT fp32 accumulators a thread. Its rows' x[r, :]
+//     are staged as [h][32] in shared memory in two buffers: the next tile's
+//     by 16-byte cp.async while this tile multiplies, where each h of a tile
+//     is 64 contiguous, aligned bytes (K a multiple of 32, k unit stride; the
+//     wrapper copies the model's x0 = looked[..., :K] into that form), else by
+//     element loads, eight in flight, before the tile. The next tile's y
+//     values are loaded into registers while this tile multiplies. The tile
+//     is rounded through shared memory so that out is written by neighbouring
+//     lanes on neighbouring addresses in either layout.
+// No staging waits inside the h loop: the first version staged x by one
+// dependent element load at a time and sat at 10 % of the tensor cores.
+constexpr int kCinWarps = 8;
+constexpr int kCinThreads = kCinWarps * 32;
+constexpr int kCinRows = 32;        // rows a warp owns
+constexpr int kCinWPad = 8;         // elements past H * MP in each staged W row
+constexpr int kCinOutPitch = 40;    // the rounded tile [8 NT][40]: lanes t hit other banks
+constexpr int kCinBatch = 8;        // element loads in flight when x is staged by elements
+
+// a warp's shared memory in elements: two x tiles and the rounded output tile
+__host__ __device__ inline int cin_warp_elems(int h_dim, int nt) {
+  return 2 * h_dim * kCinRows + 8 * nt * kCinOutPitch;
+}
+
+__host__ __device__ inline int cin_w_bytes(int h_dim, int mp, int nt) {
+  return align128(8 * nt * (h_dim * mp + kCinWPad) * 2);
+}
+
+__host__ __device__ inline int cin_mma_smem(int h_dim, int mp, int nt) {
+  return cin_w_bytes(h_dim, mp, nt) + kCinWarps * cin_warp_elems(h_dim, nt) * 2;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
+  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p));
+}
+
+// where row r starts in an operand with batch stride sb and k stride sk, or
+// -1 past the last row
+__device__ __forceinline__ int64_t row_base(int64_t r, int64_t n_rows, int k_dim, int64_t sb,
+                                            int64_t sk) {
+  if (r >= n_rows) return -1;
+  const int64_t b = r / k_dim;
+  return b * sb + (r - b * k_dim) * sk;
+}
+
+// this thread's y values of the tile at r0, packed in pairs of neighbouring
+// m: [16-row tile][k16 step][A register]
+template <int MP>
+__device__ __forceinline__ void load_y(uint32_t (&yv)[2][MP / 16][4],
+                                       const __nv_bfloat16* __restrict__ y, int64_t r0,
+                                       int64_t n_rows, int k_dim, int m_dim, int64_t syb,
+                                       int64_t sym, int64_t syk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t yb = row_base(r0 + lane, n_rows, k_dim, syb, syk);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int64_t base_a = __shfl_sync(0xffffffffu, yb, 16 * mt + (lane >> 2));
+    const int64_t base_b = __shfl_sync(0xffffffffu, yb, 16 * mt + (lane >> 2) + 8);
+#pragma unroll
+    for (int ks = 0; ks < MP / 16; ++ks) {
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const int64_t base = reg & 1 ? base_b : base_a;
+        const int m = 16 * ks + 2 * (lane & 3) + 8 * (reg >> 1);
+        const uint32_t lo = base >= 0 && m < m_dim ? bf16_bits(y + base + m * sym) : 0u;
+        const uint32_t hi =
+            base >= 0 && m + 1 < m_dim ? bf16_bits(y + base + (m + 1) * sym) : 0u;
+        yv[mt][ks][reg] = lo | (hi << 16);
+      }
+    }
+  }
+}
+
+// the next tile's x by 16-byte copies: h of rows r0 .. r0 + 31 is 64
+// contiguous bytes at row_base(r0) + h * sxh
+__device__ __forceinline__ void stage_x_async(__nv_bfloat16* xs, const __nv_bfloat16* x,
+                                              int64_t base, int h_dim, int64_t sxh) {
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < h_dim * 4; i += 32) {
+    const int hh = i >> 2;
+    const int q = i & 3;
+    cp_async16(xs + hh * kCinRows + 8 * q, x + base + hh * sxh + 8 * q, true);
+  }
+}
+
+// this tile's x by element loads, kCinBatch in flight, in the order of the
+// unit stride
+__device__ __forceinline__ void stage_x_elements(__nv_bfloat16* xs, const __nv_bfloat16* x,
+                                                 int64_t xb, int h_dim, int64_t sxh,
+                                                 bool rows_fast) {
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < h_dim * kCinRows; i0 += 32 * kCinBatch) {
+    __nv_bfloat16 v[kCinBatch];
+#pragma unroll
+    for (int u = 0; u < kCinBatch; ++u) {
+      const int i = i0 + 32 * u + lane;
+      const int rr = rows_fast ? i % kCinRows : i / h_dim;
+      const int hh = rows_fast ? i / kCinRows : i % h_dim;
+      const bool in = i0 + 32 * u < h_dim * kCinRows;  // warp-uniform
+      const int64_t base = __shfl_sync(0xffffffffu, xb, in ? rr : 0);
+      v[u] = in && base >= 0 ? x[base + hh * sxh] : __float2bfloat16(0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kCinBatch; ++u) {
+      const int i = i0 + 32 * u + lane;
+      if (i0 + 32 * u < h_dim * kCinRows) {
+        const int rr = rows_fast ? i % kCinRows : i / h_dim;
+        const int hh = rows_fast ? i / kCinRows : i % h_dim;
+        xs[hh * kCinRows + rr] = v[u];
+      }
+    }
+  }
+}
+
+template <int MP, int NT>
+__global__ void __launch_bounds__(kCinThreads, 1)
+cin_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
+               const __nv_bfloat16* __restrict__ wp, __nv_bfloat16* __restrict__ out, int n_b,
+               int h_dim, int m_dim, int o_dim, int k_dim, int64_t sxb, int64_t sxh,
+               int64_t sxk, int64_t syb, int64_t sym, int64_t syk, int64_t sob, int64_t soo,
+               int64_t sok, int n_groups, bool vec) {
+  constexpr int kCols = 8 * NT;
+  constexpr int kSteps = MP / 16;  // k16 steps an h
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int hmp = h_dim * MP;
+  const int pitch = hmp + kCinWPad;
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  __nv_bfloat16* region = reinterpret_cast<__nv_bfloat16*>(smem + cin_w_bytes(h_dim, MP, NT)) +
+                          warp * cin_warp_elems(h_dim, NT);
+  __nv_bfloat16* os = region + 2 * h_dim * kCinRows;  // the rounded output tile
+  const int group = blockIdx.x % n_groups;
+
+  {  // this block's W slice, 16 bytes a copy
+    const uint4* src = reinterpret_cast<const uint4*>(wp + static_cast<int64_t>(group) * kCols * hmp);
+    const int per_row = hmp / 8;
+    for (int i = threadIdx.x; i < kCols * per_row; i += kCinThreads) {
+      const int row = i / per_row;
+      *reinterpret_cast<uint4*>(ws + row * pitch + (i - row * per_row) * 8) = src[i];
+    }
+  }
+  __syncthreads();
+
+  const int64_t n_rows = static_cast<int64_t>(n_b) * k_dim;
+  const int64_t n_tiles = (n_rows + kCinRows - 1) / kCinRows;
+  const int64_t tile_stride = static_cast<int64_t>(gridDim.x / n_groups) * kCinWarps;
+  const bool x_rows_fast = sxk <= sxh;
+  const bool out_rows_fast = sok <= soo;
+  // ldmatrix: lane l gives row 8 (q / 2) + l % 8 of column block q % 2 (q = l / 8)
+  const __nv_bfloat16* b_lane =
+      ws + (8 * ((lane >> 4) & 1) + (lane & 7)) * pitch + 8 * ((lane >> 3) & 1);
+
+  int64_t tile = static_cast<int64_t>(blockIdx.x / n_groups) * kCinWarps + warp;
+  uint32_t yn[2][kSteps][4];  // the next tile's y values
+  if (tile < n_tiles) {
+    load_y<MP>(yn, y, tile * kCinRows, n_rows, k_dim, m_dim, syb, sym, syk);
+    if (vec) {
+      stage_x_async(region, x, __shfl_sync(0xffffffffu, row_base(tile * kCinRows + lane, n_rows,
+                                                                 k_dim, sxb, sxk), 0),
+                    h_dim, sxh);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  int buf = 0;
+  for (; tile < n_tiles; tile += tile_stride) {
+    const int64_t r0 = tile * kCinRows;
+    const int64_t next = tile + tile_stride;
+    __nv_bfloat16* xs = region + buf * h_dim * kCinRows;
+    uint32_t yv[2][kSteps][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) yv[mt][ks][reg] = yn[mt][ks][reg];
+    if (vec) {
+      if (next < n_tiles) {
+        stage_x_async(region + (buf ^ 1) * h_dim * kCinRows, x,
+                      __shfl_sync(0xffffffffu, row_base(next * kCinRows + lane, n_rows, k_dim,
+                                                        sxb, sxk), 0),
+                      h_dim, sxh);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's copies are in
+    } else {
+      stage_x_elements(xs, x, row_base(r0 + lane, n_rows, k_dim, sxb, sxk), h_dim, sxh,
+                       x_rows_fast);
+    }
+    __syncwarp();
+    if (next < n_tiles) load_y<MP>(yn, y, next * kCinRows, n_rows, k_dim, m_dim, syb, sym, syk);
+
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+    for (int h = 0; h < h_dim; ++h) {
+      uint32_t xa[2], xb8[2];  // x[r, h] of rows g and g + 8, in both halves
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t a = bf16_bits(xs + h * kCinRows + 16 * mt + g);
+        const uint32_t b = bf16_bits(xs + h * kCinRows + 16 * mt + g + 8);
+        xa[mt] = a | (a << 16);
+        xb8[mt] = b | (b << 16);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+        uint32_t fa[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          fa[mt][0] = mul_bf16x2(yv[mt][ks][0], xa[mt]);
+          fa[mt][1] = mul_bf16x2(yv[mt][ks][1], xb8[mt]);
+          fa[mt][2] = mul_bf16x2(yv[mt][ks][2], xa[mt]);
+          fa[mt][3] = mul_bf16x2(yv[mt][ks][3], xb8[mt]);
+        }
+        const __nv_bfloat16* bp = b_lane + h * MP + 16 * ks;
+        if constexpr (NT == 1) {
+          uint32_t fb[2];
+          ldmatrix_x2(fb, bp);
+          mma_bf16(acc[0][0], fa[0], fb);
+          mma_bf16(acc[1][0], fa[1], fb);
+        } else {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t fb[4];
+            ldmatrix_x4(fb, bp + 16 * np * pitch);
+            mma_bf16(acc[0][2 * np], fa[0], fb);
+            mma_bf16(acc[1][2 * np], fa[1], fb);
+            mma_bf16(acc[0][2 * np + 1], fa[0], fb + 2);
+            mma_bf16(acc[1][2 * np + 1], fa[1], fb + 2);
+          }
+        }
+      }
+    }
+
+    // the tile rounded to bf16 -> os as [column][row], then out
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e >> 1);
+          const int col = 8 * nt + 2 * t + (e & 1);
+          os[col * kCinOutPitch + row] = __float2bfloat16(acc[mt][nt][e]);
+        }
+    __syncwarp();
+    const int64_t ob = row_base(r0 + lane, n_rows, k_dim, sob, sok);
+    const int o0 = group * kCols;
+    for (int i = lane; i < kCols * kCinRows; i += 32) {
+      const int rr = out_rows_fast ? i % kCinRows : i / kCols;
+      const int cc = out_rows_fast ? i / kCinRows : i % kCols;
+      const int64_t base = __shfl_sync(0xffffffffu, ob, rr);
+      if (base >= 0 && o0 + cc < o_dim) out[base + (o0 + cc) * soo] = os[cc * kCinOutPitch + rr];
+    }
+    __syncwarp();  // every lane is done with xs and os
+    if (vec) buf ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -668,6 +979,51 @@ int launch_cin(const void* x, const void* y, const void* w, void* out, int n_b, 
       static_cast<T*>(out), n_b, h_dim, m_dim, o_dim, k_dim, s[0], s[1], s[2], s[3], s[4],
       s[5], s[6], s[7], s[8]);
   return static_cast<int>(cudaGetLastError());
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+template <int MP, int NT>
+int launch_cin_mma_t(const void* x, const void* y, const void* wp, void* out, int n_b,
+                     int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s, int n_groups,
+                     bool vec, cudaStream_t stream) {
+  const int smem = cin_mma_smem(h_dim, MP, NT);
+  cudaError_t err = allow_smem(cin_mma_kernel<MP, NT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_tiles = (static_cast<int64_t>(n_b) * k_dim + kCinRows - 1) / kCinRows;
+  int64_t per_group = (n_tiles + kCinWarps - 1) / kCinWarps;
+  const int64_t fill = sm_count() / n_groups > 0 ? sm_count() / n_groups : 1;
+  if (per_group > fill) per_group = fill;
+  cin_mma_kernel<MP, NT><<<static_cast<unsigned>(per_group * n_groups), kCinThreads, smem,
+                           stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
+      static_cast<const __nv_bfloat16*>(wp), static_cast<__nv_bfloat16*>(out), n_b, h_dim,
+      m_dim, o_dim, k_dim, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], n_groups,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MP>
+int launch_cin_mma_mp(int nt, const void* x, const void* y, const void* wp, void* out, int n_b,
+                      int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s,
+                      int n_groups, bool vec, cudaStream_t stream) {
+  switch (nt) {
+    case 1: return launch_cin_mma_t<MP, 1>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, vec, stream);
+    case 2: return launch_cin_mma_t<MP, 2>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, vec, stream);
+    case 4: return launch_cin_mma_t<MP, 4>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, vec, stream);
+    case 8: return launch_cin_mma_t<MP, 8>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, vec, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 cudaError_t launch_dw_sum(const void* partial, void* dw, int slices, int o_dim, int hm,
@@ -745,6 +1101,41 @@ extern "C" int rectpu_cin(const void* x, const void* y, const void* w, void* out
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_cin<__nv_bfloat16>(x, y, w, out, n_b, h_dim, m_dim, o_dim, k_dim, s, st)
                  : launch_cin<float>(x, y, w, out, n_b, h_dim, m_dim, o_dim, k_dim, s, st);
+}
+
+// The bf16 contraction on mma.sync. x, y, out as for rectpu_cin, bf16; wp:
+// W packed by ops/cin.py::pack_weight, [n_groups][8 nt][h_dim * mp] bf16
+// contiguous, zero past m_dim and o_dim; mp 32 or 64 (>= m_dim), nt 1, 2, 4
+// or 8 with n_groups * 8 * nt >= o_dim. copy16: stage x by 16-byte copies
+// (ops/cin.py::contraction_operand: k_dim a multiple of 32, x's k stride 1,
+// its other strides and pointer 16-byte aligned). Returns a cudaError_t as int.
+extern "C" int rectpu_cin_mma(const void* x, const void* y, const void* wp, void* out, int n_b,
+                              int h_dim, int m_dim, int o_dim, int k_dim, long long sxb,
+                              long long sxh, long long sxk, long long syb, long long sym,
+                              long long syk, long long sob, long long soo, long long sok,
+                              int mp, int nt, int n_groups, int copy16, void* stream) {
+  if (n_b == 0 || o_dim == 0 || k_dim == 0) return static_cast<int>(cudaSuccess);
+  if (h_dim < 1 || m_dim < 1 || m_dim > mp || n_groups < 1 ||
+      static_cast<int64_t>(n_groups) * 8 * nt < o_dim ||
+      (reinterpret_cast<uintptr_t>(wp) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = copy16 != 0;
+  if (vec && !(sxk == 1 && k_dim % kCinRows == 0 && sxb % 8 == 0 && sxh % 8 == 0 &&
+               (reinterpret_cast<uintptr_t>(x) & 15) == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t s[9] = {sxb, sxh, sxk, syb, sym, syk, sob, soo, sok};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mp == 32) {
+    return launch_cin_mma_mp<32>(nt, x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                 n_groups, vec, st);
+  }
+  if (mp == 64) {
+    return launch_cin_mma_mp<64>(nt, x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                 n_groups, vec, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x, y as for rectpu_cin; g: [n_b, o_dim, k_dim] with (sgb, sgo, sgk), same

@@ -17,7 +17,9 @@ so no [B, H, M, K] expansion and no cotangent of it is ever formed.
 operands, rectpu :264-303) compute the same function and run the same two
 kernels of ``kernels/csrc/cin.cu`` on CUDA tensors, with the layout passed as
 strides: the contraction (the port of the Pallas ``_cin_fwd_kernel``, :70,
-and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy, and the
+and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy (in bf16 on
+``mma.sync`` with the A operand built in registers and W packed here by
+``pack_weight`` as ``contraction_plan`` lays it out), and the
 weight gradient (``_cin_dw_kernel``, :101; in bf16 on ``mma.sync`` with the A
 operand built in registers, its operands laid out for 16-byte staging here
 by ``dw_operands``). On CPU tensors they run the plain
@@ -55,8 +57,17 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
 }
+_SIGNATURES["rectpu_cin_mma"] = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 9 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    ctypes.c_int,
+)
 _DW_SLICE_ROWS = 4096  # rows (b, k) per dw partial: fixed, so the sum order is too
 _DW_MAX_SLICES = 128
+# the bf16 contraction's shared memory: the packed W slice of a column group
+# and, for each of 8 warps, two x tiles of its 32 rows and its rounded output
+_SMEM_MAX = 227 * 1024
+_WARPS, _ROWS, _W_PAD, _OUT_PITCH = 8, 32, 8, 40
 
 
 def _bok(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -110,12 +121,69 @@ def _strides(t: torch.Tensor, layout: str) -> list[int]:
     return list(_bok(t, layout).stride())
 
 
+def contraction_smem(h: int, mp: int, nt: int) -> int:
+    """Bytes of shared memory the bf16 contraction kernel takes (cin.cu's
+    cin_mma_smem): the W slice of 8 nt columns, [8 nt][h * mp + 8] bf16
+    rounded up to 128 bytes, and for each of 8 warps two x tiles [h][32] and
+    the rounded output tile [8 nt][40], bf16."""
+    w_bytes = -(-8 * nt * (h * mp + _W_PAD) * 2 // 128) * 128
+    return w_bytes + _WARPS * (2 * h * _ROWS + 8 * nt * _OUT_PITCH) * 2
+
+
+def contraction_plan(h: int, m: int, o: int) -> tuple[int, int, int] | None:
+    """(mp, nt, groups) of the bf16 contraction on mma.sync for w [h, m, o]:
+    m padded to mp (32 or 64) inside each h, the o columns in ``groups``
+    groups of 8 nt (nt in 1, 2, 4, 8), the widest group whose W slice fits in
+    shared memory beside the x tiles; None where m > 64 or no group fits
+    (the shape then takes the tile kernel). A function of the shape only."""
+    if m > 64 or h < 1 or o < 1:
+        return None
+    mp = 32 if m <= 32 else 64
+    n8 = -(-o // 8)
+    nt = 8
+    while nt > 1 and nt // 2 >= n8:
+        nt //= 2
+    while contraction_smem(h, mp, nt) > _SMEM_MAX:
+        if nt == 1:
+            return None
+        nt //= 2
+    return mp, nt, -(-n8 // nt)
+
+
+def pack_weight(w: torch.Tensor, mp: int, nt: int, groups: int) -> torch.Tensor:
+    """w [h, m, o] (any strides) -> [groups, 8 nt, h * mp] in w's dtype,
+    contiguous: wp[g, c, hh * mp + mm] = w[hh, mm, 8 nt g + c], zero for mm >=
+    m and for columns past o (the B operand of the bf16 contraction, one
+    group's slice a block)."""
+    h, m, o = w.shape
+    wp = torch.zeros(groups * 8 * nt, h, mp, dtype=w.dtype, device=w.device)
+    wp[:o, :, :m] = w.permute(2, 0, 1)
+    return wp.reshape(groups, 8 * nt, h * mp)
+
+
+def contraction_operand(x: torch.Tensor, layout: str) -> tuple[torch.Tensor, bool]:
+    """The bf16 contraction's x as a [B, H, K] tensor, and whether the
+    kernel stages it with 16-byte copies: when K is a multiple of 32 (a
+    warp's 32 rows then lie in one batch row), after copying x into a
+    contiguous tensor if its 8-row runs are not 16 bytes, aligned (the
+    model's x0 = looked[..., :K], rows K+1 apart; K-major memory). The copy
+    reads and writes x once; otherwise the kernel stages x with element
+    loads, in place. y needs no copy: it is loaded into registers once a
+    row tile, with element loads."""
+    v = _bok(x, layout)
+    if x.dtype != torch.bfloat16 or v.shape[2] % _ROWS:
+        return v, False
+    return (v if _runs_aligned(v) else v.contiguous()), True
+
+
 def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
              layout: str = "legacy") -> torch.Tensor:
     """Launch the contraction kernel: x, y of one dtype (fp32 or bf16) in
-    ``layout``, any strides, on one card; w [H, M, O] (cast to x's dtype and
-    made contiguous here: it is small). Returns a contiguous tensor in x's
-    dtype and ``layout``."""
+    ``layout``, any strides, on one card; w [H, M, O] (cast to x's dtype, and
+    in bf16 packed by ``pack_weight`` for the mma.sync kernel where
+    ``contraction_plan`` has a plan, else made contiguous for the tile
+    kernel: it is small). Returns a contiguous tensor in x's dtype and
+    ``layout``."""
     _check_operands("cin_cuda", layout, x, y)
     b, h, k = _bok(x, layout).shape
     m = _bok(y, layout).shape[1]
@@ -129,12 +197,20 @@ def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         return out
     if h * m >= 2**31 or b * k >= 2**31:
         raise ValueError(f"cin_cuda: B*K={b * k} or H*M={h * m} exceeds the kernel's extents")
+    plan = contraction_plan(h, m, o) if x.dtype == torch.bfloat16 else None
     lib = build.load("cin", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.rectpu_cin(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                             b, h, m, o, k, *_strides(x, layout), *_strides(y, layout),
-                             *_strides(out, layout), int(x.dtype == torch.bfloat16), stream)
+        strides = (*_strides(x, layout), *_strides(y, layout), *_strides(out, layout))
+        if plan is not None:
+            wp = pack_weight(w2, *plan)
+            xv, copies = contraction_operand(x, layout)
+            err = lib.rectpu_cin_mma(xv.data_ptr(), y.data_ptr(), wp.data_ptr(), out.data_ptr(),
+                                     b, h, m, o, k, *xv.stride(), *strides[3:], *plan,
+                                     int(copies), stream)
+        else:
+            err = lib.rectpu_cin(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                                 b, h, m, o, k, *strides, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"cin kernel launch failed: cudaError {err}")
     launches.add()

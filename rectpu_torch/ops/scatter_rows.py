@@ -10,9 +10,11 @@ and so stands for three TPU kernels that compute this one function:
 ``scatter_impl="mxu"``) and ``_bwd_kernel`` (``rectpu/ops/embedding.py:81``,
 the backward of ``lookup_pallas``).
 
-  - On CUDA tensors: the hand-written kernel ``kernels/csrc/scatter_rows.cu``
-    after a stable sort of the ids (rectpu sorts outside its Pallas call too).
-    It is deterministic: two launches give the same bits.
+  - On CUDA tensors: the hand-written kernels of ``kernels/csrc/scatter_rows.cu``:
+    a stable LSD radix sort of the ids (8-bit digits, ``sort_passes(v_rows)``
+    passes; rectpu sorts outside its Pallas call too), then the sums of the
+    sorted stream in pieces of ``chunk`` positions. It is deterministic: two
+    launches give the same bits.
   - On CPU tensors: the plain version ``scatter_rows_plain``, an fp32
     ``index_add_``.
 
@@ -25,12 +27,15 @@ the sparse fast step's ``dedupe_rows`` (rectpu's ``jax.ops.segment_sum``,
 ``rectpu/train/sparse.py:104``), in a fixed order, so two launches give the
 same bits (an fp32 ``index_add_`` on the card sums duplicates with atomics).
 
-The chunk pass's chunk length is the kernel's launch geometry (rectpu's
-tile geometry, ``_AUTO_TILE`` / ``set_auto_tile``, :65-75): ``scatter_rows_dense``
-takes the pin ``_AUTO_CHUNK`` that the autotuner sets through
-``set_auto_chunk``; ``segment_sum`` keeps ``CHUNK``. Another chunk groups the
-fp32 partials differently, so the bits may differ between chunks, never
-between two launches at one chunk.
+The piece length ``chunk`` (positions of the sorted stream a warp sums) is
+the kernel's launch geometry (rectpu's tile geometry, ``_AUTO_TILE`` /
+``set_auto_tile``, :65-75): ``scatter_rows_dense`` takes the pin
+``_AUTO_CHUNK`` that the autotuner sets through ``set_auto_chunk``;
+``segment_sum`` keeps ``CHUNK``. Each run of equal ids is summed in
+position order within a piece, and a run that crosses piece edges adds its
+pieces' fp32 partials in piece order. Another chunk groups the partials
+differently, so the bits may differ between chunks, never between two
+launches at one chunk.
 
 One difference from rectpu: when a tile of its sorted stream holds more than
 ``capacity`` updates, rectpu's ``lax.cond`` fallback scatters with XLA and
@@ -49,8 +54,11 @@ from rectpu_torch.kernels import LaunchCount, build
 
 # out-of-range id that callers mask dropped rows to (rectpu's value)
 DROP_SENTINEL = 2**31 // 2 - 1
-# positions of the sorted stream per warp of the chunk pass
+# positions of the sorted stream a warp sums (a piece)
 CHUNK = 32
+# the radix sort: bits a pass and positions a tile (kRadixBits, kRadixTile)
+RADIX_BITS = 8
+RADIX_TILE = 4096
 # the chunk scatter_rows_dense launches with (the autotuner's pick)
 _AUTO_CHUNK = {"chunk": CHUNK}
 
@@ -60,9 +68,11 @@ segment_launches = LaunchCount("segment_sum")
 _DTYPES = (torch.float32, torch.bfloat16)
 _SIGNATURES = {
     "rectpu_scatter_rows": (
-        [ctypes.c_void_p] * 7
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "rectpu_segment_sum": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -86,13 +96,28 @@ def set_auto_chunk(chunk: int) -> None:
     _AUTO_CHUNK["chunk"] = int(chunk)
 
 
+def sort_passes(v_rows: int) -> int:
+    """8-bit radix passes the sort needs for keys 0..v_rows (an id outside
+    [0, v_rows) takes the key v_rows, which sorts last): 2 at ml-100k's 6,144
+    rows, 3 at the flagship's 311,296. A function of the table's size only."""
+    return max(1, -(-int(v_rows).bit_length() // RADIX_BITS))
+
+
+def sort_state_words(n: int, v_rows: int) -> int:
+    """int32 words of the sort's state: per pass 256 digit counts, a tile
+    ticket and 256 look-back words a 4,096-position tile. A function of the
+    stream's length and the table's size only."""
+    passes = sort_passes(v_rows)
+    return passes * (1 + 256 * (1 + -(-n // RADIX_TILE)))
+
+
 def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
                       out_dtype: torch.dtype | None = None,
                       chunk: int = CHUNK) -> torch.Tensor:
-    """Sort the ids and launch the scatter kernel: ids [R] int32, updates
-    [R, W] fp32 or bf16, both contiguous on one card; ``out_dtype`` fp32 or
-    bf16; ``chunk`` positions per warp of the chunk pass. Raises on anything
-    the kernel does not take."""
+    """Sort the ids and sum the updates by the kernels of scatter_rows.cu:
+    ids [R] int32, updates [R, W] fp32 or bf16, both contiguous on one card;
+    ``out_dtype`` fp32 or bf16; ``chunk`` positions a warp sums. Raises on
+    anything the kernels do not take."""
     if not (ids.is_cuda and updates.is_cuda and ids.device == updates.device):
         raise ValueError(f"scatter_rows_cuda needs ids and updates on one CUDA device, got "
                          f"{ids.device} and {updates.device}")
@@ -107,26 +132,28 @@ def scatter_rows_cuda(ids: torch.Tensor, updates: torch.Tensor, v_rows: int,
     if not (ids.is_contiguous() and updates.is_contiguous()):
         raise ValueError("scatter_rows_cuda needs contiguous ids and updates")
     n, w = updates.shape
-    if max(n, v_rows, w) >= 2**31 or v_rows < 0:
+    if max(n, v_rows, w) >= 2**31 or v_rows < 0 or n >= 2**30:
         raise ValueError(f"{n} updates of width {w} into {v_rows} rows exceed the kernel's "
-                         "int32 extents")
+                         "extents (R < 2^30, rows and width < 2^31)")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     out = torch.empty(v_rows, w, dtype=out_dtype, device=updates.device)
     if out.numel() == 0:
         return out
-    ids_sorted, order = torch.sort(ids, stable=True)
-    n_chunks = -(-n // chunk)
-    part_first = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
-    part_last = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
-    seg = torch.empty(v_rows, 2, dtype=torch.int32, device=updates.device)
+    dev = updates.device
+    sorted_pairs = torch.empty(4, n, dtype=torch.int32, device=dev)  # keys, positions x 2
+    state = torch.empty(sort_state_words(n, v_rows), dtype=torch.int32, device=dev)
+    n_pieces = -(-n // chunk)
+    part_first = torch.empty(n_pieces, w, dtype=torch.float32, device=dev)
+    part_last = torch.empty(n_pieces, w, dtype=torch.float32, device=dev)
     lib = build.load("scatter_rows", _SIGNATURES)
-    with torch.cuda.device(updates.device):
-        stream = torch.cuda.current_stream(updates.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rectpu_scatter_rows(
-            ids_sorted.data_ptr(), order.data_ptr(), updates.data_ptr(), out.data_ptr(),
-            part_first.data_ptr(), part_last.data_ptr(), seg.data_ptr(), n, v_rows, w, chunk,
-            int(updates.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), stream)
+            ids.data_ptr(), updates.data_ptr(), out.data_ptr(), sorted_pairs.data_ptr(),
+            state.data_ptr(), part_first.data_ptr(), part_last.data_ptr(), n, v_rows, w,
+            chunk, sort_passes(v_rows), int(updates.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
     launches.add()
@@ -160,7 +187,7 @@ def segment_sum_plain(seg: torch.Tensor, order: torch.Tensor, updates: torch.Ten
 
 def segment_sum_cuda(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tensor,
                      num_out: int) -> torch.Tensor:
-    """Launch the scatter kernel on a sorted stream: seg [R] int32
+    """Sum a sorted stream by the scatter's sum kernels: seg [R] int32
     nondecreasing (segment ordinals), order [R] int64 (the row of
     ``updates`` at each position), updates [n, W] fp32 or bf16, all
     contiguous on one card -> [num_out, W] fp32. Raises on anything the
@@ -185,17 +212,16 @@ def segment_sum_cuda(seg: torch.Tensor, order: torch.Tensor, updates: torch.Tens
     out = torch.empty(num_out, w, dtype=torch.float32, device=updates.device)
     if out.numel() == 0:
         return out
-    n_chunks = -(-n // CHUNK)
-    part_first = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
-    part_last = torch.empty(n_chunks, w, dtype=torch.float32, device=updates.device)
-    spans = torch.empty(num_out, 2, dtype=torch.int32, device=updates.device)
+    n_pieces = -(-n // CHUNK)
+    part_first = torch.empty(n_pieces, w, dtype=torch.float32, device=updates.device)
+    part_last = torch.empty(n_pieces, w, dtype=torch.float32, device=updates.device)
     lib = build.load("scatter_rows", _SIGNATURES)
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
-        err = lib.rectpu_scatter_rows(
+        err = lib.rectpu_segment_sum(
             seg.data_ptr(), order.data_ptr(), updates.data_ptr(), out.data_ptr(),
-            part_first.data_ptr(), part_last.data_ptr(), spans.data_ptr(), n, num_out, w,
-            CHUNK, int(updates.dtype == torch.bfloat16), 0, stream)
+            part_first.data_ptr(), part_last.data_ptr(), n, num_out, w, CHUNK,
+            int(updates.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError {err}")
     segment_launches.add()

@@ -242,3 +242,106 @@ def test_emulated_dw_tiling_matches_plain(b, k):
     mag = torch.einsum("bhmk,bok->hmo", z, gt.double().abs()).numpy()
     np.testing.assert_array_less(np.abs(got.numpy() - want.numpy()),
                                  2 * b * k * 2.0 ** -24 * mag + 1e-30)
+
+
+# --- the bf16 contraction kernel's tiling, held on the CPU --------------------
+
+
+def test_contraction_plan_fits_each_zoo_call():
+    """The plan of each of the xDeepFM zoo step's six contraction calls, (H',
+    M', O') of CIN (64, 64) over 26 fields: m padded to 32 (64 where M' = 64),
+    the widest column group whose packed W fits in shared memory with the
+    warps' tiles (O' = 26 rounds up to 32, not to 64), and no plan where
+    M' > 64 (such shapes take the tile kernel)."""
+    plans = {(26, 26, 64): (32, 8, 1), (64, 26, 26): (32, 4, 1), (64, 26, 64): (32, 4, 2),
+             (64, 64, 26): (64, 2, 2)}
+    for shape, plan in plans.items():
+        assert t_cin.contraction_plan(*shape) == plan, shape
+        mp, nt, _ = plan
+        assert t_cin.contraction_smem(shape[0], mp, nt) <= 227 * 1024
+        assert t_cin.contraction_smem(shape[0], mp, 2 * nt) > 227 * 1024 or 8 * nt >= shape[2]
+    assert t_cin.contraction_plan(64, 65, 64) is None
+    assert t_cin.contraction_plan(3, 4, 2) == (32, 1, 1)
+
+
+def test_pack_weight_lays_out_the_column_groups():
+    """pack_weight(w)[g, c, h * mp + m] = w[h, m, 8 nt g + c] from any
+    strides, zero for m >= M and for columns past O."""
+    w = torch.randn(5, 3, 26).permute(1, 2, 0)  # [3, 26, 5]: a permuted view, as dx passes
+    wp = t_cin.pack_weight(w, 32, 2, 2)
+    assert wp.shape == (2, 16, 3 * 32) and wp.is_contiguous()
+    full = wp.reshape(32, 3, 32)
+    assert torch.equal(full[:5, :, :26], w.permute(2, 0, 1))
+    assert not full[5:].any() and not full[:, :, 26:].any()
+
+
+def _cin_emulated(x, y, w):
+    """The bf16 mma.sync kernel's walk in plain PyTorch, [B, *, K] operands:
+    rows r = (b, k); W packed by pack_weight for contraction_plan; for each
+    h, for each k16 step of m (padded to mp), the A fragment round(x[r, h] *
+    y[r, m]) in bf16 (zero past M) times the group's B slice, summed into
+    fp32 accumulators in (h, step) order; the result rounded to bf16."""
+    b, h, k = x.shape
+    m, o = y.shape[1], w.shape[2]
+    mp, nt, groups = t_cin.contraction_plan(h, m, o)
+    wp = t_cin.pack_weight(w.to(x.dtype), mp, nt, groups).float()  # [groups, 8 nt, h * mp]
+    xr = x.transpose(1, 2).reshape(b * k, h)
+    yr = torch.zeros(b * k, mp, dtype=x.dtype)
+    yr[:, :m] = y.transpose(1, 2).reshape(b * k, m)
+    out = torch.zeros(b * k, groups * 8 * nt)
+    for g in range(groups):
+        acc = torch.zeros(b * k, 8 * nt)
+        for hh in range(h):
+            for ks in range(mp // 16):
+                a = (xr[:, hh, None] * yr[:, 16 * ks:16 * ks + 16]).float()  # rounded to bf16
+                bslice = wp[g, :, hh * mp + 16 * ks:hh * mp + 16 * ks + 16]  # [8 nt, 16]
+                acc += (a.double() @ bslice.double().T).float()
+        out[:, g * 8 * nt:(g + 1) * 8 * nt] = acc
+    return out[:, :o].to(x.dtype).reshape(b, k, o).transpose(1, 2)
+
+
+@pytest.mark.parametrize("call", ["forward", "dx", "dy"])
+def test_emulated_contraction_tiling_matches_plain(call):
+    """The emulated walk of the three calls of a layer with H=64, M=26, O=26
+    (forward (H', M', O') = (64, 26, 26), dx (26, 26, 64), dy (26, 64, 26):
+    O' = 26 in a 32-wide group, M' = 64 padded to 64), B*K = 60 rows, off the
+    kernel's 32-row tile: within the fp32 bound of its sum order of
+    cin_plain, and of rectpu's _cin_pallas ("flat", interpret mode)."""
+    b, h, m, o, k = 5, 64, 26, 26, 12
+    (xj, xt), (yj, yt), (wj, wt), (gj, gt) = _arrays("bfloat16", 11, (b, h, k), (b, m, k),
+                                                      (h, m, o), (b, o, k), scale=0.8)
+    a, c, ww, aj, cj, wwj = {
+        "forward": (xt, yt, wt, xj, yj, wj),
+        "dx": (gt, yt, wt.permute(2, 1, 0), gj, yj, jnp.transpose(wj, (2, 1, 0))),
+        "dy": (gt, xt, wt.permute(2, 0, 1), gj, xj, jnp.transpose(wj, (2, 0, 1))),
+    }[call]
+    got = _cin_emulated(a, c, ww)
+    want = t_cin.cin_plain(a, c, ww)
+    ref = _np(_cin_pallas(aj, cj, wwj, interpret=True, tile_b=8, variant="flat"))
+    assert got.shape == want.shape == ref.shape and got.dtype == torch.bfloat16
+    tol = _tol(_mag(a, c, ww), ww.shape[0] * ww.shape[1], _np(want), "bfloat16")
+    np.testing.assert_array_less(np.abs(_np(got) - _np(want)), tol)
+    np.testing.assert_array_less(np.abs(_np(got) - ref), tol + BF16_REL_ULP * np.abs(ref))
+
+
+def test_contraction_operand_lays_out_16_byte_runs():
+    """In bf16 with K a multiple of 32 the contraction kernel stages x with
+    16-byte copies: an aligned [B, H, K] x (and the K-major view of such
+    memory) passes as it is, the model's x0 = looked[..., :K] (rows K+1
+    apart) and K-major memory are copied into contiguous [B, H, K] tensors
+    of the same values. With K=24 or in fp32, x passes in place, for element
+    loads."""
+    bf = torch.bfloat16
+    x = torch.randn(3, 26, 64).to(bf)
+    xv, copies = t_cin.contraction_operand(x, "legacy")
+    assert copies and xv is x
+    looked = torch.randn(3, 26, 65).to(bf)[..., :64]
+    xv, copies = t_cin.contraction_operand(looked, "legacy")
+    assert copies and xv.is_contiguous() and torch.equal(xv, looked)
+    xv, copies = t_cin.contraction_operand(x.transpose(1, 2), "kmajor")
+    assert copies and xv.data_ptr() == x.data_ptr() and torch.equal(xv, x)
+    xv, copies = t_cin.contraction_operand(x.transpose(1, 2).contiguous(), "kmajor")
+    assert copies and xv.is_contiguous() and torch.equal(xv, x)
+    for arg in (x[..., :24], x.float()):
+        xv, copies = t_cin.contraction_operand(arg, "legacy")
+        assert not copies and xv is arg

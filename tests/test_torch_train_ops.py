@@ -10,6 +10,9 @@ themselves run only on the card: ``chip_smoke.py`` holds them against these
 plain versions there.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +106,167 @@ def test_scatter_plain_matches_scatter_rows_dense(dtype):
     assert untouched.any() and not got[torch.from_numpy(untouched)].any()
     # the dispatcher takes the plain version for CPU tensors
     assert torch.equal(t_scatter.scatter_rows_dense(torch.from_numpy(ids), upd_t, v_rows), got)
+
+
+def _radix_sorted(ids: np.ndarray, v_rows: int, tile: int = t_scatter.RADIX_TILE):
+    """The kernels' LSD radix sort in numpy: ids outside [0, v_rows) take the
+    key v_rows; each of sort_passes(v_rows) 8-bit passes places a position at
+    (keys with a smaller digit) + (its digit in earlier tiles of ``tile``
+    positions: the look-back) + (its digit earlier in its tile: the warp ranks
+    and the per-warp bases, all in position order). Returns (keys, positions)."""
+    n = ids.shape[0]
+    keys = np.where((ids >= 0) & (ids < v_rows), ids, v_rows).astype(np.int64)
+    pos = np.arange(n)
+    for p in range(t_scatter.sort_passes(v_rows)):
+        digit = (keys >> (t_scatter.RADIX_BITS * p)) & 255
+        hist = np.bincount(digit, minlength=256)
+        below = np.cumsum(hist) - hist
+        earlier_tiles = np.zeros(256, np.int64)
+        dst = np.empty(n, np.int64)
+        for t0 in range(0, n, tile):
+            in_tile = np.zeros(256, np.int64)
+            for i in range(t0, min(t0 + tile, n)):
+                d = digit[i]
+                dst[i] = below[d] + earlier_tiles[d] + in_tile[d]
+                in_tile[d] += 1
+            earlier_tiles += in_tile
+        keys_out, pos_out = np.empty_like(keys), np.empty_like(pos)
+        keys_out[dst], pos_out[dst] = keys, pos
+        keys, pos = keys_out, pos_out
+    return keys, pos
+
+
+def _pieces_summed(keys, pos, upd: torch.Tensor, v_rows: int, chunk: int, out_dtype):
+    """The kernels' sums of the sorted stream in plain PyTorch: pieces of
+    ``chunk`` positions; each run of equal keys summed in fp32 in position
+    order; a run inside a piece written at once, a run cut by a piece edge
+    kept as the piece's first or last partial; then each cut run's partials
+    added in piece order, from its first piece's. Keys outside [0, v_rows)
+    add nothing."""
+    n, w = upd.shape
+    u, out = upd.float(), torch.zeros(v_rows, w)
+    first, last = {}, {}
+    for c in range(-(-n // chunk)):
+        lo, hi = c * chunk, min(c * chunk + chunk, n)
+        s = lo
+        while s < hi:
+            key, acc, e = keys[s], torch.zeros(w), s
+            while e < hi and keys[e] == key:
+                acc += u[pos[e]]
+                e += 1
+            if 0 <= key < v_rows:
+                starts = s > lo or lo == 0 or keys[lo - 1] != key
+                ends = e < hi or hi == n or keys[hi] != key
+                if starts and ends:
+                    out[key] = acc
+                if not starts:
+                    first[c] = acc
+                if not ends:
+                    last[c] = acc
+            s = e
+    for c, acc in last.items():
+        key, lo = keys[c * chunk + chunk - 1], c * chunk
+        if lo > 0 and keys[lo] == key and keys[lo - 1] == key:
+            continue  # a middle piece: the run started before it
+        total, p = acc.clone(), c + 1
+        while True:
+            total += first[p]
+            end = (p + 1) * chunk
+            if end >= n or keys[end] != key:
+                break
+            p += 1
+        out[key] = total
+    return out.to(out_dtype)
+
+
+def _scatter_case(case: str, rng):
+    """(ids [R] int32, width, v_rows) of the streams the kernels must order
+    and cut: a hot row holding most positions (a 2-row field's, as ml-100k's
+    genre flags), rows no id touches with DROP_SENTINEL and ids past either
+    end, no update at all, and the reference default's narrow rows (K=4: the
+    packed W=5, and W=4)."""
+    if case == "hot":
+        ids = np.where(rng.random(700) < 0.8, 3, rng.integers(0, 64, 700))
+        return ids.astype(np.int32), 65, 64
+    if case == "dropped":
+        ids = np.concatenate([rng.integers(0, 40, 400), [DROP_SENTINEL] * 5,
+                              [-1, 256, 10**6, -2**31, 2**31 - 1]])
+        rng.shuffle(ids)
+        return ids.astype(np.int32), 65, 256
+    if case == "empty":
+        return np.zeros(0, np.int32), 65, 64
+    width = 5 if case == "narrow5" else 4
+    ids = np.stack([rng.integers(0, 2, 300), 2 + rng.integers(0, 2, 300),
+                    4 + rng.integers(0, 50, 300)], axis=1).reshape(-1)
+    return ids.astype(np.int32), width, 64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["hot", "dropped", "empty", "narrow4", "narrow5"])
+def test_emulated_scatter_order_and_pieces_match_rectpu(case, dtype):
+    """The kernels' walk emulated (the radix sort with 64-position tiles, so
+    several tiles run the look-back's prefix; pieces of 16 positions, so hot
+    runs cross many pieces) equals the stable sort of the ids, and its sums
+    match rectpu's scatter_rows_dense (interpret mode) and the plain version
+    within _sum_tolerance; untouched rows are exactly zero."""
+    rng = np.random.default_rng({"hot": 1, "dropped": 2, "empty": 3}.get(case, 4))
+    ids, w, v_rows = _scatter_case(case, rng)
+    keys, pos = _radix_sorted(ids, v_rows, tile=64)
+    mapped = np.where((ids >= 0) & (ids < v_rows), ids, v_rows)
+    np.testing.assert_array_equal(pos, np.argsort(mapped, kind="stable"))
+    np.testing.assert_array_equal(keys, mapped[pos])
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    upd_j = jnp.asarray(rng.normal(size=(ids.shape[0], w)).astype(np.float32), jdt)
+    upd_t = to_tensor(np.asarray(upd_j))
+    got = _pieces_summed(keys, pos, upd_t, v_rows, 16, upd_t.dtype)
+    plain = t_scatter.scatter_rows_plain(torch.from_numpy(ids), upd_t, v_rows)
+    upd_f = np.asarray(upd_j, np.float32)
+    if ids.shape[0]:
+        capacity = -(-ids.shape[0] // 8) * 8  # no tile overflows: rectpu's fp32 path
+        # rectpu takes ids in [0, v_rows) or past the table: a negative id
+        # sorts before its tile 0 and shifts the tiles' windows (ROADMAP C),
+        # so its side gets DROP_SENTINEL, which it drops, in place of one
+        jids = np.where(ids < 0, DROP_SENTINEL, ids).astype(np.int32)
+        want = np.asarray(scatter_rows_dense(jnp.asarray(jids), upd_j, v_rows, tile_rows=64,
+                                             capacity=capacity, out_dtype=jdt, interpret=True),
+                          np.float32)
+    else:
+        want = np.zeros((v_rows, w), np.float32)
+    tol = _sum_tolerance(ids, upd_f, v_rows, dtype == "bfloat16", want)
+    assert got.dtype == upd_t.dtype and got.shape == (v_rows, w)
+    assert np.all(np.abs(_np(got) - want) <= tol)
+    assert np.all(np.abs(_np(got) - _np(plain)) <= tol)
+    touched = np.bincount(ids[(ids >= 0) & (ids < v_rows)].astype(np.int64), minlength=v_rows)
+    assert not got[torch.from_numpy(touched == 0)].any()
+
+
+def test_sort_plan_depends_on_the_shapes_alone():
+    """The wrapper's plan (passes of the radix sort, the state it zeroes, the
+    pieces) is a function of R and v_rows: enough 8-bit passes for the
+    sentinel key v_rows, 256 counts, a ticket and 256 look-back words a
+    4,096-position tile a pass. The order it yields depends on the ids
+    alone (the emulated sort is the stable argsort, whatever the tile)."""
+    assert [t_scatter.sort_passes(v) for v in (1, 255, 256, 6144, 311_296, 2**31 - 2)] == \
+        [1, 1, 2, 2, 3, 4]
+    assert t_scatter.sort_state_words(106_496, 6144) == 2 * (1 + 256 * (1 + 26))
+    assert t_scatter.sort_state_words(0, 6144) == 2 * (1 + 256)
+    rng = np.random.default_rng(5)
+    ids = rng.integers(-3, 300, 1000).astype(np.int32)
+    ref = _radix_sorted(ids, 280, tile=1000)
+    for tile in (7, 64, 333):
+        got = _radix_sorted(ids, 280, tile=tile)
+        np.testing.assert_array_equal(got[0], ref[0])
+        np.testing.assert_array_equal(got[1], ref[1])
+
+
+def test_scatter_ctypes_signatures_match_the_c_entries():
+    """The wrappers hand each C entry of kernels/csrc/scatter_rows.cu as many
+    arguments as it declares (ctypes would refuse the call on the card only)."""
+    text = (Path(t_scatter.__file__).resolve().parent.parent / "kernels" / "csrc"
+            / "scatter_rows.cu").read_text()
+    for fn, (argtypes, _) in t_scatter._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+        assert m and len(argtypes) == len(m.group(1).split(",")), fn
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
