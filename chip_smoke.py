@@ -39,7 +39,10 @@ failed check raises, and the script exits nonzero without the final line:
    strided views (and K-major memory at K=12, 24); the CIN weight gradient at the same shapes (1, 2
    and 128 slices) against an fp64 oracle built in 512-row blocks, within
    a per-element fp32 bound of the kernel's order and DW_REL_L2 relative L2,
-   and bitwise equal across two launches.
+   and bitwise equal across two launches; in fp32 (3xTF32 on the tensor
+   cores) the same checks and tolerances, and the largest error as a share
+   of its tolerance is printed. A contraction with M=80 (no mma.sync plan:
+   the tile kernel) in bf16 and fp32.
    The sparse fast step's kernels: the row set (scatter_rows_dma) with
    25,088 deduplicated rows (sentinels among them) into the full-width
    [6,000,640, 128] fp32 table and the [6,000,640, 256] m|v slab, fp32 and
@@ -85,7 +88,11 @@ failed check raises, and the script exits nonzero without the final line:
    a CPU copy of the port (dropout 0, same weights). Then the DLRM-flat and
    xDeepFM zoo steps (benchmarks/_bench_zoo.py:79-112, batch 8192): median
    wall, examples/s, launches per step, the device's busy time, and one
-   step's gradients against a CPU copy (xDeepFM on 512 rows).
+   step's gradients against a CPU copy (xDeepFM on 512 rows). Then the
+   xDeepFM zoo step in fp32 (fp32 towers, table cotangent and Adam slots,
+   the trainer CLIs' default type): the same numbers, the CIN kernels'
+   share of the busy time, and one step's gradients on 512 rows against a
+   CPU copy within FP32_GRAD_REL_L2 per leaf.
 6c. Sparse fast step at full width (benchmarks/_ablate_bigtable.py's
    run_sparse(packed=True, scatter_backend="dma"): DeepFM K=64 [256, 128],
    6,000,640-row table lane-padded to 128 columns, fp32 m|v slab [.., 256],
@@ -101,7 +108,8 @@ failed check raises, and the script exits nonzero without the final line:
    interaction, torch.bmm forming the full z, a superset of the work; for
    the row set, index_copy_ of the valid rows): the interaction in both
    product modes, the CIN contraction at the six call shapes of a xDeepFM
-   zoo step (bf16), the CIN weight gradient also with the model's strided y.
+   zoo step (bf16 and fp32; an fp32 row also gives the 3xTF32 route's
+   bound), the CIN weight gradient also with the model's strided y.
    The fast step's dedupe and lazy-Adam row update are timed whole beside
    them. The flat FM forward and backward at B=8192, F=26, K=64. Then the
    device operations of one scatter call (its sort and its sums) and of one
@@ -168,6 +176,8 @@ from rectpu_torch.utils.timing import event_ms
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+# fp32 products as 3xTF32: three TF32 products each at the dense TF32 rate (495)
+TF32X3_FLOPS = 495e12 / 3
 V_ROWS, WIDTH, FIELDS, K = 4224, 65, 26, 64  # served ml-100k table, flagship K
 
 # tolerances against the plain version / the CPU reference, with reasons
@@ -178,6 +188,9 @@ BF16_LOGIT_ATOL, BF16_LOGIT_RTOL = 2e-2, 1e-2  # bf16 activations may round one 
 FP32_EPS = 2.0 ** -24  # unit roundoff of fp32
 FM_BWD_RTOL = 1e-5  # fp32 S summed in another order; relative to |g| * sum_f |v|
 GRAD_REL_L2 = 1e-2  # card vs CPU gradient, relative L2 per leaf: ~2 bf16 ulps (2^-8)
+# the same for an fp32 step: fp32 sums in another order (cuBLAS, the CIN's
+# tensor-core sums and 3xTF32 products, within ~2^-20 of each term), no bf16
+FP32_GRAD_REL_L2 = 1e-4
 # cin_dw vs its fp64 oracle, relative L2: the kernel's fp32 sums run 4096-row
 # slices; on an H100 the bf16 tensor-core path truncates its fp32 adds, a
 # systematic shrink of ~4e-6, while one dropped row of 524,288 moves it ~1.4e-3
@@ -553,7 +566,9 @@ CIN_CASES = ((37, K), (128, K), (FLAGSHIP_BATCH, K), (37, 12), (37, 24))
 
 
 def check_zoo_kernels(dev, gen) -> dict:
-    errs = {"interaction": 0.0, "cin": 0.0, "cin_dw": 0.0, "cin_dw_rel_l2": 0.0}
+    errs = {"interaction": 0.0, "cin": 0.0, "cin_dw": 0.0, "cin_dw_rel_l2": 0.0,
+            "cin_fp32": 0.0, "cin_dw_fp32": 0.0, "cin_dw_fp32_rel_l2": 0.0,
+            "cin_fp32_of_tolerance": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for n, k in INTERACTION_CASES:
             for b in (1, 7, 512, FLAGSHIP_BATCH):
@@ -577,6 +592,7 @@ def check_zoo_kernels(dev, gen) -> dict:
 
     rows = slice(0, 512)  # the plain version forms the expansion: compare a slice at B=8192
     for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_fp32" if dtype == torch.float32 else ""
         for h in (FIELDS, CIN_O):
             w = (torch.randn(h, FIELDS, CIN_O, generator=gen)
                  * (2.0 / (h * FIELDS + CIN_O)) ** 0.5).to(dtype).to(dev)
@@ -605,7 +621,10 @@ def check_zoo_kernels(dev, gen) -> dict:
                         check(bool((err <= tol).all()),
                               f"cin {name} {dtype} {layout} H={h} B={b} K={k}: max err "
                               f"{err.max().item()}")
-                        errs["cin"] = max(errs["cin"], err.max().item())
+                        errs["cin" + sfx] = max(errs["cin" + sfx], err.max().item())
+                        if sfx:
+                            errs["cin_fp32_of_tolerance"] = max(errs["cin_fp32_of_tolerance"],
+                                                                (err / tol).max().item())
                     got = cin_ops.cin_dw_cuda(xa, ya, ga, layout)
                     again = cin_ops.cin_dw_cuda(xa, ya, ga, layout)
                     torch.cuda.synchronize()
@@ -615,30 +634,36 @@ def check_zoo_kernels(dev, gen) -> dict:
                                                  "two launches differ")
                     err, rel = check_dw(got, xa, ya, ga, layout,
                                         f"{dtype} {layout} H={h} B={b} K={k}")
-                    errs["cin_dw"] = max(errs["cin_dw"], err)
-                    errs["cin_dw_rel_l2"] = max(errs["cin_dw_rel_l2"], rel)
+                    errs["cin_dw" + sfx] = max(errs["cin_dw" + sfx], err)
+                    errs["cin_dw" + sfx + "_rel_l2"] = max(errs["cin_dw" + sfx + "_rel_l2"], rel)
         print(f"check: cin {dtype} H={FIELDS},{CIN_O} M={FIELDS} O={CIN_O} (B, K) in "
               f"{list(CIN_CASES)} (rows 0-511 against plain), forward and both transposed-"
               f"weight calls, legacy and K-major strided views (and K-major memory off K=64): "
               f"within tolerance (max abs err "
-              f"{errs['cin']:.3g}); cin_dw in 1, 2 and 128 slices within its per-element "
+              f"{errs['cin' + sfx]:.3g}); cin_dw in 1, 2 and 128 slices within its per-element "
               f"fp32 bound and {DW_REL_L2:g} relative L2 of the fp64 oracle, bitwise equal "
-              f"across launches (max abs err {errs['cin_dw']:.3g}, max relative L2 "
-              f"{errs['cin_dw_rel_l2']:.3g})")
-    # a bf16 contraction with M > 64 has no mma.sync plan (y's m values would
-    # not fit in registers): it takes the tile kernel, as fp32 does
-    x = torch.randn(37, 8, 12, generator=gen).to(torch.bfloat16).to(dev)
-    y = torch.randn(37, 80, 12, generator=gen).to(torch.bfloat16).to(dev)
-    w = (torch.randn(8, 80, 8, generator=gen) * 0.05).to(torch.bfloat16).to(dev)
-    check(cin_ops.contraction_plan(8, 80, 8) is None, "cin: M=80 should take the tile kernel")
-    got, want = cin_ops.cin_cuda(x, y, w), cin_ops.cin_plain(x, y, w)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs()
-    check(bool((err <= cin_tolerance(x, y, w, "legacy", want, 8 * 80)).all()),
-          f"cin bf16 M=80 (tile kernel): max err {err.max().item()}")
-    errs["cin"] = max(errs["cin"], err.max().item())
-    print(f"check: cin bf16 H=8 M=80 O=8 B=37 K=12 (no mma.sync plan: the tile kernel) within "
-          f"tolerance (max abs err {err.max().item():.3g})")
+              f"across launches (max abs err {errs['cin_dw' + sfx]:.3g}, max relative L2 "
+              f"{errs['cin_dw' + sfx + '_rel_l2']:.3g})")
+    print(f"check: cin float32 (3xTF32): largest error {errs['cin_fp32_of_tolerance']:.3g} of "
+          "its tolerance")
+    # a contraction with M > 64 has no mma.sync plan (y's m values would not
+    # fit in registers): it takes the tile kernel, in either type
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(37, 8, 12, generator=gen).to(dtype).to(dev)
+        y = torch.randn(37, 80, 12, generator=gen).to(dtype).to(dev)
+        w = (torch.randn(8, 80, 8, generator=gen) * 0.05).to(dtype).to(dev)
+        check(cin_ops.contraction_plan(8, 80, 8) is None
+              and cin_ops.contraction_plan_tf32(8, 80, 8) is None,
+              "cin: M=80 should take the tile kernel")
+        got, want = cin_ops.cin_cuda(x, y, w), cin_ops.cin_plain(x, y, w)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs()
+        check(bool((err <= cin_tolerance(x, y, w, "legacy", want, 8 * 80)).all()),
+              f"cin {dtype} M=80 (tile kernel): max err {err.max().item()}")
+        key = "cin" if dtype == torch.bfloat16 else "cin_fp32"
+        errs[key] = max(errs[key], err.max().item())
+        print(f"check: cin {dtype} H=8 M=80 O=8 B=37 K=12 (no mma.sync plan: the tile kernel) "
+              f"within tolerance (max abs err {err.max().item():.3g})")
     return errs
 
 
@@ -1237,7 +1262,9 @@ def profile_step(trainer, batch, reps: int = 5) -> dict:
     ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU
            and e.key.startswith("aten::")]
     host = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    cin = sum(e.self_device_time_total for e in events if "cin" in e.key) / reps / 1e3
     return {"device_busy_ms": busy if events else None,
+            "cin_device_ms": cin,
             "device_launches": sum(e.count for e in events) / reps,
             "top_kernels_ms": [(e.key[:60], e.self_device_time_total / reps / 1e3)
                                for e in top],
@@ -1259,9 +1286,10 @@ def check_flagship_grads(dev, gen, work: Path) -> dict:
     return grads_card_vs_cpu(card, cpu, batch, lambda m: flagship_trainer(m, work), "flagship")
 
 
-def grads_card_vs_cpu(card, cpu, batch: dict, make_trainer, label: str) -> dict:
+def grads_card_vs_cpu(card, cpu, batch: dict, make_trainer, label: str,
+                      rel_l2: float = GRAD_REL_L2) -> dict:
     """Loss and gradients of one step of the same model on the card and on
-    the CPU (the plain versions), held to GRAD_REL_L2 per leaf."""
+    the CPU (the plain versions), held to ``rel_l2`` per leaf."""
     out = {}
     grads = {}
     for name, model, b in (("cuda", card, batch),
@@ -1280,21 +1308,24 @@ def grads_card_vs_cpu(card, cpu, batch: dict, make_trainer, label: str) -> dict:
         g_card = grads["cuda"][k]
         rel = float((g_card - g_cpu).norm() / max(g_cpu.norm(), 1e-30))
         out["rel_l2"][k] = rel
-        check(rel <= GRAD_REL_L2, f"{label} grad {k}: relative L2 {rel:.3g} card vs CPU")
+        check(rel <= rel_l2, f"{label} grad {k}: relative L2 {rel:.3g} card vs CPU")
     return out
 
 
 # --- phase 6b: the DLRM and xDeepFM zoo steps --------------------------------
 
 
-def zoo_model(family: str, dropout: float, device, gen=None, params=None):
+def zoo_model(family: str, dropout: float, device, gen=None, params=None, fp32=False):
     """The scaled zoo configuration of benchmarks/_bench_zoo.py:79-112 (the
     310k-row hashed table, K=64, [256, 128], bf16 towers and table
     cotangent, flat layout, DLRM's [64] bottom MLP or xDeepFM's CIN (64, 64)
-    with a packed table), from ``params`` or a fresh seeded init."""
+    with a packed table), from ``params`` or a fresh seeded init; with
+    ``fp32``, fp32 towers and table cotangent (the trainer CLIs' default)."""
     cfg = TowerConfig(feature_set=bench_feature_set(), embedding_size=K,
-                      hidden_units=(256, 128), dropout=dropout, compute_dtype="bfloat16",
-                      table_grad_dtype="bfloat16", flat_layout=True, scatter_impl="mxu",
+                      hidden_units=(256, 128), dropout=dropout,
+                      compute_dtype=None if fp32 else "bfloat16",
+                      table_grad_dtype=None if fp32 else "bfloat16", flat_layout=True,
+                      scatter_impl="mxu",
                       table_padding=2048, packed_linear=family == "xdeep_fm")
     model = DLRMModel(cfg) if family == "dlrm" else XDeepFMModel(cfg)
     if params is None:
@@ -1304,31 +1335,40 @@ def zoo_model(family: str, dropout: float, device, gen=None, params=None):
     return load_params(model, params, device)
 
 
-def zoo_trainer(model, work: Path, batch: int) -> Trainer:
-    """The zoo's optimizer: Adam with bf16 m and stochastically rounded bf16 v."""
-    opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR})
+def zoo_trainer(model, work: Path, batch: int, fp32=False) -> Trainer:
+    """The zoo's optimizer: Adam with bf16 m and stochastically rounded bf16 v
+    (with ``fp32``, fp32 slots)."""
+    slots = None if fp32 else {"m": torch.bfloat16, "v": BF16_SR}
+    opt = adam(learning_rate=1e-3, slot_dtype=slots)
     device = next(model.parameters()).device
-    trainer = Trainer(model, opt, None, None, work / f"zoo_{model.name}_{device.type}",
+    tag = "_fp32" if fp32 else ""
+    trainer = Trainer(model, opt, None, None, work / f"zoo_{model.name}{tag}_{device.type}",
                       TrainConfig(batch_size=batch, seed=0), device=device)
     trainer.opt_state = opt.init(flat_params(model))
     return trainer
 
 
-def zoo_counters(family: str) -> tuple:
-    own = (int_ops.launches,) if family == "dlrm" else (cin_ops.launches, cin_ops.dw_launches)
+def zoo_counters(family: str, fp32=False) -> tuple:
+    if family == "dlrm":
+        own = (int_ops.launches,)
+    elif fp32:
+        own = (cin_ops.launches_fp32, cin_ops.dw_launches_fp32)
+    else:
+        own = (cin_ops.launches, cin_ops.dw_launches)
     return (emb_ops.launches, *own, scatter_ops.launches)
 
 
-def zoo_step(family: str, dev, gen, work: Path) -> dict:
+def zoo_step(family: str, dev, gen, work: Path, fp32=False) -> dict:
     """The zoo step on the card: median step time, launches per step, the
-    device's busy time."""
-    trainer = zoo_trainer(zoo_model(family, 0.1, dev, gen=gen), work, FLAGSHIP_BATCH)
+    device's busy time (and the CIN kernels' share of it)."""
+    trainer = zoo_trainer(zoo_model(family, 0.1, dev, gen=gen, fp32=fp32), work,
+                          FLAGSHIP_BATCH, fp32)
     rng = np.random.default_rng(6)
     batches = [flagship_batch(rng, dev) for _ in range(4)]
     for i in range(3):
         trainer.train_step(batches[i % 4], i)
     torch.cuda.synchronize()
-    counters = zoo_counters(family)
+    counters = zoo_counters(family, fp32)
     for c in counters:
         c.reset()
     times, losses = [], []
@@ -1351,13 +1391,16 @@ def zoo_step(family: str, dev, gen, work: Path) -> dict:
             "losses": losses, "profile": profile}
 
 
-def check_zoo_grads(family: str, dev, gen, work: Path, rows: int) -> dict:
+def check_zoo_grads(family: str, dev, gen, work: Path, rows: int, fp32=False) -> dict:
     """One step's gradients on the card against a CPU copy of the port, same
-    weights, same ``rows``-row batch, dropout 0 (see check_flagship_grads)."""
-    card = zoo_model(family, 0.0, dev, gen=gen)
-    cpu = zoo_model(family, 0.0, "cpu", params=params_tree(card))
+    weights, same ``rows``-row batch, dropout 0 (see check_flagship_grads);
+    in fp32 held to FP32_GRAD_REL_L2."""
+    card = zoo_model(family, 0.0, dev, gen=gen, fp32=fp32)
+    cpu = zoo_model(family, 0.0, "cpu", params=params_tree(card), fp32=fp32)
     batch = flagship_batch(np.random.default_rng(7), dev, rows=rows)
-    return grads_card_vs_cpu(card, cpu, batch, lambda m: zoo_trainer(m, work, rows), family)
+    return grads_card_vs_cpu(card, cpu, batch, lambda m: zoo_trainer(m, work, rows, fp32),
+                             family + (" fp32" if fp32 else ""),
+                             FP32_GRAD_REL_L2 if fp32 else GRAD_REL_L2)
 
 
 # --- phase 6c: the sparse fast step at full width --------------------------
@@ -1675,15 +1718,17 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
             gg = torch.randn(b, CIN_O, K, generator=gen).to(dtype).to(dev)
             flops = 2 * b * K * h * FIELDS * CIN_O
             # the step's three contraction calls of this layer: the forward,
-            # then (bf16, the zoo step's type) dx = cin(g, y, w^(2,1,0)) and
-            # dy = cin(g, x, w^(2,0,1)), whose (H', M', O') differ from it
-            calls = [("", xx, yy, w)]
-            if dtype == torch.bfloat16:
-                calls += [(" dx", gg, yy, w.permute(2, 1, 0)), (" dy", gg, xx, w.permute(2, 0, 1))]
+            # then dx = cin(g, y, w^(2,1,0)) and dy = cin(g, x, w^(2,0,1)),
+            # whose (H', M', O') differ from it
+            calls = [("", xx, yy, w), (" dx", gg, yy, w.permute(2, 1, 0)),
+                     (" dy", gg, xx, w.permute(2, 0, 1))]
             for call, a, c, ww in calls:
                 out_numel = b * ww.shape[2] * K
-                ms_b, by = bound((a.numel() + c.numel() + ww.numel() + out_numel) * es, flops,
-                                 peak)
+                nbytes = (a.numel() + c.numel() + ww.numel() + out_numel) * es
+                ms_b, by = bound(nbytes, flops, peak)
+                # fp32 on the tensor cores as 3xTF32: the bound of that route
+                tf32 = {} if dtype == torch.bfloat16 else {
+                    "bound_3xtf32_ms": bound(nbytes, flops, TF32X3_FLOPS)[0]}
                 rows.append({
                     "name": "cin", "dtype": name, "batch": b, "shape": f"H={h}{call}",
                     "call": f"(H', M', O') = {tuple(ww.shape)}",
@@ -1693,10 +1738,12 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                     "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,hmo->bok", a, c, ww),
                                            flush, iters=10),
                     "library": "torch.einsum of the same contraction",
-                    "bound_ms": ms_b, "bound_by": by,
+                    "bound_ms": ms_b, "bound_by": by, **tf32,
                 })
-            ms_b, by = bound((xx.numel() + yy.numel() + gg.numel()) * es
-                             + h * FIELDS * CIN_O * 4, flops, peak)
+            nbytes = (xx.numel() + yy.numel() + gg.numel()) * es + h * FIELDS * CIN_O * 4
+            ms_b, by = bound(nbytes, flops, peak)
+            tf32 = {} if dtype == torch.bfloat16 else {
+                "bound_3xtf32_ms": bound(nbytes, flops, TF32X3_FLOPS)[0]}
             rows.append({
                 "name": "cin_dw", "dtype": name, "batch": b, "shape": f"H={h}",
                 "ms": event_ms(lambda: cin_ops.cin_dw_cuda(xx, yy, gg), flush),
@@ -1705,10 +1752,10 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                 "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, yy, gg),
                                        flush, iters=10),
                 "library": "torch.einsum of the same contraction",
-                "bound_ms": ms_b, "bound_by": by,
+                "bound_ms": ms_b, "bound_by": by, **tf32,
             })
-            # y as the model hands it over (looked[..., :K], rows K+1 apart):
-            # the kernel stages it with element loads
+            # y as the model hands it over (looked[..., :K], rows K+1 apart),
+            # which the wrapper copies into 16-byte runs
             ys = torch.cat([yy, yy[..., :1]], dim=2)[..., :K]
             rows.append({
                 "name": "cin_dw", "dtype": name, "batch": b, "shape": f"H={h} y=looked[..., :K]",
@@ -1718,7 +1765,7 @@ def time_zoo_kernels(dev, gen) -> list[dict]:
                 "library_ms": event_ms(lambda: torch.einsum("bhk,bmk,bok->hmo", xx, ys, gg),
                                        flush, iters=10),
                 "library": "torch.einsum of the same contraction",
-                "bound_ms": ms_b, "bound_by": by,
+                "bound_ms": ms_b, "bound_by": by, **tf32,
             })
     return rows
 
@@ -1937,6 +1984,10 @@ KERNELS = {
                     "rectpu/ops/interaction.py:55, rectpu/ops/interaction.py:77"),
     "cin": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:70, rectpu/ops/cin.py:88"),
     "cin_dw": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:101"),
+    # the fp32 forms: 3xTF32 on mma.sync (cin_tf32_kernel, cin_dw_tf32_kernel)
+    "cin_fp32": ("rectpu_torch/kernels/csrc/cin.cu",
+                 "rectpu/ops/cin.py:70, rectpu/ops/cin.py:88"),
+    "cin_dw_fp32": ("rectpu_torch/kernels/csrc/cin.cu", "rectpu/ops/cin.py:101"),
     "scatter_rows_dma": ("rectpu_torch/kernels/csrc/scatter_dma.cu",
                          "rectpu/ops/scatter_dma.py:49"),
     # the dedupe's segment sum runs the scatter kernel on segment ordinals; in
@@ -2002,8 +2053,9 @@ def main(argv=None) -> int:
                   f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]} [{gpu}]")
         # DLRM (lookup + interaction) and xDeepFM (lookup + CIN) exports
         for family in ("dlrm", "xdeep_fm"):
-            own = int_ops.launches if family == "dlrm" else cin_ops.launches
             for compute, tag in (("bfloat16", "bf16"), (None, "fp32")):
+                own = (int_ops.launches if family == "dlrm" else
+                       cin_ops.launches if compute else cin_ops.launches_fp32)
                 label = f"{family}_k64_{tag}"
                 export_dir = make_zoo_export(work / label, family, compute, gen)
                 res = main_path[label] = serve_and_check(export_dir, label, args.seed, (1, 512),
@@ -2077,6 +2129,27 @@ def main(argv=None) -> int:
                   f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
                   f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
 
+        # 6b'. the xDeepFM zoo step in fp32 (the trainer CLIs' default type)
+        zoo = main_path["zoo_step_xdeep_fm_fp32"] = zoo_step("xdeep_fm", dev, gen, work, fp32=True)
+        prof = zoo["profile"]
+        busy = prof["device_busy_ms"]
+        share = ("not measured" if busy is None else
+                 f"{prof['cin_device_ms']:.4f} ms ({100 * prof['cin_device_ms'] / busy:.1f} %)")
+        print(f"zoo step xdeep_fm fp32 (_bench_zoo.py config with fp32 towers, table "
+              f"cotangent and Adam slots, batch {FLAGSHIP_BATCH}): median {zoo['step_ms']:.4f} "
+              f"ms, {zoo['examples_per_s']:.0f} examples/s; launches per step "
+              f"{zoo['launches_per_step']}; device busy "
+              f"{'not measured' if busy is None else f'{busy:.4f} ms'} per step in "
+              f"{prof['device_launches']:.0f} device launches, the CIN kernels {share}; top "
+              f"kernels {[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]}; host: "
+              f"{prof['host_aten_ops']:.0f} aten ops per step [{gpu}]")
+        grads = main_path["zoo_grads_xdeep_fm_fp32"] = check_zoo_grads(
+            "xdeep_fm", dev, gen, work, 512, fp32=True)
+        print(f"check: xdeep_fm fp32 zoo step gradients card vs CPU (512 rows): loss "
+              f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
+              f"(limit {FP32_GRAD_REL_L2:g}) "
+              f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
+
         # 6c. the sparse fast step at full width, against a CPU copy, and its CLI
         fast = main_path["fast_step"] = fast_step_full_width(dev, args.seed, work)
         busy = fast["profile"]["device_busy_ms"]
@@ -2132,9 +2205,12 @@ def main(argv=None) -> int:
         at = f"B={r['batch']}" if "batch" in r else f"rows={r.get('v_rows', r.get('updates'))}"
         if "mode" in r:
             at += f" {r['mode']} products"
-        print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {at}: kernel "
-              f"{r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
-              f"ms, library {lib} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{gpu}]")
+        tf32 = (f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in r
+                else "")
+        print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {r.get('call', '')} {at}: "
+              f"kernel {r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, library {lib} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){tf32} [{gpu}]")
 
     # launches: the serving path for the serving kernels, the trainer CLIs for
     # the training kernels (DeepFM's; DLRM's for the interaction, xDeepFM's for
@@ -2147,6 +2223,8 @@ def main(argv=None) -> int:
                 "interaction": main_path["train_cli_dlrm"]["launches"]["interaction"],
                 "cin": main_path["train_cli_xdeep_fm"]["launches"]["cin"],
                 "cin_dw": main_path["train_cli_xdeep_fm"]["launches"]["cin_dw"],
+                "cin_fp32": main_path["zoo_step_xdeep_fm_fp32"]["launches"]["cin_fp32"],
+                "cin_dw_fp32": main_path["zoo_step_xdeep_fm_fp32"]["launches"]["cin_dw_fp32"],
                 "scatter_rows_dma": main_path["fast_step"]["launches"]["scatter_rows_dma"],
                 "segment_sum": main_path["fast_step"]["launches"]["segment_sum"],
                 "fm_cross_flat": main_path["train_cli_autotune"]["launches"]["fm_cross_flat"],
@@ -2157,13 +2235,15 @@ def main(argv=None) -> int:
              "fused_adam": ("m bf16, v bf16-SR", "flagship"),
              "interaction": ("bfloat16", FLAGSHIP_BATCH), "cin": ("bfloat16", f"H={CIN_O}"),
              "cin_dw": ("bfloat16", f"H={CIN_O}"),
+             "cin_fp32": ("float32", f"H={CIN_O}"), "cin_dw_fp32": ("float32", f"H={CIN_O}"),
              "scatter_rows_dma": ("float32", "m|v C=256"), "segment_sum": ("float32", None),
              "fm_cross_flat": ("bfloat16", FLAGSHIP_BATCH),
              "fm_cross_flat_bwd": ("bfloat16", FLAGSHIP_BATCH)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         dtype, at = heads[name]
-        head = next(r for r in rows + train_rows if r["name"] == name and r["dtype"] == dtype
+        row_name = name.removesuffix("_fp32")
+        head = next(r for r in rows + train_rows if r["name"] == row_name and r["dtype"] == dtype
                     and (at is None or at in (r.get("batch"), r.get("shape")))
                     and r.get("mode", "rounded") == "rounded")
         kernels.append({
@@ -2172,6 +2252,7 @@ def main(argv=None) -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "dtype": dtype, "at": at,
+            **({"bound_3xtf32_ms": head["bound_3xtf32_ms"]} if "bound_3xtf32_ms" in head else {}),
         })
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -3,7 +3,9 @@
 //   dw:          dw[h, m, o]  = sum_{b, k} round(x[b, h, k] * y[b, m, k]) * g[b, o, k]
 // round() is to x's type; the sums are fp32; the contraction's result is
 // rounded to x's type, dw is fp32. These are the numerics of every rectpu form
-// (cin_core_xla and both Pallas variants).
+// (cin_core_xla and both Pallas variants); in fp32 each product of round(x*y)
+// with w or g is formed from three TF32 products, within about 3 * 2^-22 of
+// it (below).
 //
 // Replaces three TPU kernels:
 //   - rectpu/ops/cin.py::_cin_fwd_kernel (:70) and ::_cin_fwd_kernel_mloop
@@ -42,23 +44,30 @@
 // mma.sync's M, each warp forms its A fragments in registers from y (held
 // across the h loop) and x[r, h], and a persistent block stages its column
 // group of W once for ldmatrix.
-// Design of the contraction in fp32 (and in bf16 where M > 64 or no column
-// group of W fits in shared memory), and of dw in fp32: one block of 8 warps
-// computes a 128 x 64 output tile (contraction: 128 rows r by 64 columns o;
-// dw: 128 (h, m) by 64 o) and walks the reduction in chunks of 32.
-//   - contraction: the block stages its 128 rows' x[r, :] and y[r, :] in
-//     shared memory once (transposed, so a warp reads 32 neighbouring rows),
-//     then per chunk builds kr[128 x 32] in shared memory (each product
-//     rounded to x's type) and loads the matching W[32 x 64] slice, and
-//     multiplies them.
-//   - dw in fp32: block (s, j-tile, o-tile) reduces rows [s*slice_rows, ...)
-//     of its slice: per chunk of 32 rows it stages x, y and g, builds
-//     kr^T[128 x 32] and multiplies it with g[32 x 64].
-//   - the product of the two shared-memory tiles: for bf16, tensor cores
-//     through WMMA (m16n16k16, bf16 in, fp32 accumulate), which matches the
-//     numerics exactly, since kr is already rounded to bf16; for fp32, fp32
-//     FMAs on the CUDA cores, 8 x 4 outputs a thread (TF32 would round the
-//     operands). wgmma and TMA are later work.
+// Design of the fp32 contraction and dw (cin_tf32_kernel and
+// cin_dw_tf32_kernel, whose notes below have the details): the bf16 designs'
+// layouts on mma.sync.m16n8k8 in TF32, each fp32 factor split in two TF32
+// parts (3xTF32: lo*hi + hi*lo + hi*hi). The first fp32 design, the tile
+// kernel below on the CUDA cores, sat at 2.7-9x the 67 TFLOP/s fp32 bound
+// and was slower than torch.einsum for dw. The contraction streams the split
+// W by h through a ring of cp.async stages (in fp32 it cannot stay in shared
+// memory whole); dw splits each staged g chunk once for every warp and sums
+// each 64-row chunk from zero on the tensor cores.
+// Numerics of the fp32 forms: each product x*y is rounded to fp32, as
+// before; its product with w (or g) is within about 3 * 2^-22 of its
+// magnitude of the fp32 product (each split is within 2^-22, and every
+// TF32 x TF32 partial product is exact in fp32); sums are fp32.
+// The tile kernel (the first design): one block of 8 warps computes a
+// 128 x 64 output tile (128 rows r by 64 columns o) and walks the reduction
+// in chunks of 32: it stages its 128 rows' x[r, :] and y[r, :] in shared
+// memory once (transposed, so a warp reads 32 neighbouring rows), then per
+// chunk builds kr[128 x 32] in shared memory (each product rounded to x's
+// type), loads the matching W[32 x 64] slice, and multiplies them: in bf16
+// on the tensor cores through WMMA (m16n16k16, exact, since kr is rounded
+// to bf16), in fp32 on the CUDA cores, 8 x 4 outputs a thread. It runs the
+// contractions the mma.sync plans refuse, in either type: M > 64 (y's m
+// values would not fit in registers), and in bf16 no column group of W that
+// fits in shared memory.
 // Design of dw in bf16 (cin_dw_mma_kernel, whose note below has the details):
 // building kr^T in shared memory behind four barriers a 32-row chunk, with a
 // scalar load, a division and a modulo for every staged element, had held it
@@ -226,22 +235,6 @@ __host__ __device__ inline Layout contraction_layout(int h_dim, int m_dim) {
   return l;
 }
 
-// dw: A, B, C tiles; x^T [<=128 h][32], y^T [M][32]; the tile's (h, m) pairs
-// as two int32 tables, then three int64 row bases
-template <typename T>
-__host__ __device__ inline Layout dw_layout(int m_dim) {
-  Layout l;
-  l.a = 0;
-  l.b = l.a + align128(kTileRows * Ld<T>::a * static_cast<int>(sizeof(T)));
-  l.c = l.b + align128(kDepth * Ld<T>::b * static_cast<int>(sizeof(T)));
-  l.xs = l.c + align128(kTileCols * kLdc * static_cast<int>(sizeof(float)));
-  l.ys = l.xs + align128(kTileRows * kDepth * static_cast<int>(sizeof(T)));
-  l.idx = l.ys + align128(m_dim * kDepth * static_cast<int>(sizeof(T)));
-  l.total = l.idx + 2 * kTileRows * static_cast<int>(sizeof(int)) +
-            3 * kDepth * static_cast<int>(sizeof(int64_t));
-  return l;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cin_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ w,
@@ -332,104 +325,6 @@ cin_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict
       const int64_t b = r / k_dim;
       const int64_t k = r - b * k_dim;
       out[b * sob + o * soo + k * sok] = from_float<T>(c_tile[c * kLdc + r_local]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cin_dw_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ g,
-              float* __restrict__ partial, int n_b, int h_dim, int m_dim, int o_dim,
-              int k_dim, int64_t sxb, int64_t sxh, int64_t sxk, int64_t syb, int64_t sym,
-              int64_t syk, int64_t sgb, int64_t sgo, int64_t sgk, int slice_rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout l = dw_layout<T>(m_dim);
-  T* a_tile = reinterpret_cast<T*>(smem + l.a);
-  T* b_tile = reinterpret_cast<T*>(smem + l.b);
-  float* c_tile = reinterpret_cast<float*>(smem + l.c);
-  T* xs = reinterpret_cast<T*>(smem + l.xs);
-  T* ys = reinterpret_cast<T*>(smem + l.ys);
-  int* h_of = reinterpret_cast<int*>(smem + l.idx);  // local h (from h_lo), -1 past H*M
-  int* m_of = h_of + kTileRows;
-  int64_t* row_x = reinterpret_cast<int64_t*>(m_of + kTileRows);
-  int64_t* row_y = row_x + kDepth;
-  int64_t* row_g = row_y + kDepth;
-
-  const int tid = threadIdx.x;
-  const int64_t n_rows = static_cast<int64_t>(n_b) * k_dim;
-  const int slice = blockIdx.x;
-  const int j0 = blockIdx.y * kTileRows;
-  const int o0 = blockIdx.z * kTileCols;
-  const int hm = h_dim * m_dim;
-  const int h_lo = j0 / m_dim;
-  const int h_hi = min(h_dim - 1, (j0 + kTileRows - 1) / m_dim);
-  const int n_h = h_hi - h_lo + 1;  // at most kTileRows
-  const T zero = from_float<T>(0.0f);
-  const int64_t row_begin = static_cast<int64_t>(slice) * slice_rows;
-  const int64_t row_end = min(n_rows, row_begin + slice_rows);
-
-  for (int jj = tid; jj < kTileRows; jj += kThreads) {
-    const int j = j0 + jj;
-    h_of[jj] = j < hm ? j / m_dim - h_lo : -1;
-    m_of[jj] = j < hm ? j % m_dim : 0;
-  }
-
-  TileMma<T> mma;
-  mma.zero();
-  for (int64_t c0 = row_begin; c0 < row_end; c0 += kDepth) {
-    if (tid < kDepth) {
-      const int64_t r = c0 + tid;
-      const int64_t b = r / k_dim;
-      const int64_t k = r - b * k_dim;
-      const bool ok = r < row_end;
-      row_x[tid] = ok ? b * sxb + k * sxk : -1;
-      row_y[tid] = ok ? b * syb + k * syk : -1;
-      row_g[tid] = ok ? b * sgb + k * sgk : -1;
-    }
-    __syncthreads();
-    for (int i = tid; i < n_h * kDepth; i += kThreads) {
-      const bool rows_fast = sxk <= sxh;
-      const int rr = rows_fast ? i % kDepth : i / n_h;
-      const int hh = rows_fast ? i / kDepth : i % n_h;
-      xs[hh * kDepth + rr] = row_x[rr] >= 0 ? x[row_x[rr] + (h_lo + hh) * sxh] : zero;
-    }
-    for (int i = tid; i < m_dim * kDepth; i += kThreads) {
-      const bool rows_fast = syk <= sym;
-      const int rr = rows_fast ? i % kDepth : i / m_dim;
-      const int mm = rows_fast ? i / kDepth : i % m_dim;
-      ys[mm * kDepth + rr] = row_y[rr] >= 0 ? y[row_y[rr] + mm * sym] : zero;
-    }
-    for (int i = tid; i < kDepth * kTileCols; i += kThreads) {
-      const bool rows_fast = sgk <= sgo;
-      const int rr = rows_fast ? i % kDepth : i / kTileCols;
-      const int c = rows_fast ? i / kDepth : i % kTileCols;
-      const int o = o0 + c;
-      b_tile[rr * Ld<T>::b + c] =
-          (row_g[rr] >= 0 && o < o_dim) ? g[row_g[rr] + o * sgo] : zero;
-    }
-    __syncthreads();
-    // kr^T [128 (h, m)][32 rows]
-    for (int i = tid; i < kTileRows * kDepth; i += kThreads) {
-      const int rr = i % kDepth;
-      const int jj = i / kDepth;
-      const int hh = h_of[jj];
-      a_tile[jj * Ld<T>::a + rr] =
-          hh >= 0 ? rounded_product(xs[hh * kDepth + rr], ys[m_of[jj] * kDepth + rr]) : zero;
-    }
-    __syncthreads();
-    mma.step(a_tile, b_tile);
-    __syncthreads();
-  }
-  mma.store(c_tile);
-  __syncthreads();
-  // partial[slice, o, j], j fastest
-  for (int i = tid; i < kTileRows * kTileCols; i += kThreads) {
-    const int jj = i % kTileRows;
-    const int c = i / kTileRows;
-    const int j = j0 + jj;
-    const int o = o0 + c;
-    if (j < hm && o < o_dim) {
-      partial[(static_cast<int64_t>(slice) * o_dim + o) * hm + j] = c_tile[c * kLdc + jj];
     }
   }
 }
@@ -958,6 +853,443 @@ cin_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// --- fp32 on mma.sync: 3xTF32 ------------------------------------------------
+//
+// fp32 operands go through the tensor cores as three TF32 products. Each fp32
+// value v (a product x*y rounded to fp32, a W or a g value) is split as hi =
+// tf32(v), lo = tf32(v - hi) (cvt.rna: round to nearest, ties away; v - hi is
+// exact in fp32), so v = hi + lo within 2^-22 |v|; a product a*b is formed as
+// lo_a*hi_b + hi_a*lo_b + hi_a*hi_b (the small ones first), each exact in
+// fp32, within about 3 * 2^-22 |a*b| of the fp32 product. The sums are the
+// tensor cores' fp32 sums (mma.sync.m16n8k8, tf32 in, fp32 accumulate).
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// lo = tf32(v - hi) by the same rounding without cvt's test for infinities
+// and NaN (ptxas emits FSETP, IADD, LOP3 for cvt.rna.tf32.f32): v - hi is
+// finite wherever hi is
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = (__float_as_uint(__fsub_rn(v, __uint_as_float(hi))) + 0x1000u) & 0xffffe000u;
+}
+
+// d[16 x 8] += a[16 x 8] * b[8 x 8], tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b as lo_a * hi_b + hi_a * lo_b + hi_a * hi_b
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           const uint32_t* b_hi, const uint32_t* b_lo) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// 4 bytes from src, or 4 zero bytes when !full (an element copy, cached in L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// --- the fp32 contraction -----------------------------------------------------
+//
+// The bf16 kernel's layout (rows r = (b, k) as the mma's M, the reduction in
+// (h, m) order with m zero-padded to MP, o in groups of 8 NT columns; a warp
+// owns 32 rows, two m16 tiles, and keeps their y[r, m] in registers across
+// the h loop), on m16n8k8 and 3xTF32: per h and k8 step a thread forms its
+// 8 products x[r, h] * y[r, m] (rounded to fp32, as rectpu rounds them) and
+// splits them, and each split B fragment feeds six mma.sync.
+//   - k slots: the step's slots t and t + 4 of thread t (the mma's layout)
+//     hold m = 8 ks + 2t and 2t + 1, for A and B alike, so a thread's B
+//     values are neighbours in memory.
+//   - W: its split hi and lo planes take 16 KB (MP = 32) or 32 KB (MP = 64)
+//     per h for 64 columns, 1 MB at H' = 64, so the W of a group cannot stay
+//     in shared memory as it does in bf16. The wrapper packs W per call as
+//     [group][h][8 NT o][MP / 2][hi, hi, lo, lo] (ops/cin.py::
+//     pack_weight_tf32), and each block streams it by h through a ring of
+//     kTfStages stages by 16-byte cp.async, from L2 (W is read by every
+//     block). A stage also holds x[r, h] of the block's 256 rows, copied
+//     element by element (4-byte cp.async: any strides, zero past the last
+//     row). One barrier a stage; the copies of h + 1 .. h + 3 are in flight
+//     while h multiplies. A block holds every column of its group (all 64
+//     at O' <= 64), so each A fragment is formed once.
+//   - A staged W row is 2 MP + 16 floats: a thread reads hi and lo of its two
+//     m with one 16-byte load, and the 8 lanes of a quarter-warp hit 8
+//     distinct 16-byte bank groups.
+//   - out is written from the accumulators: 8 neighbouring rows (legacy) or
+//     2 neighbouring columns (K-major) fill a 32-byte sector.
+//   - m is padded, h is not, so the wrapper hands over x and y in the order
+//     with fewer padded products (ops/cin.py::swap_tf32: H' = 64, M' = 26
+//     runs as 26 h by 64 m, 19 % fewer mma; x*y rounds the same either way).
+constexpr int kTfStages = 4;
+constexpr int kTfRows = kCinWarps * kCinRows;  // 256 rows a block
+
+__host__ __device__ inline int tf32_stage_floats(int mp, int nt) {
+  return 8 * nt * (2 * mp + 16) + kTfRows;
+}
+
+__host__ __device__ inline int cin_tf32_smem(int mp, int nt) {
+  return kTfStages * tf32_stage_floats(mp, nt) * static_cast<int>(sizeof(float));
+}
+
+template <int MP, int NT>
+__global__ void __launch_bounds__(kCinThreads, 1)
+cin_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ wp, float* __restrict__ out, int n_b, int h_dim,
+                int m_dim, int o_dim, int k_dim, int64_t sxb, int64_t sxh, int64_t sxk,
+                int64_t syb, int64_t sym, int64_t syk, int64_t sob, int64_t soo, int64_t sok,
+                int n_groups) {
+  constexpr int kCols = 8 * NT;
+  constexpr int kSteps = MP / 8;       // k8 steps an h
+  constexpr int kPitch = 2 * MP + 16;  // floats a staged W row
+  constexpr int kWFloats = kCols * kPitch;
+  constexpr int kStage = kWFloats + kTfRows;
+  constexpr int kRuns = MP / 2;        // 16-byte runs a packed W row
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int group = blockIdx.x % n_groups;
+  const int64_t n_rows = static_cast<int64_t>(n_b) * k_dim;
+  const int64_t n_tiles = (n_rows + kTfRows - 1) / kTfRows;
+  const int64_t first = blockIdx.x / n_groups;
+  const int64_t tile_stride = gridDim.x / n_groups;
+  if (first >= n_tiles) return;  // block-uniform
+  const int64_t n_steps = ((n_tiles - 1 - first) / tile_stride + 1) * h_dim;
+  const float* wg = wp + static_cast<int64_t>(group) * h_dim * kCols * 2 * MP;
+
+  // the producer: step s = (tile, h) of this block, staged into slot s % kTfStages
+  int64_t p_tile = first;
+  int p_h = 0;
+  int64_t p_base = row_base(p_tile * kTfRows + threadIdx.x, n_rows, k_dim, sxb, sxk);
+  auto stage = [&](int64_t s) {
+    float* dst = ring + static_cast<int>(s % kTfStages) * kStage;
+    const float* src = wg + static_cast<int64_t>(p_h) * kCols * 2 * MP;
+    for (int i = threadIdx.x; i < kCols * kRuns; i += kCinThreads) {
+      const int row = i / kRuns;
+      cp_async16(dst + row * kPitch + 4 * (i - row * kRuns), src + 4 * i, true);
+    }
+    cp_async4(dst + kWFloats + threadIdx.x, p_base >= 0 ? x + p_base + p_h * sxh : x,
+              p_base >= 0);
+    if (++p_h == h_dim) {
+      p_h = 0;
+      p_tile += tile_stride;
+      p_base = row_base(p_tile * kTfRows + threadIdx.x, n_rows, k_dim, sxb, sxk);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTfStages - 1; ++s) {
+    if (s < n_steps) stage(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  float acc[2][NT][4];
+  float yv[2][kSteps][4];  // [m16 tile][k8 step][A register]: y of this thread's rows
+  int64_t tile = first;
+  int h = 0;
+  for (int64_t s = 0; s < n_steps; ++s) {
+    const int64_t r0 = tile * kTfRows + warp * kCinRows;
+    if (h == 0) {
+      const int64_t yb = row_base(r0 + lane, n_rows, k_dim, syb, syk);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int64_t base_a = __shfl_sync(0xffffffffu, yb, 16 * mt + g);
+        const int64_t base_b = __shfl_sync(0xffffffffu, yb, 16 * mt + g + 8);
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+          for (int reg = 0; reg < 4; ++reg) {
+            const int64_t base = reg & 1 ? base_b : base_a;
+            const int m = 8 * ks + 2 * t + (reg >> 1);
+            yv[mt][ks][reg] = base >= 0 && m < m_dim ? y[base + m * sym] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      }
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kTfStages - 2) : "memory");
+    __syncthreads();  // step s is in; every warp is done with step s - 1's slot
+    if (s + kTfStages - 1 < n_steps) stage(s + kTfStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const float* buf = ring + static_cast<int>(s % kTfStages) * kStage;
+    const float* xs = buf + kWFloats + warp * kCinRows;
+    float xv[2][2];  // x[r, h] of rows g and g + 8 of each m16 tile
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      xv[mt][0] = xs[16 * mt + g];
+      xv[mt][1] = xs[16 * mt + g + 8];
+    }
+    const float* b_lane = buf + g * kPitch + 4 * t;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      // A registers: rows g (0, 2) and g + 8 (1, 3); m = 8 ks + 2t (0, 1) and + 1 (2, 3)
+      uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int reg = 0; reg < 4; ++reg) {
+          split_tf32(__fmul_rn(xv[mt][reg & 1], yv[mt][ks][reg]), a_hi[mt][reg], a_lo[mt][reg]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 wv = *reinterpret_cast<const float4*>(b_lane + nt * 8 * kPitch + 16 * ks);
+        const uint32_t b_hi[2] = {__float_as_uint(wv.x), __float_as_uint(wv.y)};
+        const uint32_t b_lo[2] = {__float_as_uint(wv.z), __float_as_uint(wv.w)};
+        mma_3xtf32(acc[0][nt], a_hi[0], a_lo[0], b_hi, b_lo);
+        mma_3xtf32(acc[1][nt], a_hi[1], a_lo[1], b_hi, b_lo);
+      }
+    }
+
+    if (++h == h_dim) {  // the tile is done: acc[mt][nt] holds rows 16 mt + g (+8 for
+                         // elements 2, 3), columns 8 nt + 2t (+1 for elements 1, 3)
+      const int64_t ob = row_base(r0 + lane, n_rows, k_dim, sob, sok);
+      const int o0 = group * kCols;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int64_t base = __shfl_sync(0xffffffffu, ob, 16 * mt + g + 8 * half);
+          if (base < 0) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int o = o0 + 8 * nt + 2 * t + e;
+              if (o < o_dim) out[base + o * soo] = acc[mt][nt][2 * half + e];
+            }
+        }
+      h = 0;
+      tile += tile_stride;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// --- the fp32 weight gradient -------------------------------------------------
+//
+// cin_dw_mma_kernel's layout on m16n8k8 and 3xTF32: block (h-block, m-block,
+// o-block; slice) owns dw[h0 + 8) x [m0 + 32) x [o0 + 64) over its slice's
+// rows, warp w owns h = h0 + w, all 32 m and all 64 o; per 8 rows r a thread
+// forms its 8 products x[r, h] * y[r, m] (rounded to fp32) and splits them,
+// and splits each g fragment once for the two A fragments it feeds (six
+// mma.sync). k slots t and t + 4 of thread t hold rows 2t and 2t + 1 of the
+// 8, for A and B alike (8-byte loads). Rows are staged as [field][row]
+// tiles of kDwChunk rows in kDwStages buffers by cp.async: 16-byte copies
+// of 4-row runs where every operand's runs are 16 bytes, aligned
+// (ops/cin.py::dw_operands copies an operand such as the model's y =
+// looked[..., :K] into that form), 4-byte copies otherwise.
+// The tensor cores truncate their fp32 sums rather than round them, a bias
+// that grows with the length of a chain of mma on one accumulator (3 a k8
+// step here, where bf16 has 1 a k16 step), so each 64-row chunk is summed
+// from zero on the tensor cores (24 mma a chain) and the chunks by fp32 adds
+// rounded to nearest.
+constexpr int kDwTfPitch = kDwChunk + 8;  // 288 bytes: 32 modulo 128, no bank conflict
+constexpr int kDwTfStageFloats = (kDwH + kDwM + kDwO) * kDwTfPitch;
+constexpr int kDwTfSplitPitch = 2 * kDwChunk + 16;  // g split: [o][row pair][hi hi lo lo]
+constexpr int kDwTfRingSmem = kDwStages * kDwTfStageFloats * static_cast<int>(sizeof(float));
+constexpr int kDwTfSmem = kDwTfRingSmem + kDwO * kDwTfSplitPitch * static_cast<int>(sizeof(float));
+
+struct DwOperandF32 {
+  const float* p;
+  int64_t sb, sf, sk;
+  int n_f, row0;
+};
+
+__device__ __forceinline__ void dw_stage_f32(const DwOperandF32 (&ops)[3], float* dst, int64_t r0,
+                                             int64_t row_end, int k_dim, bool vec) {
+  const int tid = threadIdx.x;
+  if (!vec) {  // 4-byte copies: this thread's row rr, fields tid / 64 + 4i
+    const int rr = tid & (kDwChunk - 1);
+    const bool ok = r0 + rr < row_end;
+    const int r = ok ? static_cast<int>(r0 + rr) : 0;
+    const int b = r / k_dim;
+    const int k = r - b * k_dim;
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      const float* src = ops[o].p + b * ops[o].sb + k * ops[o].sk;
+      float* d = dst + ops[o].row0 * kDwTfPitch + rr;
+      for (int f = tid / kDwChunk; f < ops[o].n_f; f += kThreads / kDwChunk) {
+        cp_async4(d + f * kDwTfPitch, src + f * ops[o].sf, ok);
+      }
+    }
+    return;
+  }
+  // 16-byte copies: this thread's 4-row run q, fields tid / 16 + 16i
+  constexpr int kRuns = kDwChunk / 4;
+  const int q = tid & (kRuns - 1);
+  const bool ok = r0 + 4 * q < row_end;  // a run is whole: the row count is a multiple of 4
+  const int r = ok ? static_cast<int>(r0 + 4 * q) : 0;
+  const int b = r / k_dim;
+  const int k = r - b * k_dim;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const float* src = ops[o].p + b * ops[o].sb + k;
+    float* d = dst + ops[o].row0 * kDwTfPitch + 4 * q;
+    for (int f = tid / kRuns; f < ops[o].n_f; f += kThreads / kRuns) {
+      cp_async16(d + f * kDwTfPitch, src + f * ops[o].sf, ok);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+cin_dw_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   const float* __restrict__ g, float* __restrict__ partial, int n_b,
+                   int h_dim, int m_dim, int o_dim, int k_dim, int64_t sxb, int64_t sxh,
+                   int64_t sxk, int64_t syb, int64_t sym, int64_t syk, int64_t sgb,
+                   int64_t sgo, int64_t sgk, int slice_rows, bool vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  const int n_hb = (h_dim + kDwH - 1) / kDwH;
+  const int n_mb = (m_dim + kDwM - 1) / kDwM;
+  const int hb = blockIdx.x % n_hb;
+  const int mb = (blockIdx.x / n_hb) % n_mb;
+  const int ob = blockIdx.x / (n_hb * n_mb);
+  const int h0 = hb * kDwH, m0 = mb * kDwM, o0 = ob * kDwO;
+  const int slice = blockIdx.y;
+  const DwOperandF32 ops[3] = {
+      {x + h0 * sxh, sxb, sxh, sxk, min(kDwH, h_dim - h0), 0},
+      {y + m0 * sym, syb, sym, syk, min(kDwM, m_dim - m0), kDwH},
+      {g + o0 * sgo, sgb, sgo, sgk, min(kDwO, o_dim - o0), kDwH + kDwM}};
+  {  // zero every stage: padded rows (m, o, h past the extents) are never staged
+    float4* z = reinterpret_cast<float4*>(smem);
+    for (int i = threadIdx.x; i < kDwTfSmem / 16; i += kThreads) {
+      z[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  __syncthreads();
+
+  const int64_t n_rows = static_cast<int64_t>(n_b) * k_dim;
+  const int64_t row_begin = static_cast<int64_t>(slice) * slice_rows;
+  const int64_t row_end = min(n_rows, row_begin + slice_rows);
+  const int n_chunks =
+      row_end > row_begin ? static_cast<int>((row_end - row_begin + kDwChunk - 1) / kDwChunk) : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const bool active = h0 + warp < h_dim;  // warp-uniform
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int f = 0; f < 8; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][f][e] = 0.0f;
+
+#pragma unroll
+  for (int c = 0; c < kDwStages - 1; ++c) {
+    if (c < n_chunks) {
+      dw_stage_f32(ops, st + c * kDwTfStageFloats, row_begin + c * kDwChunk, row_end, k_dim, vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDwStages - 2) : "memory");
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1's buffer
+    const int cn = c + kDwStages - 1;
+    if (cn < n_chunks) {
+      dw_stage_f32(ops, st + (cn % kDwStages) * kDwTfStageFloats,
+                   row_begin + static_cast<int64_t>(cn) * kDwChunk, row_end, k_dim, vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* buf = st + (c % kDwStages) * kDwTfStageFloats;
+    // g of the chunk split once for every warp: gsplit[o][pair j] = hi, hi,
+    // lo, lo of rows 2j and 2j + 1
+    float* gsplit = st + kDwTfRingSmem / 4;
+    for (int i = threadIdx.x; i < kDwO * kDwChunk / 2; i += kThreads) {
+      const int o = i / (kDwChunk / 2);
+      const int j = i - o * (kDwChunk / 2);
+      const float2 v =
+          *reinterpret_cast<const float2*>(buf + (kDwH + kDwM + o) * kDwTfPitch + 2 * j);
+      uint32_t hi0, lo0, hi1, lo1;
+      split_tf32(v.x, hi0, lo0);
+      split_tf32(v.y, hi1, lo1);
+      *reinterpret_cast<uint4*>(gsplit + o * kDwTfSplitPitch + 4 * j) =
+          make_uint4(hi0, hi1, lo0, lo1);
+    }
+    __syncthreads();  // gsplit is whole
+    if (!active) continue;
+    const float* xs = buf + warp * kDwTfPitch + 2 * tq;
+    const float* ys = buf + (kDwH + gq) * kDwTfPitch + 2 * tq;
+    const float* gp = gsplit + gq * kDwTfSplitPitch + 4 * tq;
+    float part[2][8][4];  // this chunk's sums, from zero
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[a][f][e] = 0.0f;
+#pragma unroll 2
+    for (int r = 0; r < kDwChunk; r += 8) {
+      const float2 xv = *reinterpret_cast<const float2*>(xs + r);
+      float2 yv[4];  // m = m0 + gq + 8i
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        yv[i] = *reinterpret_cast<const float2*>(ys + i * 8 * kDwTfPitch + r);
+      }
+      // fragment a: m = m0 + 16a + gq (regs 0, 2) and + 8 (regs 1, 3); rows
+      // 2tq (regs 0, 1) and 2tq + 1 (regs 2, 3) of the 8
+      uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        split_tf32(__fmul_rn(xv.x, yv[2 * a].x), a_hi[a][0], a_lo[a][0]);
+        split_tf32(__fmul_rn(xv.x, yv[2 * a + 1].x), a_hi[a][1], a_lo[a][1]);
+        split_tf32(__fmul_rn(xv.y, yv[2 * a].y), a_hi[a][2], a_lo[a][2]);
+        split_tf32(__fmul_rn(xv.y, yv[2 * a + 1].y), a_hi[a][3], a_lo[a][3]);
+      }
+#pragma unroll
+      for (int f = 0; f < 8; ++f) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(gp + f * 8 * kDwTfSplitPitch + 2 * r);
+        const uint32_t b_hi[2] = {gv.x, gv.y};
+        const uint32_t b_lo[2] = {gv.z, gv.w};
+        mma_3xtf32(part[0][f], a_hi[0], a_lo[0], b_hi, b_lo);
+        mma_3xtf32(part[1][f], a_hi[1], a_lo[1], b_hi, b_lo);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][f][e] = __fadd_rn(acc[a][f][e], part[a][f][e]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!active) return;
+  // partial[slice, o, h * M + m]; acc[a][f]: m = m0 + 16a + gq (+8 for
+  // elements 2, 3), o = o0 + 8f + 2tq (+1 for elements 1, 3)
+  const int hm = h_dim * m_dim;
+  const int h = h0 + warp;
+  float* dst = partial + static_cast<int64_t>(slice) * o_dim * hm + h * m_dim;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 16 * a + gq + 8 * (e >> 1);
+        const int o = o0 + 8 * f + 2 * tq + (e & 1);
+        if (m < m_dim && o < o_dim) dst[static_cast<int64_t>(o) * hm + m] = acc[a][f][e];
+      }
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -1035,24 +1367,64 @@ cudaError_t launch_dw_sum(const void* partial, void* dw, int slices, int o_dim, 
   return cudaGetLastError();
 }
 
-// fp32: the CUDA-core tile kernel
+// fp32: the 3xTF32 mma.sync kernel
 int launch_dw_fp32(const void* x, const void* y, const void* g, void* partial, void* dw,
                    int n_b, int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s,
-                   int slices, int slice_rows, cudaStream_t stream) {
-  const int smem = dw_layout<float>(m_dim).total;
-  cudaError_t err = allow_smem(cin_dw_kernel<float>, smem);
+                   int slices, int slice_rows, bool vec, cudaStream_t stream) {
+  cudaError_t err = allow_smem(cin_dw_tf32_kernel, kDwTfSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int hm = h_dim * m_dim;
-  const dim3 grid(static_cast<unsigned>(slices),
-                  static_cast<unsigned>((hm + kTileRows - 1) / kTileRows),
-                  static_cast<unsigned>((o_dim + kTileCols - 1) / kTileCols));
-  cin_dw_kernel<float><<<grid, kThreads, smem, stream>>>(
+  // 16-byte copies only where every 4-row run of every operand is 16 bytes,
+  // aligned (ops/cin.py::dw_operands lays them out so)
+  auto runs = [k_dim](const void* p, int64_t sb, int64_t sf, int64_t sk) {
+    return sk == 1 && k_dim % 4 == 0 && sb % 4 == 0 && sf % 4 == 0 &&
+           (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  if (vec && !(runs(x, s[0], s[1], s[2]) && runs(y, s[3], s[4], s[5]) &&
+               runs(g, s[6], s[7], s[8]))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = static_cast<int64_t>((h_dim + kDwH - 1) / kDwH) *
+                        ((m_dim + kDwM - 1) / kDwM) * ((o_dim + kDwO - 1) / kDwO);
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(slices));
+  cin_dw_tf32_kernel<<<grid, kThreads, kDwTfSmem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(g),
       static_cast<float*>(partial), n_b, h_dim, m_dim, o_dim, k_dim, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], slice_rows);
+      s[4], s[5], s[6], s[7], s[8], slice_rows, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dw_sum(partial, dw, slices, o_dim, hm, stream));
+  return static_cast<int>(launch_dw_sum(partial, dw, slices, o_dim, h_dim * m_dim, stream));
+}
+
+template <int MP, int NT>
+int launch_cin_tf32_t(const void* x, const void* y, const void* wp, void* out, int n_b,
+                      int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s, int n_groups,
+                      cudaStream_t stream) {
+  const int smem = cin_tf32_smem(MP, NT);
+  cudaError_t err = allow_smem(cin_tf32_kernel<MP, NT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_tiles = (static_cast<int64_t>(n_b) * k_dim + kTfRows - 1) / kTfRows;
+  const int64_t fill = sm_count() / n_groups > 0 ? sm_count() / n_groups : 1;
+  const int64_t per_group = n_tiles < fill ? n_tiles : fill;
+  cin_tf32_kernel<MP, NT><<<static_cast<unsigned>(per_group * n_groups), kCinThreads, smem,
+                            stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y), static_cast<const float*>(wp),
+      static_cast<float*>(out), n_b, h_dim, m_dim, o_dim, k_dim, s[0], s[1], s[2], s[3], s[4],
+      s[5], s[6], s[7], s[8], n_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MP>
+int launch_cin_tf32_mp(int nt, const void* x, const void* y, const void* wp, void* out, int n_b,
+                       int h_dim, int m_dim, int o_dim, int k_dim, const int64_t* s,
+                       int n_groups, cudaStream_t stream) {
+  switch (nt) {
+    case 1: return launch_cin_tf32_t<MP, 1>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, stream);
+    case 2: return launch_cin_tf32_t<MP, 2>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, stream);
+    case 4: return launch_cin_tf32_t<MP, 4>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, stream);
+    case 8: return launch_cin_tf32_t<MP, 8>(x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s, n_groups, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // bf16: the mma.sync kernel
@@ -1086,6 +1458,7 @@ int launch_dw_bf16(const void* x, const void* y, const void* g, void* partial, v
 
 }  // namespace
 
+// The tile kernel (shapes the mma.sync plans refuse).
 // x: [n_b, h_dim, k_dim] with strides (sxb, sxh, sxk) in elements; y: [n_b,
 // m_dim, k_dim] with (syb, sym, syk); both fp32 or both bf16 (is_bf16). w:
 // [h_dim * m_dim, o_dim] contiguous, in the same type. out: [n_b, o_dim, k_dim]
@@ -1138,12 +1511,42 @@ extern "C" int rectpu_cin_mma(const void* x, const void* y, const void* wp, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The fp32 contraction on mma.sync (3xTF32). x, y, out as for rectpu_cin,
+// fp32, any strides; wp: W split and packed by ops/cin.py::pack_weight_tf32,
+// [n_groups][h_dim][8 nt][mp / 2][4] fp32 contiguous (hi, hi, lo, lo of two
+// neighbouring m), zero past m_dim and o_dim; mp 32 or 64 (>= m_dim), nt 1,
+// 2, 4 or 8 with n_groups * 8 * nt >= o_dim. Returns a cudaError_t as int.
+extern "C" int rectpu_cin_tf32(const void* x, const void* y, const void* wp, void* out,
+                               int n_b, int h_dim, int m_dim, int o_dim, int k_dim,
+                               long long sxb, long long sxh, long long sxk, long long syb,
+                               long long sym, long long syk, long long sob, long long soo,
+                               long long sok, int mp, int nt, int n_groups, void* stream) {
+  if (n_b == 0 || o_dim == 0 || k_dim == 0) return static_cast<int>(cudaSuccess);
+  if (h_dim < 1 || m_dim < 1 || m_dim > mp || n_groups < 1 ||
+      static_cast<int64_t>(n_groups) * 8 * nt < o_dim ||
+      (reinterpret_cast<uintptr_t>(wp) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t s[9] = {sxb, sxh, sxk, syb, sym, syk, sob, soo, sok};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mp == 32) {
+    return launch_cin_tf32_mp<32>(nt, x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                  n_groups, st);
+  }
+  if (mp == 64) {
+    return launch_cin_tf32_mp<64>(nt, x, y, wp, out, n_b, h_dim, m_dim, o_dim, k_dim, s,
+                                  n_groups, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // x, y as for rectpu_cin; g: [n_b, o_dim, k_dim] with (sgb, sgo, sgk), same
 // type. partial: [slices, o_dim, h_dim * m_dim] fp32 scratch; dw: [h_dim,
 // m_dim, o_dim] fp32 contiguous. Slice s reduces rows (b, k) with
 // b * k_dim + k in [s * slice_rows, (s + 1) * slice_rows), slice_rows a
-// multiple of 32. copy16 (bf16 only): stage x, y and g with 16-byte copies
-// (ops/cin.py::dw_operands). Returns a cudaError_t as int.
+// multiple of 32. copy16: stage x, y and g with 16-byte copies
+// (ops/cin.py::dw_operands; else element copies). bf16 runs
+// cin_dw_mma_kernel, fp32 cin_dw_tf32_kernel. Returns a cudaError_t as int.
 extern "C" int rectpu_cin_dw(const void* x, const void* y, const void* g, void* partial,
                              void* dw, int n_b, int h_dim, int m_dim, int o_dim, int k_dim,
                              long long sxb, long long sxh, long long sxk, long long syb,
@@ -1160,5 +1563,5 @@ extern "C" int rectpu_cin_dw(const void* x, const void* y, const void* g, void* 
   return is_bf16 ? launch_dw_bf16(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim, k_dim, s,
                                   slices, slice_rows, copy16 != 0, st)
                  : launch_dw_fp32(x, y, g, partial, dw, n_b, h_dim, m_dim, o_dim, k_dim, s,
-                                  slices, slice_rows, st);
+                                  slices, slice_rows, copy16 != 0, st);
 }

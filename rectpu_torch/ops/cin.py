@@ -17,14 +17,24 @@ so no [B, H, M, K] expansion and no cotangent of it is ever formed.
 operands, rectpu :264-303) compute the same function and run the same two
 kernels of ``kernels/csrc/cin.cu`` on CUDA tensors, with the layout passed as
 strides: the contraction (the port of the Pallas ``_cin_fwd_kernel``, :70,
-and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy (in bf16 on
-``mma.sync`` with the A operand built in registers and W packed here by
-``pack_weight`` as ``contraction_plan`` lays it out), and the
-weight gradient (``_cin_dw_kernel``, :101; in bf16 on ``mma.sync`` with the A
-operand built in registers, its operands laid out for 16-byte staging here
-by ``dw_operands``). On CPU tensors they run the plain
-versions ``cin_plain`` and ``cin_dw_plain``, which form the expansion and are
-meant for small CPU shapes only.
+and ``_cin_fwd_kernel_mloop``, :88) for the forward, dx and dy, and the
+weight gradient (``_cin_dw_kernel``, :101). Both run on ``mma.sync`` with the
+A operand built in registers from x and y: in bf16 with W packed here by
+``pack_weight`` as ``contraction_plan`` lays it out, and dw's operands laid
+out for 16-byte staging by ``dw_operands``; in fp32 as three TF32 products
+(3xTF32), with W split and packed here by ``pack_weight_tf32`` as
+``contraction_plan_tf32`` lays it out. A contraction with M > 64 takes the
+first design's tile kernel in either type. On CPU tensors they run the
+plain versions ``cin_plain`` and ``cin_dw_plain``, which form the expansion
+and are meant for small CPU shapes only.
+
+The fp32 numerics: each product x*y is rounded to fp32, exactly as rectpu
+rounds it; its product with w (or g) is formed by 3xTF32: each fp32 factor v
+is split as hi = tf32(v), lo = tf32(v - hi) (``tf32_round``: round to
+nearest, ties away from zero), so v = hi + lo within 2^-22 |v|, and lo*hi +
+hi*lo + hi*hi (each exact in fp32) is within about 3 * 2^-22 of the fp32
+product; the sums are fp32 (the tensor cores', which truncate, so dw sums
+each 64-row chunk from zero and adds the chunks rounded to nearest).
 
 rectpu pins its "auto" to "xla" even on the TPU (:199), a speed choice; the
 port has no XLA and no counterpart of that pin: on a CUDA tensor it always
@@ -41,8 +51,10 @@ from rectpu_torch.kernels import LaunchCount, build
 
 LAYOUTS = ("legacy", "kmajor")
 
-launches = LaunchCount("cin")
-dw_launches = LaunchCount("cin_dw")
+launches = LaunchCount("cin")  # bf16 contractions
+launches_fp32 = LaunchCount("cin_fp32")
+dw_launches = LaunchCount("cin_dw")  # bf16 weight gradients
+dw_launches_fp32 = LaunchCount("cin_dw_fp32")
 
 _LL = ctypes.c_longlong
 _SIGNATURES = {
@@ -62,12 +74,18 @@ _SIGNATURES["rectpu_cin_mma"] = (
     + [ctypes.c_void_p],
     ctypes.c_int,
 )
+_SIGNATURES["rectpu_cin_tf32"] = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [_LL] * 9 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
+    ctypes.c_int,
+)
 _DW_SLICE_ROWS = 4096  # rows (b, k) per dw partial: fixed, so the sum order is too
 _DW_MAX_SLICES = 128
 # the bf16 contraction's shared memory: the packed W slice of a column group
 # and, for each of 8 warps, two x tiles of its 32 rows and its rounded output
 _SMEM_MAX = 227 * 1024
 _WARPS, _ROWS, _W_PAD, _OUT_PITCH = 8, 32, 8, 40
+_TF32_STAGES = 4  # the fp32 contraction's ring of W (and x) stages, one h a stage
 
 
 def _bok(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -161,6 +179,70 @@ def pack_weight(w: torch.Tensor, mp: int, nt: int, groups: int) -> torch.Tensor:
     return wp.reshape(groups, 8 * nt, h * mp)
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 ``t`` rounded to TF32 (10 explicit mantissa bits; the low 13 bits
+    of the fp32 pattern zero), to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds; non-finite values pass unchanged."""
+    bits = t.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(t), rounded, t)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 ``t``: hi = tf32(t), lo = tf32(t - hi), so t = hi +
+    lo within 2^-22 |t| (t - hi is exact in fp32)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def contraction_smem_tf32(mp: int, nt: int) -> int:
+    """Bytes of shared memory the fp32 contraction kernel takes (cin.cu's
+    cin_tf32_smem): 4 ring stages, each the split W of one h, [8 nt][2 mp +
+    16] fp32, and x of the block's 256 rows."""
+    return _TF32_STAGES * (8 * nt * (2 * mp + 16) + _WARPS * _ROWS) * 4
+
+
+def contraction_plan_tf32(h: int, m: int, o: int) -> tuple[int, int, int] | None:
+    """(mp, nt, groups) of the fp32 contraction on mma.sync for w [h, m, o]:
+    m padded to mp (32 or 64) inside each h, the o columns in ``groups``
+    groups of 8 nt (nt in 1, 2, 4, 8: the narrowest that holds all of o up
+    to 64); W is streamed by h, so a stage's size does not depend on h and
+    every plan fits in shared memory. None where m > 64 (the shape then
+    takes the tile kernel). A function of the shape only."""
+    if m > 64 or h < 1 or o < 1:
+        return None
+    n8 = -(-o // 8)
+    nt = 8
+    while nt > 1 and nt // 2 >= n8:
+        nt //= 2
+    return (32 if m <= 32 else 64), nt, -(-n8 // nt)
+
+
+def swap_tf32(h: int, m: int) -> bool:
+    """Whether the fp32 contraction takes y as its x and x as its y (w
+    permuted to [m, h, o]): x*y rounds the same either way, and the kernel
+    pads m, not h, so where both have a plan the order with the fewer padded
+    products, h * mp, is taken ((64, 26) runs as (26, 64): 1,664 in place of
+    2,048 a row)."""
+    def padded(a: int, b: int) -> int:
+        return a * (32 if b <= 32 else 64)
+    return h <= 64 and m <= 64 and padded(m, h) < padded(h, m)
+
+
+def pack_weight_tf32(w: torch.Tensor, mp: int, nt: int, groups: int) -> torch.Tensor:
+    """fp32 w [h, m, o] (any strides) -> [groups, h, 8 nt, mp / 2, 4] fp32,
+    contiguous: for column c of group g and m = 2j, 2j + 1, the last axis
+    holds hi(w[h, 2j, o]), hi(w[h, 2j + 1, o]), lo(w[h, 2j, o]), lo(w[h, 2j +
+    1, o]) (``split_tf32``; o = 8 nt g + c), zero for m >= M and for columns
+    past o (the B operand of the fp32 contraction, one h a ring stage)."""
+    h, m, o = w.shape
+    wz = torch.zeros(groups * 8 * nt, h, mp, dtype=torch.float32, device=w.device)
+    wz[:o, :, :m] = w.permute(2, 0, 1)
+    hi, lo = split_tf32(wz)
+    pairs = torch.stack([hi.reshape(-1, h, mp // 2, 2), lo.reshape(-1, h, mp // 2, 2)], dim=3)
+    return pairs.reshape(groups, 8 * nt, h, mp // 2, 4).transpose(1, 2).contiguous()
+
+
 def contraction_operand(x: torch.Tensor, layout: str) -> tuple[torch.Tensor, bool]:
     """The bf16 contraction's x as a [B, H, K] tensor, and whether the
     kernel stages it with 16-byte copies: when K is a multiple of 32 (a
@@ -169,7 +251,8 @@ def contraction_operand(x: torch.Tensor, layout: str) -> tuple[torch.Tensor, boo
     model's x0 = looked[..., :K], rows K+1 apart; K-major memory). The copy
     reads and writes x once; otherwise the kernel stages x with element
     loads, in place. y needs no copy: it is loaded into registers once a
-    row tile, with element loads."""
+    row tile, with element loads. The fp32 kernel stages x by 4-byte
+    copies, in place."""
     v = _bok(x, layout)
     if x.dtype != torch.bfloat16 or v.shape[2] % _ROWS:
         return v, False
@@ -180,10 +263,11 @@ def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
              layout: str = "legacy") -> torch.Tensor:
     """Launch the contraction kernel: x, y of one dtype (fp32 or bf16) in
     ``layout``, any strides, on one card; w [H, M, O] (cast to x's dtype, and
-    in bf16 packed by ``pack_weight`` for the mma.sync kernel where
-    ``contraction_plan`` has a plan, else made contiguous for the tile
-    kernel: it is small). Returns a contiguous tensor in x's dtype and
-    ``layout``."""
+    packed for the mma.sync kernel of its type where the plan has one: by
+    ``pack_weight`` for ``contraction_plan`` in bf16, split and packed by
+    ``pack_weight_tf32`` for ``contraction_plan_tf32`` in fp32, x and y in
+    the order of ``swap_tf32``; else made contiguous for the tile kernel: it
+    is small). Returns a contiguous tensor in x's dtype and ``layout``."""
     _check_operands("cin_cuda", layout, x, y)
     b, h, k = _bok(x, layout).shape
     m = _bok(y, layout).shape[1]
@@ -197,12 +281,19 @@ def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         return out
     if h * m >= 2**31 or b * k >= 2**31:
         raise ValueError(f"cin_cuda: B*K={b * k} or H*M={h * m} exceeds the kernel's extents")
-    plan = contraction_plan(h, m, o) if x.dtype == torch.bfloat16 else None
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and swap_tf32(h, m):
+        x, y, w2, h, m = y, x, w2.permute(1, 0, 2), m, h
+    plan = contraction_plan(h, m, o) if bf16 else contraction_plan_tf32(h, m, o)
     lib = build.load("cin", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         strides = (*_strides(x, layout), *_strides(y, layout), *_strides(out, layout))
-        if plan is not None:
+        if plan is not None and not bf16:
+            wp = pack_weight_tf32(w2, *plan)
+            err = lib.rectpu_cin_tf32(x.data_ptr(), y.data_ptr(), wp.data_ptr(), out.data_ptr(),
+                                      b, h, m, o, k, *strides, *plan, stream)
+        elif plan is not None:
             wp = pack_weight(w2, *plan)
             xv, copies = contraction_operand(x, layout)
             err = lib.rectpu_cin_mma(xv.data_ptr(), y.data_ptr(), wp.data_ptr(), out.data_ptr(),
@@ -210,10 +301,10 @@ def cin_cuda(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                                      int(copies), stream)
         else:
             err = lib.rectpu_cin(x.data_ptr(), y.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                                 b, h, m, o, k, *strides, int(x.dtype == torch.bfloat16), stream)
+                                 b, h, m, o, k, *strides, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"cin kernel launch failed: cudaError {err}")
-    launches.add()
+    (launches if bf16 else launches_fp32).add()
     return out
 
 
@@ -226,25 +317,27 @@ def dw_slices(rows: int) -> tuple[int, int]:
 
 
 def _runs_aligned(t: torch.Tensor) -> bool:
-    """Whether every run of 8 rows (b, k) of a [B, *, K] operand is 16
-    bytes, aligned, so the bf16 weight-gradient kernel can stage it with
+    """Whether every run of 16 bytes of rows (b, k) of a [B, *, K] operand
+    (8 rows in bf16, 4 in fp32) is aligned, so a kernel can stage it with
     16-byte copies."""
+    run = 16 // t.element_size()
     sb, sf, sk = t.stride()
-    return sk == 1 and sb % 8 == 0 and sf % 8 == 0 and t.data_ptr() % 16 == 0
+    return sk == 1 and sb % run == 0 and sf % run == 0 and t.data_ptr() % 16 == 0
 
 
 def dw_operands(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                 layout: str) -> tuple[list[torch.Tensor], bool]:
     """The weight-gradient kernel's operands as [B, *, K] tensors, and
-    whether it stages them with 16-byte copies: in bf16 when K is a multiple
-    of 8, after copying each operand whose runs are not aligned into a
-    contiguous tensor (the model's y = looked[..., :K], rows K+1 apart; a
-    K-major operand), once for an operand passed twice (x = y = x0 in the
-    first layer). The copy reads and writes the operand once; element loads
-    inside the kernel stall its tensor cores. Otherwise the
-    kernel stages every operand with element loads, in place."""
+    whether it stages them with 16-byte copies: when K is a multiple of the
+    rows in 16 bytes (8 in bf16, 4 in fp32), after copying each operand whose
+    runs are not aligned into a contiguous tensor (the model's y =
+    looked[..., :K], rows K+1 apart; a K-major operand), once for an operand
+    passed twice (x = y = x0 in the first layer). The copy reads and writes
+    the operand once; element copies inside the kernel stall its tensor
+    cores. Otherwise the kernel stages every operand with element copies, in
+    place."""
     views = [_bok(t, layout) for t in (x, y, g)]
-    if x.dtype != torch.bfloat16 or views[0].shape[2] % 8:
+    if views[0].shape[2] % (16 // x.element_size()):
         return views, False
     out: list[torch.Tensor] = []
     for v in views:
@@ -276,16 +369,16 @@ def cin_dw_cuda(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     slices, per = dw_slices(b * k)
     partial = torch.empty(slices, o, h * m, dtype=torch.float32, device=x.device)
     (xb, yb, gb), copies = dw_operands(x, y, g, layout)
+    bf16 = x.dtype == torch.bfloat16
     lib = build.load("cin", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rectpu_cin_dw(xb.data_ptr(), yb.data_ptr(), gb.data_ptr(), partial.data_ptr(),
                                 dw.data_ptr(), b, h, m, o, k, *xb.stride(), *yb.stride(),
-                                *gb.stride(), slices, per, int(copies),
-                                int(x.dtype == torch.bfloat16), stream)
+                                *gb.stride(), slices, per, int(copies), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"cin dw kernel launch failed: cudaError {err}")
-    dw_launches.add()
+    (dw_launches if bf16 else dw_launches_fp32).add()
     return dw
 
 
