@@ -13,13 +13,17 @@ kernel and its predecessor are timed by one method in one call:
 - ``time``: every kernel time of chip_smoke.py's phase 7 (time_kernels,
   time_train_kernels, time_zoo_kernels, time_fast_kernels,
   time_flat_kernels), one line a row;
-- ``step``: the xDeepFM zoo step in fp32 and in bf16 (chip_smoke.zoo_step:
-  median wall, busy time, the CIN kernels' device time, launches per step).
+- ``step``: bench.py's DeepFM flagship step (chip_smoke.flagship_step), the
+  sparse fast step at full width (chip_smoke.fast_step_full_width) and the
+  xDeepFM zoo step in fp32 and in bf16 (chip_smoke.zoo_step): median wall,
+  the device's busy time, the device time of the lookup, FM-backward and CIN
+  kernels and of elementwise copies and casts, launches per step.
 
 A tree whose ops/cin.py counts fp32 launches with bf16's (before the fp32
-counters) has its counter read under both names. It builds only the
-tree's cin.cu up front (the others build at first use) and prints its ptxas
-report.
+counters) has its counter read under both names; a tree whose lookup kernel
+does not round fp32 rows to bf16 is timed on the flagship gather by its own
+route (the table cast, then the kernel). It builds the tree's sources up
+front (one nvcc each, all started together) and prints their ptxas report.
 """
 
 from __future__ import annotations
@@ -63,9 +67,9 @@ def main(argv=None) -> int:
     dev = cs.resolve_device("cuda")
     gpu = cs.gpu_line()
     print(f"tree {root} [{gpu}]", flush=True)
-    for r in cs.build.build(["cin"]):
+    for r in cs.build.build():
         for kernel, regs, spill in cs.ptxas_report(r.log):
-            print(f"ptxas cin: {kernel}: {regs} registers, {spill} bytes spilled")
+            print(f"ptxas {r.name}: {kernel}: {regs} registers, {spill} bytes spilled")
     gen = torch.Generator().manual_seed(args.seed)
     out = {"tree": str(root), "gpu": gpu}
     phases = args.phases.split(",")
@@ -78,6 +82,8 @@ def main(argv=None) -> int:
         out.update(floor_ms=floor, times=rows)
         for r in rows:
             tf32 = f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f}" if "bound_3xtf32_ms" in r else ""
+            if "cast_then_gather_ms" in r:
+                tf32 += f", the table cast then the kernel {r['cast_then_gather_ms']:.4f}"
             plain, lib = ("n/a" if r.get(k) is None else f"{r[k]:.4f}"
                           for k in ("plain_ms", "library_ms"))
             print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {r.get('call', '')} "
@@ -85,15 +91,22 @@ def main(argv=None) -> int:
                   f"library {lib}, bound {r['bound_ms']:.4f}{tf32} [{gpu}]", flush=True)
     if "step" in phases:
         work = Path(tempfile.mkdtemp(prefix="chip_compare_"))
-        for fp32 in (True, False):
-            zoo = cs.zoo_step("xdeep_fm", dev, gen, work, fp32=fp32)
-            prof = zoo["profile"]
-            out[f"zoo_step_xdeep_fm{'_fp32' if fp32 else ''}"] = zoo
-            print(f"zoo step xdeep_fm {'fp32' if fp32 else 'bf16'}: median "
-                  f"{zoo['step_ms']:.4f} ms, {zoo['examples_per_s']:.0f} examples/s, device busy "
-                  f"{prof['device_busy_ms']} ms, CIN kernels {prof['cin_device_ms']} ms, "
-                  f"{prof['device_launches']:.0f} device launches, launches per step "
-                  f"{zoo['launches_per_step']} [{gpu}]", flush=True)
+        steps = [("flagship_step_deep_fm", lambda: cs.flagship_step(dev, gen, work)),
+                 ("fast_step_deep_fm", lambda: cs.fast_step_full_width(dev, args.seed, work))]
+        steps += [(f"zoo_step_xdeep_fm{'_fp32' if fp32 else ''}",
+                   lambda fp32=fp32: cs.zoo_step("xdeep_fm", dev, gen, work, fp32=fp32))
+                  for fp32 in (True, False)]
+        for label, run in steps:
+            res = out[label] = run()
+            prof = res["profile"]
+            print(f"{label}: median {res['step_ms']:.4f} ms, {res['examples_per_s']:.0f} "
+                  f"examples/s, device busy {prof['device_busy_ms']} ms in "
+                  f"{prof['device_launches']:.0f} device launches; device ms: lookup "
+                  f"{prof['lookup_device_ms']:.4f}, FM backward {prof['fm_bwd_device_ms']:.4f}, "
+                  f"CIN {prof['cin_device_ms']:.4f}, elementwise copies and casts "
+                  f"{prof['copy_device_ms']:.4f}; top kernels "
+                  f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]}; launches per step "
+                  f"{res['launches_per_step']} [{gpu}]", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1, default=str))

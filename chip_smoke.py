@@ -10,10 +10,12 @@ failed check raises, and the script exits nonzero without the final line:
 1. Build: compile every CUDA kernel from rectpu_torch/kernels/csrc (one
    nvcc per source, all started together, sm_90a).
 2. Serving kernels against their plain PyTorch versions, on the card: the
-   lookup on the served [4224, 65] table at B in {1, 7, 512, 4096} x 26
-   fields (bitwise, out-of-range ids give zero rows) and the FM on the
-   strided view looked[..., :K] at K in {64, 4} (and a contiguous 28-field
-   input), in fp32 and bf16.
+   lookup on [4224, W] tables, W in {1, 5, 65, 128, 256}, fp32, bf16 and fp32
+   rows rounded to bf16, at B in {1, 7, 37, 512, 4096} x 26 fields (bitwise
+   and bitwise across launches, NaN and infinities planted in the table,
+   out-of-range ids give zero rows) and the FM on the strided view
+   looked[..., :K] at K in {64, 4} (and a contiguous 28-field input), in
+   fp32 and bf16.
 3. Training kernels against their plain versions: the scatter at [6144, 65]
    with 4096 x 26 ml-100k ids and at the flagship [311296, 65] with
    8192 x 26 ids, fp32 and bf16, with out-of-range ids and DROP_SENTINEL,
@@ -21,8 +23,12 @@ failed check raises, and the script exits nonzero without the final line:
    across two launches; then streams that stress its sort and its pieces:
    every id on one row (ml-100k's R at every chunk the autotuner sweeps, the
    flagship's R), no valid id, no update, and the reference default's
-   narrow rows (W=4 and 5, fp32, and W=5 bf16); the FM backward at [B, 26, 64] and [B, 26, 4] from
-   the strided view; fused Adam at both table sizes with fp32 slots and
+   narrow rows (W=4 and 5, fp32, and W=5 bf16); the FM backward at K in
+   {64, 4, 100}, B in {1, 7, 37, 4096, 8192} on the strided view, the
+   contiguous [B, F+2, K], a view whose start is not 16-byte aligned and one
+   of every other row, bitwise the in-order sums (and across launches) and
+   within FM_BWD_RTOL of the plain version, and one row too wide to stage;
+   fused Adam at both table sizes with fp32 slots and
    with bf16 m / stochastically rounded bf16 v, fp32 and bf16 masters,
    within 1 ulp of the plain version and bitwise equal across two launches.
    DLRM and xDeepFM kernels against their plain versions: the pair-dot
@@ -109,11 +115,15 @@ failed check raises, and the script exits nonzero without the final line:
    the row set, index_copy_ of the valid rows): the interaction in both
    product modes, the CIN contraction at the six call shapes of a xDeepFM
    zoo step (bf16 and fp32; an fp32 row also gives the 3xTF32 route's
-   bound), the CIN weight gradient also with the model's strided y.
-   The fast step's dedupe and lazy-Adam row update are timed whole beside
-   them. The flat FM forward and backward at B=8192, F=26, K=64. Then the
-   device operations of one scatter call (its sort and its sums) and of one
-   segment sum, by name, with their count a call (torch.profiler).
+   bound), the CIN weight gradient also with the model's strided y. The
+   lookup also at the flagship step's shape (its fp32 [311296, 65] table
+   gathered as bf16, beside the whole-table cast then the kernel) and at
+   the fast step's three (the batch's rows and the lazy-Adam rows of the
+   table and of the m|v slab). The fast step's dedupe and lazy-Adam row
+   update are timed whole beside them. The flat FM forward and backward at
+   B=8192, F=26, K=64. Then the device operations of one scatter call (its
+   sort and its sums) and of one segment sum, by name, with their count a
+   call (torch.profiler).
 
 The second-to-last lines are the kernels' JSON summary and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -123,6 +133,7 @@ The second-to-last lines are the kernels' JSON summary and the card's
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import logging
 import re
@@ -247,23 +258,40 @@ def fm_tolerance(v: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 # --- phase 2: kernels against their plain versions --------------------------
 
 
+LOOKUP_WIDTHS = (1, 5, WIDTH, 128, 256)  # the linear tower, K=4, K=64, the fast step's
+LOOKUP_TYPES = ((torch.float32, None), (torch.bfloat16, None),
+                (torch.float32, torch.bfloat16))  # table -> out (None: the table's)
+
+
 def check_kernels(dev, gen) -> dict:
     errs = {"embedding_lookup": 0.0, "fm_cross": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        table = (torch.randn(V_ROWS, WIDTH, generator=gen) * 0.1).to(dtype).to(dev)
-        for b in (1, 7, 512, 4096):
-            ids = torch.randint(0, V_ROWS, (b, FIELDS), generator=gen, dtype=torch.int32)
-            bad = torch.tensor([-1, V_ROWS, V_ROWS + 100, -2**31, 2**31 - 1], dtype=torch.int32)
-            ids.view(-1)[:5] = bad
-            ids = ids.to(dev)
-            got = emb_ops.lookup_cuda(table, ids)
-            want = emb_ops.lookup_take(table, ids)
-            torch.cuda.synchronize()
-            check(got.shape == (b, FIELDS, WIDTH), f"lookup shape {tuple(got.shape)}")
-            check(same_bits(got, want), f"lookup {dtype} B={b}: kernel != plain bitwise")
-            check(not got.reshape(-1, WIDTH)[:5].any(), "out-of-range ids gave nonzero rows")
-        print(f"check: embedding_lookup {dtype} B=1,7,512,4096 bitwise equal to plain, "
-              "out-of-range ids -> zero rows")
+    for w in LOOKUP_WIDTHS:
+        for in_dtype, out_dtype in LOOKUP_TYPES:
+            table = (torch.randn(V_ROWS, w, generator=gen) * 0.1).to(in_dtype)
+            # NaN and infinities go through bitwise, rounded or not
+            table.view(-1)[[3, 5, 9]] = torch.tensor(
+                [float("nan"), float("inf"), float("-inf")], dtype=in_dtype)
+            table = table.to(dev)
+            for b in (1, 7, 37, 512, 4096):  # 37 x 26 rows: a multiple of no tile
+                ids = torch.randint(0, V_ROWS, (b, FIELDS), generator=gen, dtype=torch.int32)
+                bad = torch.tensor([-1, V_ROWS, V_ROWS + 100, -2**31, 2**31 - 1],
+                                   dtype=torch.int32)
+                ids.view(-1)[:5] = bad
+                # the rows that hold the NaN and the infinities
+                ids.view(-1)[5:8] = torch.tensor([3 // w, 5 // w, 9 // w], dtype=torch.int32)
+                ids = ids.to(dev)
+                got = emb_ops.lookup_cuda(table, ids, out_dtype)
+                again = emb_ops.lookup_cuda(table, ids, out_dtype)
+                want = emb_ops.lookup_take(table, ids).to(out_dtype or in_dtype)
+                torch.cuda.synchronize()
+                check(got.shape == (b, FIELDS, w), f"lookup shape {tuple(got.shape)}")
+                label = f"lookup W={w} {in_dtype}->{out_dtype or in_dtype} B={b}"
+                check(same_bits(got, want), f"{label}: kernel != plain bitwise")
+                check(same_bits(got, again), f"{label}: two launches differ")
+                check(not got.reshape(-1, w)[:5].any(), "out-of-range ids gave nonzero rows")
+        print(f"check: embedding_lookup W={w} fp32, bf16 and fp32->bf16, B=1,7,37,512,4096: "
+              "bitwise equal to plain (NaN and infinities included), out-of-range ids -> zero "
+              "rows")
     for dtype in (torch.float32, torch.bfloat16):
         for k in (64, 4):
             for b in (1, 7, 512, 4096):
@@ -414,6 +442,28 @@ def check_scatter_edges(dev, gen, rng) -> float:
     return worst
 
 
+def fm_bwd_views(b: int, k: int, dtype, dev, gen) -> dict:
+    """The v the FM backward is handed: the model's strided looked[..., :K];
+    with numeric fields the contiguous [B, F+2, K] concatenation; a view
+    whose start is not 16-byte aligned; rows that are not one span."""
+    looked = (torch.randn(b + 1, FIELDS, k + 1, generator=gen) * 0.3).to(dtype).to(dev)
+    other = (torch.randn(2 * b, FIELDS, k + 1, generator=gen) * 0.3).to(dtype).to(dev)
+    return {"looked[:, :, :K]": looked[:b, :, :k],
+            "[B, F+2, K]": (torch.randn(b, FIELDS + 2, k, generator=gen) * 0.3).to(dtype).to(dev),
+            "looked[1:, :, :K]": looked[1:, :, :k],
+            "looked[::2, :, :K]": other[::2, :, :k]}
+
+
+def fm_bwd_in_order(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dv = g * (S - v) with S summed over f = 0 .. F-1 one fp32 add at a
+    time, then g * (S - v) in fp32 and one rounding to v's type: the
+    kernel's order, so its bits on finite inputs."""
+    s = torch.zeros(v.shape[0], v.shape[2], dtype=torch.float32, device=v.device)
+    for f in range(v.shape[1]):
+        s = s + v[:, f, :].float()
+    return (g.float()[:, None, None] * (s[:, None, :] - v.float())).to(v.dtype)
+
+
 def check_train_kernels(dev, gen) -> dict:
     errs = {"scatter_rows": 0.0, "fm_cross_bwd": 0.0, "fused_adam": 0.0}
     rng = np.random.default_rng(1)
@@ -447,25 +497,37 @@ def check_train_kernels(dev, gen) -> dict:
     errs["scatter_rows"] = max(errs["scatter_rows"], check_scatter_edges(dev, gen, rng))
 
     for dtype in (torch.float32, torch.bfloat16):
-        for k in (64, 4):
-            for b in (7, 4096):
-                fused = (torch.randn(b, FIELDS, k + 1, generator=gen) * 0.3).to(dtype).to(dev)
-                v = fused[..., :k]
-                g = torch.randn(b, generator=gen).to(dev)
-                got = fm_ops.fm_cross_bwd_cuda(v, g)
-                want = fm_ops.fm_cross_bwd_xla(v, g)
-                torch.cuda.synchronize()
-                check(got.shape == (b, FIELDS, k) and got.dtype == dtype, "fm bwd shape/dtype")
-                scale = g.double().abs()[:, None, None] * v.double().abs().sum(1, keepdim=True)
-                tol = FM_BWD_RTOL * scale
-                if dtype == torch.bfloat16:
-                    tol = tol + BF16_REL_ULP * want.double().abs()
-                err = (got.double() - want.double()).abs()
-                check(bool((err <= tol).all()), f"fm bwd {dtype} B={b} K={k}: max err "
-                                                f"{err.max().item()}")
-                errs["fm_cross_bwd"] = max(errs["fm_cross_bwd"], err.max().item())
-        print(f"check: fm_cross_bwd {dtype} K=64,4 B=7,4096 from the strided view within "
-              f"tolerance of plain (max abs err so far {errs['fm_cross_bwd']:.3g})")
+        for k in (64, 4, 100):
+            for b in (1, 7, 37, 4096, FLAGSHIP_BATCH):
+                for label, v in fm_bwd_views(b, k, dtype, dev, gen).items():
+                    g = torch.randn(b, generator=gen).to(dev)
+                    got = fm_ops.fm_cross_bwd_cuda(v, g)
+                    again = fm_ops.fm_cross_bwd_cuda(v, g)
+                    want = fm_ops.fm_cross_bwd_xla(v, g)
+                    in_order = fm_bwd_in_order(v, g)
+                    torch.cuda.synchronize()
+                    what = f"fm bwd {dtype} B={b} K={k} {label}"
+                    check(got.shape == v.shape and got.dtype == dtype, f"{what}: shape/dtype")
+                    check(same_bits(got, again), f"{what}: two launches differ")
+                    check(same_bits(got, in_order), f"{what}: not bitwise the in-order sums")
+                    scale = g.double().abs()[:, None, None] * v.double().abs().sum(1, keepdim=True)
+                    tol = FM_BWD_RTOL * scale
+                    if dtype == torch.bfloat16:
+                        tol = tol + BF16_REL_ULP * want.double().abs()
+                    err = (got.double() - want.double()).abs()
+                    check(bool((err <= tol).all()), f"{what}: max err {err.max().item()}")
+                    errs["fm_cross_bwd"] = max(errs["fm_cross_bwd"], err.max().item())
+        print(f"check: fm_cross_bwd {dtype} K=64,4,100 B=1,7,37,4096,8192 on the strided, "
+              "contiguous [B, F+2, K], unaligned-start and every-other-row views: bitwise the "
+              "in-order sums and across launches, within tolerance of plain (max abs err so "
+              f"far {errs['fm_cross_bwd']:.3g})")
+    # a row wider than a stage of shared memory: not staged
+    v = torch.randn(5, FIELDS, 3000, generator=gen).to(dev)
+    g = torch.randn(5, generator=gen).to(dev)
+    check(fm_ops.fm_bwd_plan(5, FIELDS, 3000, v.stride(0), v.stride(1), 4).mode == "direct",
+          "fm bwd: a 312 KB row was planned for staging")
+    check(same_bits(fm_ops.fm_cross_bwd_cuda(v, g), fm_bwd_in_order(v, g)),
+          "fm bwd [5, 26, 3000] fp32 (unstaged): not bitwise the in-order sums")
 
     st = {None: torch.float32, torch.bfloat16: torch.bfloat16, BF16_SR: torch.bfloat16}
     for v_rows in (6144, padded_rows(bench_feature_set())):
@@ -1244,8 +1306,9 @@ def flagship_step(dev, gen, work: Path) -> dict:
 
 
 def profile_step(trainer, batch, reps: int = 5) -> dict:
-    """Device busy ms in one flagship step (torch.profiler), and the top
-    device kernels by time."""
+    """Device busy ms in one flagship step (torch.profiler), the device ms of
+    the CIN, lookup and FM-backward kernels and of elementwise copies, and
+    the top device kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1262,9 +1325,15 @@ def profile_step(trainer, batch, reps: int = 5) -> dict:
     ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU
            and e.key.startswith("aten::")]
     host = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    cin = sum(e.self_device_time_total for e in events if "cin" in e.key) / reps / 1e3
+    def named(*parts: str) -> float:
+        return sum(e.self_device_time_total for e in events
+                   if any(p in e.key for p in parts)) / reps / 1e3
+
     return {"device_busy_ms": busy if events else None,
-            "cin_device_ms": cin,
+            "cin_device_ms": named("cin"),
+            "lookup_device_ms": named("lookup_"), "fm_bwd_device_ms": named("fm_bwd_kernel"),
+            # elementwise copies and casts (the table's cast to the compute type among them)
+            "copy_device_ms": named("copy_kernel", "elementwise_kernel"),
             "device_launches": sum(e.count for e in events) / reps,
             "top_kernels_ms": [(e.key[:60], e.self_device_time_total / reps / 1e3)
                                for e in top],
@@ -1615,6 +1684,35 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_fused_lookup(dev, gen, ids: torch.Tensor, v_rows: int, flush) -> dict:
+    """The flagship step's gather: its fp32 [v_rows, 65] table gathered as
+    bf16 at B=8192 x 26 ids, rounded in the kernel; beside it the route of
+    earlier trees, the whole table cast to bf16 and then gathered (the time
+    of a tree whose kernel does not round is that route's)."""
+    table = torch.randn(v_rows, WIDTH, generator=gen).to(dev)
+    n, bf16 = ids.numel(), torch.bfloat16
+    ids_long = ids.long()
+
+    def cast_then_gather():
+        return emb_ops.lookup_cuda(table.to(bf16), ids)
+
+    fused = "out_dtype" in inspect.signature(emb_ops.lookup_cuda).parameters
+    # the rows read: each distinct row of these ids once
+    ms_b, by = bound(n * 4 + torch.unique(ids).numel() * WIDTH * 4 + n * WIDTH * 2, 0)
+    row = {"name": "embedding_lookup", "dtype": "float32->bfloat16", "batch": FLAGSHIP_BATCH,
+           "shape": f"flagship [{v_rows}, {WIDTH}]",
+           "route": "rounded in the kernel" if fused else "cast, then the kernel",
+           "ms": event_ms((lambda: emb_ops.lookup_cuda(table, ids, bf16)) if fused
+                          else cast_then_gather, flush),
+           "cast_then_gather_ms": event_ms(cast_then_gather, flush),
+           "plain_ms": event_ms(lambda: emb_ops.lookup_take(table, ids).to(bf16), flush),
+           "library_ms": event_ms(lambda: torch.index_select(table, 0, ids_long).to(bf16), flush),
+           "library": "index_select, then .to(bfloat16)", "bound_ms": ms_b, "bound_by": by}
+    row["warm_ms"] = event_ms((lambda: emb_ops.lookup_cuda(table, ids, bf16)) if fused
+                              else cast_then_gather, None)
+    return row
+
+
 def time_train_kernels(dev, gen) -> list[dict]:
     """CUDA-event times of the training kernels at the path's shapes."""
     flush = torch.ones(64 * 2**20 // 4, dtype=torch.float32, device=dev)
@@ -1626,6 +1724,8 @@ def time_train_kernels(dev, gen) -> list[dict]:
         ids = torch.from_numpy(random_ids(fs, batch, rng).reshape(-1)).to(dev)
         ids_long = ids.long()
         n = ids.shape[0]
+        if label == "flagship":
+            rows.append(time_fused_lookup(dev, gen, ids, v_rows, flush))
         for dtype in (torch.bfloat16, torch.float32):
             es = torch.empty((), dtype=dtype).element_size()
             upd = torch.randn(n, WIDTH, generator=gen).to(dtype).to(dev)
@@ -1806,6 +1906,30 @@ def time_fast_kernels(dev, gen) -> list[dict]:
             "library": "index_copy_ of the valid rows", "bound_ms": ms_b, "bound_by": by,
         })
         del slab, vals, kept
+
+    # the fast step's three gathers: the batch's rows of the table, then the
+    # lazy-Adam rows of the table and of the m|v slab at the deduplicated ids
+    table = torch.randn(v_rows, 128, generator=cgen, device=dev)
+    mv = torch.randn(v_rows, 256, generator=cgen, device=dev)
+    # the rows read: each distinct row of the batch once (the update rows are
+    # distinct already)
+    n_batch = torch.unique(ids).numel()
+    for label, src, at, n_read in (("batch rows of the table [.., 128]", table, ids, n_batch),
+                                   ("update rows of the table [.., 128]", table, rows, n_valid),
+                                   ("update rows of m|v [.., 256]", mv, rows, n_valid)):
+        width = src.shape[1]
+        at_long = at.reshape(-1).long().clamp(max=v_rows - 1)
+        ms_b, by = bound(at.numel() * 4 + n_read * width * 4 + at.numel() * width * 4, 0)
+        out.append({
+            "name": "embedding_lookup", "dtype": "float32", "shape": f"fast step: {label}",
+            "v_rows": v_rows, "updates": at.numel(),
+            "ms": event_ms(lambda: emb_ops.lookup_cuda(src, at), flush),
+            "warm_ms": event_ms(lambda: emb_ops.lookup_cuda(src, at), None),
+            "plain_ms": event_ms(lambda: emb_ops.lookup_take(src, at), flush),
+            "library_ms": event_ms(lambda: torch.index_select(src, 0, at_long), flush),
+            "library": "index_select (sentinel ids clamped)", "bound_ms": ms_b, "bound_by": by,
+        })
+    del table, mv
 
     r = ids.numel()
     grads = torch.randn(r, 128, generator=cgen, device=dev)
@@ -2207,6 +2331,8 @@ def main(argv=None) -> int:
             at += f" {r['mode']} products"
         tf32 = (f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in r
                 else "")
+        if "cast_then_gather_ms" in r:
+            tf32 += f", the table cast then the kernel {r['cast_then_gather_ms']:.4f} ms"
         print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {r.get('call', '')} {at}: "
               f"kernel {r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {lib} ms, bound {r['bound_ms']:.4f} ms "

@@ -1,4 +1,5 @@
-// Embedding-row gather for Hopper (sm_90a): out[r, :] = table[ids[r], :].
+// Embedding-row gather for Hopper (sm_90a): out[r, :] = table[ids[r], :],
+// optionally rounding an fp32 table's rows to bf16 on the way.
 //
 // Replaces rectpu/ops/embedding.py::_fwd_kernel (:70), the Pallas kernel that
 // lookup_pallas (:170) runs for every field of the ml-100k table on the TPU
@@ -10,83 +11,346 @@
 // for bit; that is what this kernel does. An id outside [0, V) yields a zero
 // row, as the one-hot form does (no column of the one-hot row matches).
 //
-// What bounds it on this card: bytes. No arithmetic at all. The served table
-// is [4224, 65] (~1.1 MB in fp32, half that in bf16) and stays in the 50 MB
-// L2 after its first touch; the B*26 rows x 65 columns output is written
-// once to device memory, and that write is the bound (B=4096: 6.9 MB in
-// fp32, 3.5 MB in bf16).
+// Numerics: bitwise. Rows are moved as raw bit patterns (uint32 for fp32,
+// uint16 for bf16). With an fp32 table and a bf16 output each element is
+// rounded by __float2bfloat16, the intrinsic PyTorch's own CUDA cast uses
+// (c10::BFloat16 on sm_80+), so the result is bitwise
+// table.to(torch.bfloat16)[ids], NaN and infinities included: rectpu's
+// gather_dtype cast (lookup_split, :267) folded into the gather, which saves
+// the model a pass over the whole table each step.
 //
-// Design: one warp per output row, a grid-stride loop over rows. The warp
-// reads the row's id once (one broadcast load), then its 32 lanes copy
-// neighbouring columns, 32 at a time, so each store instruction of the warp
-// writes one contiguous span (128 bytes in fp32, 64 in bf16) and the write
-// that bounds the kernel is coalesced. The row width W = 65 is odd, so rows
-// do not start on 16-byte boundaries and vector loads would not line up;
-// element-wise copies avoid that question, at the cost of a third column
-// pass in which one lane of 32 works. No index arithmetic divides: a first
-// version mapped a flat element index to (row, column) with a 64-bit
-// division per element, which the card emulates in software (PERF.md has
-// both versions' times). The kernel moves raw bit patterns (uint32
-// for fp32, uint16 for bf16), so it is bitwise exact by construction and one
-// template serves both types. The launch is asynchronous on the caller's
-// stream, and the entry point returns cudaGetLastError() so the Python
-// wrapper can raise on a refused launch.
+// What bounds it on this card: bytes. No arithmetic at all: the ids, the
+// rows read (at most the table) and the output written once.
+//
+// Design. The ops/embedding.py plan (lookup_plan, checked by the CPU tests)
+// picks one of three paths:
+// - "vector" (the row is a 16-byte multiple in the table and in out: the
+//   fast step's 128- and 256-wide fp32 rows): lanes_per_row lanes copy a
+//   row 16 bytes a lane, straight from device memory to device memory, each
+//   lane with kVecRows rows (and up to two chunks of each) in flight; the
+//   ids of a warp's next rows are loaded while its rows are copied.
+// - "tile" (narrow or unaligned rows: W = 65, 5, 1): a persistent block
+//   takes tiles of rows_per_tile rows, whose output is one contiguous span of
+//   a multiple of 16 bytes. It holds the next tile's ids while it gathers
+//   this tile's rows into shared memory, a thread taking 8 neighbouring
+//   columns of a row, so every lane works at any W and many rows are in
+//   flight at once (16 loads a thread); then it writes the span 16 bytes a
+//   thread. The earlier kernel gave each row a warp, which at W = 65 stored
+//   64-byte spans from 130-byte offsets, one row in flight a warp, and at
+//   W = 5 or 1 left 27 or 31 lanes idle.
+// - "rows" (an unaligned row too wide for a tile in shared memory): one warp
+//   a row, element by element, as the earlier kernel did.
+// No index arithmetic divides in 64 bits (a 64-bit division per element,
+// which the card emulates in software, once made this kernel several times
+// slower): the tile path divides once a chunk of 8 columns, in 32 bits. The
+// launch is
+// asynchronous on the caller's stream, and the entry point returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 256;
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 132 SMs; at most 16 x 8 warps each in flight
+constexpr int kVecRows = 2;  // rows a lane group copies at once (vector path)
+enum Path : int { kVector = 0, kTile = 1, kRows = 2 };
 
-template <typename Bits>
-__global__ void lookup_rows_kernel(const Bits* __restrict__ table,
-                                   const int32_t* __restrict__ ids,
-                                   Bits* __restrict__ out, int64_t n_ids,
-                                   int32_t n_table_rows, int32_t width) {
-  const int lane = threadIdx.x;  // blockDim = (32, kWarpsPerBlock)
-  const int64_t row_stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.y;
-       row < n_ids; row += row_stride) {
-    const int32_t id = __ldg(ids + row);
-    Bits* dst = out + row * width;
-    if (id >= 0 && id < n_table_rows) {
-      const Bits* src = table + static_cast<int64_t>(id) * width;
-#pragma unroll 4
-      for (int c = lane; c < width; c += kWarp) dst[c] = __ldg(src + c);
+// One element of the table as the output's bits: a copy, or fp32 -> bf16.
+template <typename TIn, typename TOut>
+__device__ __forceinline__ TOut convert(TIn x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ uint16_t convert<float, uint16_t>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// 16 bytes of output from the table: one 16-byte load when TIn and TOut are
+// the same size, two fp32 loads rounded to eight bf16 otherwise.
+template <typename TIn, typename TOut>
+struct Chunk {
+  static constexpr int kOut = 16 / sizeof(TOut);                 // output elements
+  static constexpr int kLoads = kOut * sizeof(TIn) / 16;         // 16-byte loads
+  uint4 raw[kLoads];
+  __device__ __forceinline__ void load(const TIn* src) {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) raw[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) raw[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ uint4 out() const {
+    if constexpr (kLoads == 1) {
+      return raw[0];
     } else {
-#pragma unroll 4
-      for (int c = lane; c < width; c += kWarp) dst[c] = Bits(0);
+      uint4 o;
+      uint16_t* e = reinterpret_cast<uint16_t*>(&o);
+      const float* x = reinterpret_cast<const float*>(raw);
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) e[i] = convert<float, uint16_t>(x[i]);
+      return o;
+    }
+  }
+};
+
+// The vector path. Lane group `sub` of a warp (lanes_per_row lanes) copies
+// rows r0 + sub + u * rows_per_pass, u < U, each 16 bytes a lane in CPL
+// chunks (CPL 0: a loop over the row's chunks); every load of a pass is in
+// flight before its stores.
+template <typename TIn, typename TOut, int U, int CPL>
+__global__ void __launch_bounds__(kThreads)
+    lookup_vec_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ ids,
+                      TOut* __restrict__ out, int64_t n_ids, int32_t n_table_rows,
+                      int32_t width, int lanes_per_row) {
+  using C = Chunk<TIn, TOut>;
+  constexpr int kC = CPL > 0 ? CPL : 1;
+  const int chunks = width / C::kOut;  // 16-byte output chunks a row
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int sub = lane / lanes_per_row, c0 = lane - sub * lanes_per_row;
+  const int rows_per_pass = kWarp / lanes_per_row;
+  const int64_t rows_per_warp = static_cast<int64_t>(rows_per_pass) * U;
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (kThreads / kWarp) * rows_per_warp;
+  int64_t r0 = warp * rows_per_warp;
+  int32_t id[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = r0 + sub + u * rows_per_pass;
+    id[u] = r < n_ids ? __ldg(ids + r) : -1;
+  }
+  for (; r0 < n_ids; r0 += stride) {
+    int32_t cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = id[u];
+    // the next pass's ids, loaded while this pass's rows are in flight
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t r = r0 + stride + sub + u * rows_per_pass;
+      id[u] = r < n_ids ? __ldg(ids + r) : -1;
+    }
+    for (int cb = c0; cb < chunks; cb += kC * lanes_per_row) {
+      C x[U][kC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          const int c = cb + j * lanes_per_row;
+          if (c < chunks && cur[u] >= 0 && cur[u] < n_table_rows) {
+            x[u][j].load(table + static_cast<int64_t>(cur[u]) * width + c * C::kOut);
+          } else {
+            x[u][j].zero();
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t r = r0 + sub + u * rows_per_pass;
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          const int c = cb + j * lanes_per_row;
+          if (r < n_ids && c < chunks) {
+            *reinterpret_cast<uint4*>(out + r * width + c * C::kOut) = x[u][j].out();
+          }
+        }
+      }
     }
   }
 }
 
-}  // namespace
+// The tile path. A persistent block walks tiles of rows_per_tile rows: it
+// stores the tile's ids (loaded during the last tile) in shared memory and
+// loads the next tile's; its threads gather (row, kTileCols-column chunk)
+// pairs, every load of two pairs in flight before their stores, into the
+// tile's output in shared memory; then they write that contiguous span 16
+// bytes a thread.
+constexpr int kTileCols = 8;
 
-// table [n_table_rows, width] row-major, ids [n_ids] int32, out [n_ids, width].
-// elem_bytes is 4 (fp32) or 2 (bf16). Returns a cudaError_t as int (0 = ok).
-extern "C" int rectpu_lookup_rows(const void* table, const void* ids, void* out,
-                                  long long n_ids, int n_table_rows, int width,
-                                  int elem_bytes, void* stream) {
-  if (n_ids == 0 || width == 0) return static_cast<int>(cudaSuccess);
-  int64_t blocks = (n_ids + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 block(kWarp, kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* id_ptr = static_cast<const int32_t*>(ids);
-  if (elem_bytes == 4) {
-    lookup_rows_kernel<uint32_t><<<static_cast<unsigned>(blocks), block, 0, s>>>(
-        static_cast<const uint32_t*>(table), id_ptr, static_cast<uint32_t*>(out),
-        n_ids, n_table_rows, width);
-  } else if (elem_bytes == 2) {
-    lookup_rows_kernel<uint16_t><<<static_cast<unsigned>(blocks), block, 0, s>>>(
-        static_cast<const uint16_t*>(table), id_ptr, static_cast<uint16_t*>(out),
-        n_ids, n_table_rows, width);
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    lookup_tile_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ ids,
+                       TOut* __restrict__ out, int64_t n_ids, int32_t n_table_rows,
+                       int32_t width, int rows_per_tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* s_ids = reinterpret_cast<int32_t*>(smem);
+  TOut* s_out = reinterpret_cast<TOut*>(smem + (rows_per_tile * 4 + 15) / 16 * 16);
+  const int tid = threadIdx.x;
+  const int64_t n_tiles = (n_ids + rows_per_tile - 1) / rows_per_tile;
+  const int cpr = (width + kTileCols - 1) / kTileCols;  // chunks a row
+  int64_t tile = blockIdx.x;
+  int32_t next = -1;  // thread t < rows_per_tile (<= kThreads) holds row t's id
+  if (tid < rows_per_tile && tile * rows_per_tile + tid < n_ids) {
+    next = __ldg(ids + tile * rows_per_tile + tid);
+  }
+  for (; tile < n_tiles; tile += gridDim.x) {
+    const int64_t first = tile * rows_per_tile;
+    const int rows = static_cast<int>(n_ids - first < rows_per_tile ? n_ids - first
+                                                                    : rows_per_tile);
+    __syncthreads();  // the last tile's writes have read s_ids and s_out
+    if (tid < rows_per_tile) s_ids[tid] = next;
+    const int64_t after = first + static_cast<int64_t>(gridDim.x) * rows_per_tile + tid;
+    next = tid < rows_per_tile && after < n_ids ? __ldg(ids + after) : -1;
+    __syncthreads();
+
+    const int pairs = rows * cpr;
+    for (int p0 = tid; p0 < pairs; p0 += 2 * kThreads) {
+      TOut x[2][kTileCols];
+      int at[2], n[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int p = p0 + u * kThreads;
+        const int row = p / cpr;
+        const int c0 = (p - row * cpr) * kTileCols;
+        const int32_t id = p < pairs ? s_ids[row] : -1;
+        const bool ok = id >= 0 && id < n_table_rows;
+        const TIn* src = table + static_cast<int64_t>(ok ? id : 0) * width + c0;
+        at[u] = row * width + c0;
+        n[u] = p < pairs ? min(kTileCols, width - c0) : 0;
+#pragma unroll
+        for (int j = 0; j < kTileCols; ++j) {
+          x[u][j] = ok && j < n[u] ? convert<TIn, TOut>(__ldg(src + j)) : TOut(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+#pragma unroll
+        for (int j = 0; j < kTileCols; ++j) {
+          if (j < n[u]) s_out[at[u] + j] = x[u][j];
+        }
+      }
+    }
+    __syncthreads();
+
+    // the tile's output is one contiguous span; it starts 16-byte aligned (the
+    // plan makes rows_per_tile * width * sizeof(TOut) a multiple of 16)
+    TOut* dst = out + first * width;
+    const int n_out = rows * width;
+    const int chunks = n_out * static_cast<int>(sizeof(TOut)) / 16;
+    for (int c = tid; c < chunks; c += kThreads) {
+      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(s_out)[c];
+    }
+    for (int e = chunks * 16 / static_cast<int>(sizeof(TOut)) + tid; e < n_out;
+         e += kThreads) {
+      dst[e] = s_out[e];
+    }
+  }
+}
+
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+    lookup_rows_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ ids,
+                       TOut* __restrict__ out, int64_t n_ids, int32_t n_table_rows,
+                       int32_t width) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / kWarp);
+  for (int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+       row < n_ids; row += warps) {
+    const int32_t id = __ldg(ids + row);
+    TOut* dst = out + row * width;
+    if (id >= 0 && id < n_table_rows) {
+      const TIn* src = table + static_cast<int64_t>(id) * width;
+#pragma unroll 4
+      for (int c = lane; c < width; c += kWarp) dst[c] = convert<TIn, TOut>(__ldg(src + c));
+    } else {
+#pragma unroll 4
+      for (int c = lane; c < width; c += kWarp) dst[c] = TOut(0);
+    }
+  }
+}
+
+// The tile path's blocks are persistent (each loads its next tile's ids
+// ahead): its grid is at most what the card holds at once.
+template <typename... Params, typename... Args>
+void resident(void (*kernel)(Params...), int blocks, int smem, cudaStream_t s,
+              Args... args) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      sms = 132;
+    }
+  }
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) ==
+          cudaSuccess &&
+      per_sm > 0 && blocks > per_sm * sms) {
+    blocks = per_sm * sms;
+  }
+  kernel<<<blocks, kThreads, smem, s>>>(args...);
+}
+
+template <typename TIn, typename TOut>
+int launch(const void* table, const void* ids, void* out, long long n_ids, int n_table_rows,
+           int width, int path, int param, int blocks, int smem, cudaStream_t s) {
+  const auto* t = static_cast<const TIn*>(table);
+  const auto* i = static_cast<const int32_t*>(ids);
+  auto* o = static_cast<TOut*>(out);
+  if (path == kVector) {
+    const int chunks = width / Chunk<TIn, TOut>::kOut;
+    const int cpl = (chunks + param - 1) / param;  // chunks a lane
+    auto kernel = cpl == 1   ? lookup_vec_kernel<TIn, TOut, kVecRows, 1>
+                  : cpl == 2 ? lookup_vec_kernel<TIn, TOut, kVecRows, 2>
+                             : lookup_vec_kernel<TIn, TOut, kVecRows, 0>;
+    kernel<<<blocks, kThreads, 0, s>>>(t, i, o, n_ids, n_table_rows, width, param);
+  } else if (path == kTile) {
+    resident(lookup_tile_kernel<TIn, TOut>, blocks, smem, s, t, i, o, n_ids, n_table_rows,
+             width, param);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    lookup_rows_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(t, i, o, n_ids, n_table_rows,
+                                                              width);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// table [n_table_rows, width] row-major, ids [n_ids] int32, out [n_ids,
+// width], all contiguous. in_bytes / out_bytes: 4 and 4 (fp32), 2 and 2
+// (bf16), or 4 and 2 (fp32 rows rounded to bf16). The plan comes from
+// rectpu_torch/ops/embedding.py (lookup_plan): path 0 "vector" (param: lanes
+// a row, a power of two <= 32; the table, out and both row widths 16-byte
+// aligned), 1 "tile"
+// (param: rows a tile, at most 256, its output span a 16-byte multiple;
+// smem: the block's shared memory), 2 "rows"; blocks: the grid (for the
+// tile path, at most what the card holds at once is launched). Returns a
+// cudaError_t as int (0 = ok).
+extern "C" int rectpu_lookup_rows(const void* table, const void* ids, void* out,
+                                  long long n_ids, int n_table_rows, int width, int in_bytes,
+                                  int out_bytes, int path, int param, int blocks, int smem,
+                                  void* stream) {
+  if (n_ids == 0 || width == 0) return static_cast<int>(cudaSuccess);
+  const bool bad_vec = path == kVector &&
+                       (param < 1 || param > kWarp || (param & (param - 1)) != 0 ||
+                        (static_cast<int64_t>(width) * in_bytes) % 16 != 0 ||
+                        (static_cast<int64_t>(width) * out_bytes) % 16 != 0 ||
+                        reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+                        reinterpret_cast<uintptr_t>(out) % 16 != 0);
+  const bool bad_tile =
+      path == kTile && (param < 1 || param > kThreads ||
+                        (static_cast<int64_t>(param) * width * out_bytes) % 16 != 0 ||
+                        reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+                        smem < (param * 4 + 15) / 16 * 16 + param * width * out_bytes ||
+                        smem > 48 * 1024);
+  if (bad_vec || bad_tile || path < kVector || path > kRows || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_bytes == 4 && out_bytes == 4) {
+    return launch<uint32_t, uint32_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
+                                      blocks, smem, s);
+  }
+  if (in_bytes == 2 && out_bytes == 2) {
+    return launch<uint16_t, uint16_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
+                                      blocks, smem, s);
+  }
+  if (in_bytes == 4 && out_bytes == 2) {
+    return launch<float, uint16_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
+                                   blocks, smem, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

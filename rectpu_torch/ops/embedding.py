@@ -19,13 +19,21 @@ cotangent. In the port every one of them is this module's ``lookup``, a
 
 ``gather_dtype`` casts the table before the gather, as ``lookup_split`` and
 ``lookup_flat`` do (:267, :501); the cast's transpose is the final cast back
-to the table's dtype. Ids outside ``[0, V)`` give a zero row and receive no
-gradient, as the Pallas one-hot kernels do.
+to the table's dtype. For an fp32 table and a bf16 ``gather_dtype`` the
+kernel rounds the gathered rows itself (``out_dtype``), which is bitwise the
+cast then the gather and spares the pass over the whole table. Ids outside
+``[0, V)`` give a zero row and receive no gradient, as the Pallas one-hot
+kernels do.
+
+``lookup_plan`` is the kernel's launch plan (its path, the rows a tile or
+the lanes a row, the blocks), pure Python so that the CPU tests check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -40,10 +48,65 @@ _DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _SIGNATURES = {
     "rectpu_lookup_rows": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
+
+# the kernel's launch shape (embedding_lookup.cu): threads a block; on the
+# vector path the rows a lane group copies at once; on the tile path the
+# columns a thread gathers from a row, the (row, chunk) pairs a thread takes
+# in a tile and the shared memory a tile may take
+LOOKUP_THREADS = 256
+VEC_ROWS = 2
+TILE_COLS = 8
+TILE_PAIRS = 2
+TILE_SMEM_MAX = 48 * 1024
+PATHS = ("vector", "tile", "rows")
+
+
+@dataclass(frozen=True)
+class LookupPlan:
+    """``path``: "vector" (16-byte copies), "tile" (tiles of rows staged in
+    shared memory, each written as one span), "rows" (a warp a row, for an
+    unaligned row too wide for a tile). ``param``: the lanes a row (vector)
+    or the rows a tile (tile). ``blocks``: the grid (the tile path launches
+    at most what the card holds at once); ``smem_bytes``: a tile block's
+    shared memory."""
+
+    path: str
+    param: int
+    blocks: int
+    smem_bytes: int
+
+
+def lookup_plan(n_ids: int, width: int, in_bytes: int, out_bytes: int, aligned: bool = True,
+                n_sms: int = 132) -> LookupPlan:
+    """The gather's plan for ``n_ids`` rows of ``width`` elements, read
+    ``in_bytes`` and written ``out_bytes`` an element; ``aligned``: the
+    table's first byte is 16-byte aligned (the output's always is)."""
+    warps_per_block = LOOKUP_THREADS // 32
+    if aligned and (width * in_bytes) % 16 == 0 and (width * out_bytes) % 16 == 0:
+        chunks = width * out_bytes // 16
+        lanes = min(32, 1 << max(chunks - 1, 0).bit_length())
+        rows_per_block = 32 // lanes * VEC_ROWS * warps_per_block
+        return LookupPlan("vector", lanes, -(-n_ids // rows_per_block), 0)
+    q = 16 // math.gcd(width * out_bytes, 16)  # rows whose output is a 16-byte multiple
+
+    def smem(rows: int) -> int:
+        return -(-rows * 4 // 16) * 16 + rows * width * out_bytes
+
+    # TILE_PAIRS (row, TILE_COLS-column chunk) pairs a thread; at most a
+    # thread a row's id; no fewer than four tiles an SM where the ids allow
+    rows = TILE_PAIRS * LOOKUP_THREADS // -(-width // TILE_COLS)
+    rows = max(q, min(rows, LOOKUP_THREADS) // q * q)
+    rows = min(rows, max(q, -(-n_ids // (4 * n_sms * q)) * q))
+    while rows > q and smem(rows) > TILE_SMEM_MAX:
+        rows -= q
+    if smem(rows) <= TILE_SMEM_MAX:
+        return LookupPlan("tile", rows, -(-n_ids // rows), smem(rows))
+    return LookupPlan("rows", 0, max(1, min(-(-n_ids // warps_per_block), n_sms * 16)), 0)
 
 
 def lookup_take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -57,9 +120,21 @@ def lookup_take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                                               device=table.device))
 
 
-def lookup_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _out_dtype(table: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+    if out_dtype is None or out_dtype == table.dtype:
+        return table.dtype
+    if table.dtype == torch.float32 and out_dtype == torch.bfloat16:
+        return out_dtype
+    raise ValueError(f"the gather converts float32 rows to bfloat16 only, not {table.dtype} "
+                     f"to {out_dtype}")
+
+
+def lookup_cuda(table: torch.Tensor, ids: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Launch the gather kernel: table [V, W] fp32 or bf16, contiguous; ids
-    [...] int32, contiguous, on the same card. Raises on anything else."""
+    [...] int32, contiguous, on the same card -> [..., W] in ``out_dtype``
+    (default the table's; an fp32 table may be gathered as bf16, each element
+    rounded to nearest even). Raises on anything else."""
     if not (table.is_cuda and ids.is_cuda and table.device == ids.device):
         raise ValueError(f"lookup_cuda needs table and ids on one CUDA device, got "
                          f"{table.device} and {ids.device}")
@@ -70,29 +145,47 @@ def lookup_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ids must be int32, got {ids.dtype}")
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("lookup_cuda needs contiguous table and ids")
+    out_dtype = _out_dtype(table, out_dtype)
     v, w = table.shape
     if v >= 2**31 or w >= 2**31:
         raise ValueError(f"table {tuple(table.shape)} exceeds the kernel's int32 extents")
-    out = torch.empty(*ids.shape, w, dtype=table.dtype, device=table.device)
+    out = torch.empty(*ids.shape, w, dtype=out_dtype, device=table.device)
     if out.numel() == 0:
         return out
+    in_bytes, out_bytes = _DTYPE_BYTES[table.dtype], _DTYPE_BYTES[out_dtype]
+    plan = lookup_plan(ids.numel(), w, in_bytes, out_bytes, aligned=table.data_ptr() % 16 == 0,
+                       n_sms=_sm_count(table.device))
     lib = build.load("embedding_lookup", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.rectpu_lookup_rows(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                                     ids.numel(), v, w, _DTYPE_BYTES[table.dtype], stream)
+                                     ids.numel(), v, w, in_bytes, out_bytes,
+                                     PATHS.index(plan.path), plan.param, plan.blocks,
+                                     plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"embedding_lookup kernel launch failed: cudaError {err}")
     launches.add()
     return out
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` outside autograd (zero rows for out-of-range ids): the
-    plain version for CPU tensors, the gather kernel for CUDA tensors."""
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``table[ids]`` outside autograd (zero rows for out-of-range ids), in
+    ``out_dtype`` (default the table's; float32 -> bfloat16 is the one
+    conversion): the plain version for CPU tensors, the gather kernel for CUDA
+    tensors."""
     if table.device.type == "cpu" and ids.device.type == "cpu":
-        return lookup_take(table, ids)
-    return lookup_cuda(table, ids)
+        return lookup_take(table, ids).to(_out_dtype(table, out_dtype))
+    return lookup_cuda(table, ids, out_dtype)
 
 
 class _Lookup(torch.autograd.Function):
@@ -100,8 +193,11 @@ class _Lookup(torch.autograd.Function):
     def forward(ctx, table, ids, gather_dtype, grad_dtype):
         ctx.save_for_backward(ids)
         ctx.table_meta = (table.shape[0], table.dtype, grad_dtype)
-        source = table.to(gather_dtype) if gather_dtype is not None else table
-        return gather_rows(source.contiguous(), ids)
+        if gather_dtype is None or gather_dtype == table.dtype:
+            return gather_rows(table.contiguous(), ids)
+        if table.dtype == torch.float32 and gather_dtype == torch.bfloat16:
+            return gather_rows(table.contiguous(), ids, gather_dtype)  # rounded in the gather
+        return gather_rows(table.to(gather_dtype).contiguous(), ids)
 
     @staticmethod
     def backward(ctx, g):
@@ -120,7 +216,8 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
     in ``table``.
 
     ``impl`` is the recorded ``embedding_impl``; every value runs the same
-    function. ``gather_dtype`` casts the table before the gather;
+    function. ``gather_dtype`` casts the table before the gather (float32 to
+    bfloat16 inside the gather: the same bits);
     ``grad_dtype`` is the dtype the dense cotangent is rounded to before the
     cast back to the table's dtype (None: fp32). CPU tensors take the plain
     versions, CUDA tensors the kernels (which raise on what they do not

@@ -47,6 +47,7 @@ rectpu's ``_apply_flat`` calls ``fm_cross_flat``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -74,6 +75,7 @@ _SIGNATURES = {
     "rectpu_fm_cross_bwd": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p],
         ctypes.c_int,
     ),
@@ -176,6 +178,104 @@ def fm_cross_cuda(v: torch.Tensor, out_dtype: torch.dtype | None = None) -> torc
     return out
 
 
+# The backward kernel's tile plan (fm.cu, fm_bwd_kernel). A block has
+# BWD_THREADS threads and, for two blocks an SM, at most BWD_SMEM_TWO bytes of
+# shared memory: its mbarriers, BWD_STAGES stages of staged rows, S [TB, K]
+# and g [TB] in fp32. A plan that does not fit two an SM may take the whole
+# BWD_SMEM_MAX of one block; a row that fits neither is not staged.
+BWD_THREADS = 256
+BWD_STAGES = 2
+BWD_BARRIER_BYTES = 128
+BWD_SMEM_TWO = 115_200  # (232,448 - 2 x 1 KB reserved) / 2 on an H100 SM
+BWD_SMEM_MAX = 232_448  # the most one block may have
+BWD_MAX_ROWS = 64  # rows a tile at most
+
+
+@dataclass(frozen=True)
+class FmBwdPlan:
+    """How ``fm_bwd_kernel`` stages v [B, F, K] (strides in elements, already
+    normalised: a size-1 dimension takes the stride of a packed layout).
+
+    ``mode``: "span" copies a tile's rows in one window (stride_b == F *
+    stride_f, stride_f >= K), "rows" one window a row, "direct" stages
+    nothing (a row wider than a stage). ``vec``: 1 when every store writes
+    16 bytes (tiles of rows_per_tile * F * K elements are then 16-byte
+    multiples)."""
+
+    mode: str
+    rows_per_tile: int
+    stages: int
+    stage_bytes: int
+    slot_bytes: int
+    smem_bytes: int
+    vec: int
+    stride_b: int
+    stride_f: int
+    n_tiles: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def fm_bwd_plan(b: int, f: int, k: int, stride_b: int, stride_f: int,
+                elem_bytes: int) -> FmBwdPlan:
+    """The tile plan for v [b, f, k] with the given batch and field strides
+    (elements) and element size: pure Python, mirrored by the kernel."""
+    if f == 1:
+        stride_f = k
+    if b == 1:
+        stride_b = f * stride_f
+    row_bytes = ((f - 1) * stride_f + k) * elem_bytes  # one row's elements, first to last
+    sb = stride_b * elem_bytes
+    span = stride_b == f * stride_f and stride_f >= k
+    q = 16 // elem_bytes  # rows_per_tile a multiple of q: tiles of 16-byte multiples
+    slot = _align16(row_bytes + 15)  # a row's widest window, 16-byte aligned
+
+    def stage_bytes(tb: int) -> int:
+        # a window widened to 16-byte boundaries adds at most 15 bytes in all
+        return _align16((tb - 1) * sb + row_bytes + 15) if span else tb * slot
+
+    def smem(tb: int) -> int:
+        return BWD_BARRIER_BYTES + BWD_STAGES * stage_bytes(tb) + 4 * tb * (k + 1)
+
+    for budget in (BWD_SMEM_TWO, BWD_SMEM_MAX):
+        fits = [tb for tb in range(1, min(BWD_MAX_ROWS, max(b, 1)) + 1) if smem(tb) <= budget]
+        if not fits:
+            continue
+        aligned = [tb for tb in fits if tb % q == 0 or (tb * f * k * elem_bytes) % 16 == 0]
+        tb = max(aligned) if aligned else max(fits)
+        vec = int((tb * f * k * elem_bytes) % 16 == 0)
+        return FmBwdPlan("span" if span else "rows", tb, BWD_STAGES, stage_bytes(tb),
+                         0 if span else slot, _align16(smem(tb)), vec, stride_b, stride_f,
+                         -(-b // tb))
+    return FmBwdPlan("direct", 1, 0, 0, 0, 0, 0, stride_b, stride_f, b)
+
+
+def fm_bwd_windows(plan: FmBwdPlan, b: int, f: int, k: int, elem_bytes: int,
+                   addr: int) -> list[list[tuple[int, int, int]]]:
+    """For each tile, the bulk copies the kernel makes for v at byte address
+    ``addr``: (first byte, bytes, offset in the stage). The kernel computes
+    the same windows from the same formulas (fm.cu, ``issue_tile``)."""
+    if plan.mode == "direct":
+        return []
+    sb = plan.stride_b * elem_bytes
+    row_bytes = ((f - 1) * plan.stride_f + k) * elem_bytes
+    tiles = []
+    for t in range(plan.n_tiles):
+        b0 = t * plan.rows_per_tile
+        rows = min(plan.rows_per_tile, b - b0)
+        first = addr + b0 * sb
+        if plan.mode == "span":
+            lo, hi = first // 16 * 16, _align16(first + (rows - 1) * sb + row_bytes)
+            tiles.append([(lo, hi - lo, 0)])
+        else:
+            tiles.append([((first + r * sb) // 16 * 16,
+                           _align16(first + r * sb + row_bytes) - (first + r * sb) // 16 * 16,
+                           r * plan.slot_bytes) for r in range(rows)])
+    return tiles
+
+
 def fm_cross_bwd_cuda(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the FM backward kernel: v [B, F, K] (strided as for the
     forward), g [B] of any float dtype on the same card -> dv [B, F, K]
@@ -189,12 +289,16 @@ def fm_cross_bwd_cuda(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if dv.numel() == 0:
         return dv
     g32 = g.float().contiguous()
+    plan = fm_bwd_plan(b, f, k, v.stride(0), v.stride(1), v.element_size())
+    mode = ("span", "rows", "direct").index(plan.mode)
     lib = build.load("fm", _SIGNATURES)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.rectpu_fm_cross_bwd(v.data_ptr(), g32.data_ptr(), dv.data_ptr(), b, f, k,
-                                      v.stride(0), v.stride(1), _lanes_per_row(k),
-                                      int(v.dtype == torch.bfloat16), stream)
+                                      plan.stride_b, plan.stride_f,
+                                      int(v.dtype == torch.bfloat16), mode, plan.rows_per_tile,
+                                      plan.stages, plan.stage_bytes, plan.slot_bytes,
+                                      plan.smem_bytes, plan.vec, stream)
     if err != 0:
         raise RuntimeError(f"fm_cross backward kernel launch failed: cudaError {err}")
     bwd_launches.add()
