@@ -16,8 +16,9 @@ kernel and its predecessor are timed by one method in one call:
 - ``step``: bench.py's DeepFM flagship step (chip_smoke.flagship_step), the
   sparse fast step at full width (chip_smoke.fast_step_full_width) and the
   xDeepFM zoo step in fp32 and in bf16 (chip_smoke.zoo_step): median wall,
-  the device's busy time, the device time of the lookup, FM-backward and CIN
-  kernels and of elementwise copies and casts, launches per step.
+  the device's busy time, the device time of the lookup, FM-forward,
+  FM-backward and CIN kernels and of elementwise copies and casts, launches
+  per step.
 
 A tree whose ops/cin.py counts fp32 launches with bf16's (before the fp32
 counters) has its counter read under both names; a tree whose lookup kernel
@@ -102,7 +103,8 @@ def main(argv=None) -> int:
             print(f"{label}: median {res['step_ms']:.4f} ms, {res['examples_per_s']:.0f} "
                   f"examples/s, device busy {prof['device_busy_ms']} ms in "
                   f"{prof['device_launches']:.0f} device launches; device ms: lookup "
-                  f"{prof['lookup_device_ms']:.4f}, FM backward {prof['fm_bwd_device_ms']:.4f}, "
+                  f"{prof['lookup_device_ms']:.4f}, FM forward {prof['fm_fwd_device_ms']:.4f}, "
+                  f"FM backward {prof['fm_bwd_device_ms']:.4f}, "
                   f"CIN {prof['cin_device_ms']:.4f}, elementwise copies and casts "
                   f"{prof['copy_device_ms']:.4f}; top kernels "
                   f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]}; launches per step "

@@ -13,9 +13,14 @@ failed check raises, and the script exits nonzero without the final line:
    lookup on [4224, W] tables, W in {1, 5, 65, 128, 256}, fp32, bf16 and fp32
    rows rounded to bf16, at B in {1, 7, 37, 512, 4096} x 26 fields (bitwise
    and bitwise across launches, NaN and infinities planted in the table,
-   out-of-range ids give zero rows) and the FM on the strided view
-   looked[..., :K] at K in {64, 4} (and a contiguous 28-field input), in
-   fp32 and bf16.
+   out-of-range ids give zero rows) and the FM forward at K in {64, 4,
+   100}, B in {1, 7, 37, 512, 4096, 8192} on the strided view
+   looked[..., :K], the contiguous [B, F+2, K], a view whose start is not
+   16-byte aligned, one of every other row and looked[..., :K] of 2K
+   columns (the fast step's), in fp32 and bf16 (a bf16 v's logit in bf16
+   and in fp32), then one field and one row too wide to stage: bitwise the
+   in-order sums (ops/fm.py::fm_fwd_in_order) and across launches, within
+   fm_tolerance of the plain version.
 3. Training kernels against their plain versions: the scatter at [6144, 65]
    with 4096 x 26 ml-100k ids and at the flagship [311296, 65] with
    8192 x 26 ids, fp32 and bf16, with out-of-range ids and DROP_SENTINEL,
@@ -119,8 +124,10 @@ failed check raises, and the script exits nonzero without the final line:
    lookup also at the flagship step's shape (its fp32 [311296, 65] table
    gathered as bf16, beside the whole-table cast then the kernel) and at
    the fast step's three (the batch's rows and the lazy-Adam rows of the
-   table and of the m|v slab). The fast step's dedupe and lazy-Adam row
-   update are timed whole beside them. The flat FM forward and backward at
+   table and of the m|v slab). The FM forward at B=512 and 4096 in bf16 and
+   fp32, at the flagship step's shape (bf16 B=8192, the logit in fp32) and
+   at the fast step's (fp32 looked[..., :64] of 128 columns, B=8192). The
+   fast step's dedupe and lazy-Adam row update are timed whole beside them. The flat FM forward and backward at
    B=8192, F=26, K=64. Then the device operations of one scatter call (its
    sort and its sums) and of one segment sum, by name, with their count a
    call (torch.profiler).
@@ -293,25 +300,51 @@ def check_kernels(dev, gen) -> dict:
               "bitwise equal to plain (NaN and infinities included), out-of-range ids -> zero "
               "rows")
     for dtype in (torch.float32, torch.bfloat16):
-        for k in (64, 4):
-            for b in (1, 7, 512, 4096):
-                fused = (torch.randn(b, FIELDS, k + 1, generator=gen) * 0.3).to(dtype).to(dev)
-                inputs = [fused[..., :k]]  # the strided view the model hands over
-                if k == K:  # with numeric fields the model concatenates: contiguous
-                    inputs.append((torch.randn(b, FIELDS + 2, k, generator=gen) * 0.3)
-                                  .to(dtype).to(dev))
-                for v in inputs:
-                    got = fm_ops.fm_cross_cuda(v)
-                    want = fm_ops.fm_cross_xla(v)
-                    torch.cuda.synchronize()
-                    check(got.shape == (b,) and got.dtype == dtype, "fm shape/dtype")
-                    err = (got.double() - want.double()).abs()
-                    check(bool((err <= fm_tolerance(v, want)).all()),
-                          f"fm {dtype} B={b} K={k} F={v.shape[1]}: max err {err.max().item()}")
-                    errs["fm_cross"] = max(errs["fm_cross"], err.max().item())
-        print(f"check: fm_cross {dtype} K=64,4 B=1,7,512,4096 within tolerance of plain "
-              f"(max abs err so far {errs['fm_cross']:.3g})")
+        # a bf16 v's logit in bf16 (the model's) or in fp32 (the flat layout's)
+        out_dtypes = (None, torch.float32) if dtype == torch.bfloat16 else (None,)
+        for k in (64, 4, 100):
+            for b in (1, 7, 37, 512, 4096, FLAGSHIP_BATCH):
+                for label, v in fm_fwd_views(b, k, dtype, dev, gen).items():
+                    for out_dtype in out_dtypes:
+                        check_fm_fwd(v, out_dtype, f"fm {dtype} B={b} K={k} {label}", errs)
+        print(f"check: fm_cross {dtype} K=64,4,100 B=1,7,37,512,4096,8192 on the strided, "
+              "contiguous [B, F+2, K], unaligned-start, every-other-row and 2K-column views, "
+              f"out in {'bf16 and fp32' if dtype == torch.bfloat16 else 'fp32'}: bitwise the "
+              "in-order sums and across launches, within tolerance of plain (max abs err so "
+              f"far {errs['fm_cross']:.3g})")
+    # one field; a row wider than any stage of shared memory (not staged)
+    check_fm_fwd((torch.randn(37, 1, K + 1, generator=gen) * 0.3).to(dev)[..., :K], None,
+                 "fm [37, 1, 64] fp32", errs)
+    v = torch.randn(5, FIELDS, 3000, generator=gen).to(dev)
+    check(fm_ops.fm_fwd_plan(5, FIELDS, 3000, v.stride(0), v.stride(1), 4, True).mode
+          == "direct", "fm: a 312 KB row was planned for staging")
+    check_fm_fwd(v, None, "fm [5, 26, 3000] fp32 (unstaged)", errs)
     return errs
+
+
+def fm_fwd_views(b: int, k: int, dtype, dev, gen) -> dict:
+    """The v the FM forward is handed: the backward's four views and the
+    fast step's looked[..., :K] of a row twice as wide (128 columns at K=64,
+    whose fields start on 16 bytes and carry K columns of pad)."""
+    padded = (torch.randn(b, FIELDS, 2 * k, generator=gen) * 0.3).to(dtype).to(dev)
+    return {**fm_bwd_views(b, k, dtype, dev, gen), "looked[:, :, :K] of 2K": padded[..., :k]}
+
+
+def check_fm_fwd(v: torch.Tensor, out_dtype, what: str, errs: dict) -> None:
+    """The FM forward on v: bitwise the in-order sums and across two
+    launches, within fm_tolerance of the plain version."""
+    got = fm_ops.fm_cross_cuda(v, out_dtype)
+    again = fm_ops.fm_cross_cuda(v, out_dtype)
+    want = fm_ops.fm_cross_xla(v, out_dtype)
+    in_order = fm_ops.fm_fwd_in_order(v, out_dtype)
+    torch.cuda.synchronize()
+    what = f"{what} -> {out_dtype or v.dtype}"
+    check(got.shape == (v.shape[0],) and got.dtype == want.dtype, f"{what}: shape/dtype")
+    check(same_bits(got, again), f"{what}: two launches differ")
+    check(same_bits(got, in_order), f"{what}: not bitwise the in-order sums")
+    err = (got.double() - want.double()).abs()
+    check(bool((err <= fm_tolerance(v, want)).all()), f"{what}: max err {err.max().item()}")
+    errs["fm_cross"] = max(errs["fm_cross"], err.max().item())
 
 
 # --- phase 3: training kernels against their plain versions ----------------
@@ -1307,8 +1340,8 @@ def flagship_step(dev, gen, work: Path) -> dict:
 
 def profile_step(trainer, batch, reps: int = 5) -> dict:
     """Device busy ms in one flagship step (torch.profiler), the device ms of
-    the CIN, lookup and FM-backward kernels and of elementwise copies, and
-    the top device kernels by time."""
+    the CIN, lookup, FM-forward and FM-backward kernels and of elementwise
+    copies, and the top device kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1331,7 +1364,8 @@ def profile_step(trainer, batch, reps: int = 5) -> dict:
 
     return {"device_busy_ms": busy if events else None,
             "cin_device_ms": named("cin"),
-            "lookup_device_ms": named("lookup_"), "fm_bwd_device_ms": named("fm_bwd_kernel"),
+            "lookup_device_ms": named("lookup_"), "fm_fwd_device_ms": named("fm_fwd_"),
+            "fm_bwd_device_ms": named("fm_bwd_kernel"),
             # elementwise copies and casts (the table's cast to the compute type among them)
             "copy_device_ms": named("copy_kernel", "elementwise_kernel"),
             "device_launches": sum(e.count for e in events) / reps,
@@ -1661,19 +1695,31 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
             })
             looked = (torch.randn(b, FIELDS, K + 1, generator=gen) * 0.3).to(dtype).to(dev)
             v = looked[..., :K]
-            nbytes = b * FIELDS * K * es + b * es
-            flops = 3 * b * FIELDS * K
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+            ms_b, by = bound(b * FIELDS * K * es + b * es, 3 * b * FIELDS * K)
             rows.append({
                 "name": "fm_cross", "dtype": str(dtype).split(".")[-1], "batch": b,
                 "ms": event_ms(lambda: fm_ops.fm_cross_cuda(v), flush),
                 "warm_ms": event_ms(lambda: fm_ops.fm_cross_cuda(v), None),
                 "plain_ms": event_ms(lambda: fm_ops.fm_cross_xla(v), flush),
-                "library_ms": None,
-                "bound_ms": bound * 1e3,
-                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-                else "operations",
+                "library_ms": None, "bound_ms": ms_b, "bound_by": by,
             })
+    # the flagship step's: its bf16 gather, the logit in fp32; the fast
+    # step's: looked[..., :64] of its 128-column fp32 rows (the bound counts
+    # the K used columns, read once)
+    b = FLAGSHIP_BATCH
+    flagship = (torch.randn(b, FIELDS, K + 1, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
+    fast = (torch.randn(b, FIELDS, 2 * K, generator=gen) * 0.3).to(dev)
+    for v, out_dtype, dtype, shape in (
+            (flagship[..., :K], torch.float32, "bfloat16->float32", "flagship"),
+            (fast[..., :K], None, "float32", f"fast step [{b}, {FIELDS}, {2 * K}][..., :{K}]")):
+        ms_b, by = bound(v.numel() * v.element_size() + b * 4, 3 * v.numel())
+        rows.append({
+            "name": "fm_cross", "dtype": dtype, "batch": b, "shape": shape,
+            "ms": event_ms(lambda: fm_ops.fm_cross_cuda(v, out_dtype), flush),
+            "warm_ms": event_ms(lambda: fm_ops.fm_cross_cuda(v, out_dtype), None),
+            "plain_ms": event_ms(lambda: fm_ops.fm_cross_xla(v, out_dtype), flush),
+            "library_ms": None, "bound_ms": ms_b, "bound_by": by,
+        })
     return floor, rows
 
 
@@ -2226,7 +2272,9 @@ def main(argv=None) -> int:
               f"{flag['step_ms']:.4f} ms, {flag['examples_per_s']:.0f} examples/s; launches per "
               f"step {flag['launches_per_step']}; device busy "
               f"{'not measured' if busy is None else f'{busy:.4f} ms'} per step in "
-              f"{flag['profile']['device_launches']:.0f} device launches; top kernels "
+              f"{flag['profile']['device_launches']:.0f} device launches (FM forward "
+              f"{flag['profile']['fm_fwd_device_ms']:.4f} ms, FM backward "
+              f"{flag['profile']['fm_bwd_device_ms']:.4f} ms); top kernels "
               f"{[(k, round(t, 4)) for k, t in flag['profile']['top_kernels_ms']]}; host: "
               f"{flag['profile']['host_aten_ops']:.0f} aten ops per step, by own CPU ms "
               f"{[(k, n, round(t, 3)) for k, n, t in flag['profile']['top_host_ops_ms']]} "
@@ -2284,7 +2332,9 @@ def main(argv=None) -> int:
               f"{BIG_BATCH}, capacity {fast['capacity']} rows): median {fast['step_ms']:.4f} ms "
               f"over {BIG_STEPS} steps, {fast['examples_per_s']:.0f} examples/s; launches per "
               f"step {fast['launches_per_step']}; device busy {busy_txt} per step in "
-              f"{fast['profile']['device_launches']:.0f} device launches; top kernels "
+              f"{fast['profile']['device_launches']:.0f} device launches (FM forward "
+              f"{fast['profile']['fm_fwd_device_ms']:.4f} ms, FM backward "
+              f"{fast['profile']['fm_bwd_device_ms']:.4f} ms); top kernels "
               f"{[(k, round(t, 4)) for k, t in fast['profile']['top_kernels_ms']]}; host: "
               f"{fast['profile']['host_aten_ops']:.0f} aten ops per step; one step changed "
               f"{fast['rows_changed_by_a_step']} of the {fast['rows_touched_by_a_step']} rows "

@@ -20,15 +20,42 @@
 // B=8192, F=26, K=64 in bf16 the forward moves 27.3 MB (0.0082 ms at 3.35
 // TB/s) and the backward 54.5 MB (0.0163 ms).
 //
-// Forward design: the TPU kernel reduced a [TB, F, K] block held in VMEM,
-// with K on the 128 lanes. Here a group of G lanes (G a power of two <= 32,
-// G >= K when K is small, chosen by the wrapper) owns one batch row: lane j
-// of the group takes columns k = j, j+G, ..., and for each one loops over
-// the F fields, accumulating S = sum_f v and Q = sum_f v^2 in fp32
-// registers; it then adds S*S - Q to a per-lane partial. A warp-shuffle
-// (xor) reduction within the group sums the partials over k, and the
-// group's first lane writes the row. At K=64 a warp owns one row; at K=4 a
-// warp packs 8 rows. Each block of 8 warps takes 8 * (32 / G) rows.
+// Forward design. The TPU kernel reduced a [TB, F, K] block held in VMEM,
+// with K on the 128 lanes. Here the forward moves few bytes a row (3.3 KB in
+// bf16 at F=26, K=64) and does little with them, so what held the earlier
+// kernel back was latency: a warp a row, each lane walking the fields one
+// 2-byte load at a time, four in flight. Now a row's bytes are asked for in
+// one or two round trips, with tens of KB in flight on every SM, in one of
+// three modes that ops/fm.py::fm_fwd_plan picks from the strides and the
+// alignment:
+// - span / rows (fm_fwd_kernel): the model's looked[..., :K] (rows 130 bytes
+//   apart in bf16, so no vector load lines up) and every view that is not
+//   "fields". Block j takes tiles j, j + gridDim.x, ... of rows_per_tile rows;
+//   thread 0 asks for a whole tile at once by TMA (copy_rows, shared with the
+//   backward: one bulk copy of the tile's span when stride_b == F * stride_f,
+//   one a row otherwise, windows widened to 16 bytes as below) into its
+//   stage; phase 1 forms each (row, k) term from shared memory, four
+//   independent sums a thread, and the block's next tile is asked for; phase
+//   2 sums a row's terms, a warp a row. The plan sizes the tiles so that the
+//   grid holds several blocks an SM even at B=512, each with about one tile,
+//   all asked for at once.
+// - fields (fm_fwd_vec_kernel): every (row, field) run of K values starts on
+//   16 bytes, the fields carry pad between them and a run is at most 32
+//   vectors (the fast step's looked[..., :64] of 128 fp32 columns). Staging
+//   would copy the pad; instead each lane reads one 16-byte vector of a run
+//   straight from device memory, 16 fields before it adds any, and no pad is
+//   read.
+// - direct (fm_fwd_direct_kernel): a row wider than any stage, or no fields
+//   or columns: single values straight from device memory, 16 fields a lane
+//   before it adds any.
+//
+// Forward numerics, the same in every mode and fixed by K alone: for each
+// (b, k), S = sum_f v and Q = sum_f v*v over f = 0 .. F-1 in order from
+// 0.0f, then the term S*S - Q, each product and sum rounded to fp32 (no
+// fused multiply-add); lane j of a warp adds the terms k = j, j+32, ... in
+// order from 0.0f, the 32 partials are added by xor shuffles over 16, 8, 4,
+// 2, 1 lanes, and 0.5 times the sum is rounded once to out's type. The CPU
+// emulation ops/fm.py::fm_fwd_in_order computes the same bits.
 //
 // Backward design (fm_bwd_kernel). The model's v rows lie K+1 elements
 // apart (130 bytes in bf16), so no vector load lines up with them and an
@@ -84,7 +111,8 @@
 // MB) and writes out and S (1.1 MB): 0.0085 ms at 3.35 TB/s; the backward
 // reads v2, S and g and writes dv2 (55.6 MB): 0.0166 ms.
 //
-// Design: one group of G lanes per batch row, as above, but each lane owns
+// Design: one group of G lanes per batch row (G a power of two <= 32, chosen
+// by the wrapper to cover a row's vectors), each lane owning
 // V consecutive columns k (a 16-byte vector: V = 8 bf16 or 4 fp32) when K %
 // V == 0 and the rows are 16-byte aligned, else V = 1. Lane j of the group
 // takes the vectors kv = j, j+G, ... of the K/V in a row; for each it walks
@@ -113,36 +141,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-template <typename T, typename TOut>
-__global__ void fm_fwd_kernel(const T* __restrict__ v, TOut* __restrict__ out,
-                              int n_rows, int n_fields, int k_dim,
-                              int64_t stride_b, int64_t stride_f, int group) {
-  const int lane = threadIdx.x & 31;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int row = warp * (32 / group) + lane / group;
-  const int k0 = lane & (group - 1);
-  float acc = 0.0f;
-  if (row < n_rows) {
-    const T* base = v + static_cast<int64_t>(row) * stride_b;
-    for (int k = k0; k < k_dim; k += group) {
-      float s = 0.0f;
-      float q = 0.0f;
-#pragma unroll 4
-      for (int f = 0; f < n_fields; ++f) {
-        const float x = to_float(base[static_cast<int64_t>(f) * stride_f + k]);
-        s += x;
-        q += x * x;
-      }
-      acc += s * s - q;
-    }
-  }
-  // every lane of the warp takes part, rows past n_rows with acc = 0
-  for (int off = group >> 1; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (row < n_rows && k0 == 0) out[row] = from_float<TOut>(0.5f * acc);
 }
 
 // V consecutive values of a row as fp32: one 16-byte load when V > 1 (the
@@ -228,44 +226,53 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Thread 0 starts the copies of this block's local tile i into stage
-// i % stages: one copy of the tile's whole span (kBwdSpan) or one a row
-// (kBwdRows), each window widened down and up to 16-byte boundaries (see the
-// header), all completing on the stage's mbarrier.
-template <typename T>
-__device__ void issue_tile(const BwdArgs& a, unsigned char* stages, uint64_t* bars, int i,
-                           int n_tiles, int row_bytes) {
-  const int tile = blockIdx.x + i * gridDim.x;
-  if (tile >= n_tiles) return;
-  const int s = i % a.stages;
-  unsigned char* dst = stages + s * a.stage_bytes;
-  const int64_t b0 = static_cast<int64_t>(tile) * a.rows_per_tile;
-  const int rows = static_cast<int>(a.n_rows - b0 < a.rows_per_tile ? a.n_rows - b0
-                                                                     : a.rows_per_tile);
-  const int64_t sb = a.stride_b * static_cast<int64_t>(sizeof(T));
-  const uintptr_t first = reinterpret_cast<uintptr_t>(a.v) + b0 * sb;
+// Thread 0 starts the copies of `rows` rows of v, the first at byte address
+// `first` and each sb bytes after the last, row_bytes from a row's first
+// element to its last, into dst: one copy of their whole span (span) or one a
+// row, slot_bytes apart; each window widened down and up to 16-byte
+// boundaries (see the header), all completing on the mbarrier `bar`. The
+// plan's fm_bwd_windows replays these windows.
+__device__ void copy_rows(unsigned char* dst, uint64_t* bar, uintptr_t first, int rows,
+                          int64_t sb, int row_bytes, bool span, int slot_bytes) {
   const uintptr_t mask = ~static_cast<uintptr_t>(15);
-  // the stage's last reads (generic proxy) come before the copy's writes
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (a.mode == kBwdSpan) {
+  if (span) {
     const uintptr_t lo = first & mask;
     const uintptr_t hi = (first + (rows - 1) * sb + row_bytes + 15) & mask;
-    bar_expect(&bars[s], static_cast<uint32_t>(hi - lo));
-    bulk_load(dst, reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo), &bars[s]);
+    bar_expect(bar, static_cast<uint32_t>(hi - lo));
+    bulk_load(dst, reinterpret_cast<const void*>(lo), static_cast<uint32_t>(hi - lo), bar);
   } else {
     uint32_t total = 0;
     for (int r = 0; r < rows; ++r) {
       const uintptr_t at = first + r * sb;
       total += static_cast<uint32_t>(((at + row_bytes + 15) & mask) - (at & mask));
     }
-    bar_expect(&bars[s], total);
+    bar_expect(bar, total);
     for (int r = 0; r < rows; ++r) {
       const uintptr_t at = first + r * sb;
       const uintptr_t lo = at & mask;
-      bulk_load(dst + r * a.slot_bytes, reinterpret_cast<const void*>(lo),
-                static_cast<uint32_t>(((at + row_bytes + 15) & mask) - lo), &bars[s]);
+      bulk_load(dst + r * slot_bytes, reinterpret_cast<const void*>(lo),
+                static_cast<uint32_t>(((at + row_bytes + 15) & mask) - lo), bar);
     }
   }
+}
+
+// Thread 0 starts the copies of this block's local tile i into stage
+// i % stages (copy_rows: one copy of the tile's span in kBwdSpan, one a row
+// in kBwdRows), completing on the stage's mbarrier.
+template <typename T>
+__device__ void issue_tile(const BwdArgs& a, unsigned char* stages, uint64_t* bars, int i,
+                           int n_tiles, int row_bytes) {
+  const int tile = blockIdx.x + i * gridDim.x;
+  if (tile >= n_tiles) return;
+  const int s = i % a.stages;
+  const int64_t b0 = static_cast<int64_t>(tile) * a.rows_per_tile;
+  const int rows = static_cast<int>(a.n_rows - b0 < a.rows_per_tile ? a.n_rows - b0
+                                                                     : a.rows_per_tile);
+  const int64_t sb = a.stride_b * static_cast<int64_t>(sizeof(T));
+  // the stage's last reads (generic proxy) come before the copy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  copy_rows(stages + s * a.stage_bytes, &bars[s], reinterpret_cast<uintptr_t>(a.v) + b0 * sb,
+            rows, sb, row_bytes, a.mode == kBwdSpan, a.slot_bytes);
 }
 
 // dv = g * (S - v) on tiles of rows_per_tile rows staged in shared memory
@@ -440,6 +447,280 @@ __global__ void __launch_bounds__(kBwdThreads) fm_bwd_kernel(BwdArgs a) {
   }
 }
 
+// --- the forward -------------------------------------------------------------
+
+constexpr int kFwdThreads = 256;        // a block of the staged modes
+constexpr int kFwdDirectThreads = 64;   // a block of the direct and vector modes
+constexpr int kFwdBarrierBytes = 128;   // the stage's mbarrier, ahead of the stage
+constexpr int kFwdSums = 4;    // independent (row, column) sums a thread carries
+constexpr int kFwdGroup = 16;  // fields a lane loads before it adds them
+enum FwdMode : int { kFwdSpan = 0, kFwdRows = 1, kFwdFields = 2, kFwdDirect = 3 };
+
+struct FwdArgs {
+  const void* v;
+  void* out;
+  int n_rows, n_fields, k_dim;
+  long long stride_b, stride_f;  // elements
+  int mode, rows_per_tile, stage_bytes, slot_bytes, group;
+};
+
+// Thread 0 starts the bulk copies of this block's local tile i into the
+// stage (copy_rows: one copy of the tile's span, or one a row), which
+// complete on the stage's mbarrier.
+template <typename T>
+__device__ void issue_fwd_tile(const FwdArgs& a, unsigned char* stage, uint64_t* bar, int i,
+                               int n_tiles) {
+  const int tile = blockIdx.x + i * gridDim.x;
+  if (tile >= n_tiles) return;
+  constexpr int es = sizeof(T);
+  const int64_t b0 = static_cast<int64_t>(tile) * a.rows_per_tile;
+  const int rows = static_cast<int>(a.n_rows - b0 < a.rows_per_tile ? a.n_rows - b0
+                                                                     : a.rows_per_tile);
+  const int64_t sb = a.stride_b * es;
+  // the stage's last reads (generic proxy) come before the copy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  copy_rows(stage, bar, reinterpret_cast<uintptr_t>(a.v) + b0 * sb, rows, sb,
+            ((a.n_fields - 1) * static_cast<int>(a.stride_f) + a.k_dim) * es,
+            a.mode == kFwdSpan, a.slot_bytes);
+}
+
+// Phase 1 for NC (row, column) pairs p, p + kFwdThreads, ... of a tile: S
+// and Q over f in order from 0.0f, each product and sum rounded to fp32 (no
+// fused multiply-add), and the term S*S - Q into terms[p]. row_off(r): where
+// row r begins in shared memory; sf: bytes from a field to the next there.
+template <typename T, int NC, typename RowOff>
+__device__ __forceinline__ void fwd_terms(const unsigned char* smem, float* terms, int p, int K,
+                                          int F, int sf, RowOff row_off) {
+  constexpr int es = sizeof(T);
+  int off[NC];
+  float s[NC], q[NC];
+#pragma unroll
+  for (int u = 0; u < NC; ++u) {
+    const int pu = p + u * kFwdThreads;
+    const int r = pu / K;
+    off[u] = row_off(r) + (pu - r * K) * es;
+    s[u] = 0.0f;
+    q[u] = 0.0f;
+  }
+#pragma unroll 8
+  for (int f = 0; f < F; ++f) {
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const float x = to_float(*reinterpret_cast<const T*>(smem + off[u] + f * sf));
+      s[u] = __fadd_rn(s[u], x);
+      q[u] = __fadd_rn(q[u], __fmul_rn(x, x));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NC; ++u) terms[p + u * kFwdThreads] = __fsub_rn(__fmul_rn(s[u], s[u]), q[u]);
+}
+
+// The staged modes: block j takes tiles j, j + gridDim.x, ... of
+// rows_per_tile rows, each copied into its stage in shared memory
+// (copy_rows) once the last one's terms are formed; phase 1 forms each (row,
+// column) term from shared memory, phase 2 sums a row's terms (see the
+// header for the order).
+template <typename T, typename TOut>
+__global__ void __launch_bounds__(kFwdThreads) fm_fwd_kernel(FwdArgs a) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int F = a.n_fields, K = a.k_dim;
+  constexpr int es = sizeof(T);
+  TOut* out = static_cast<TOut*>(a.out);
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stage = smem + kFwdBarrierBytes;
+  float* terms = reinterpret_cast<float*>(stage + a.stage_bytes);  // [rows][K]
+  const int tb = a.rows_per_tile;
+  const int n_tiles = (a.n_rows + tb - 1) / tb;
+  const int64_t sb = a.stride_b * es;
+  const int sf = static_cast<int>(a.stride_f) * es;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(1u)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    issue_fwd_tile<T>(a, stage, bar, 0, n_tiles);
+  }
+  __syncthreads();  // the mbarrier is initialised before any thread waits on it
+
+  for (int i = 0;; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    if (tile >= n_tiles) break;
+    const int64_t b0 = static_cast<int64_t>(tile) * tb;
+    const int rows = static_cast<int>(a.n_rows - b0 < tb ? a.n_rows - b0 : tb);
+    // the low bits of the tile's first address fix where a widened window put
+    // each row
+    const uint32_t first = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(a.v) + b0 * sb);
+    auto row_off = [&](int r) -> int {
+      if (a.mode == kFwdSpan) {
+        return kFwdBarrierBytes + static_cast<int>(first & 15) + r * static_cast<int>(sb);
+      }
+      return kFwdBarrierBytes + r * a.slot_bytes +
+             static_cast<int>((first + static_cast<uint32_t>(r) * static_cast<uint32_t>(sb)) & 15);
+    };
+    bar_wait(bar, i & 1);
+
+    // phase 1: each (row, column) term; a thread takes the pairs tid, tid +
+    // kFwdThreads, ..., up to kFwdSums at once
+    const int n_sum = rows * K;
+    int p = tid;
+    int left = n_sum > tid ? (n_sum - tid + kFwdThreads - 1) / kFwdThreads : 0;
+    for (; left >= kFwdSums; left -= kFwdSums, p += kFwdSums * kFwdThreads) {
+      fwd_terms<T, kFwdSums>(smem, terms, p, K, F, sf, row_off);
+    }
+    if (left == 3) fwd_terms<T, 3>(smem, terms, p, K, F, sf, row_off);
+    if (left == 2) fwd_terms<T, 2>(smem, terms, p, K, F, sf, row_off);
+    if (left == 1) fwd_terms<T, 1>(smem, terms, p, K, F, sf, row_off);
+    __syncthreads();  // every read of this stage is done, every term written
+    if (tid == 0) issue_fwd_tile<T>(a, stage, bar, i + 1, n_tiles);
+
+    // phase 2: a warp a row; lane j adds the terms k = j, j + 32, ... in
+    // order from 0.0f, then xor shuffles over 16, 8, 4, 2, 1 lanes; one
+    // rounding to out's type
+    for (int r = warp; r < rows; r += kFwdThreads / 32) {
+      float sum = 0.0f;
+      for (int k = lane; k < K; k += 32) sum = __fadd_rn(sum, terms[r * K + k]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      }
+      if (lane == 0) out[b0 + r] = from_float<TOut>(0.5f * sum);
+    }
+    __syncthreads();  // every term is read before the next tile's are written
+  }
+}
+
+// The "fields" mode: every (row, field) run of K values starts on 16 bytes,
+// so v is read straight from device memory in 16-byte vectors of V = 16 /
+// sizeof(T) columns, and no pad is read. `group` lanes take a row (K / V
+// rounded up to a power of two, at least C = 32 / V); lane i takes vector i,
+// its kFwdGroup fields loaded before any is added. The sum over k keeps the
+// staged modes' order: the partial of warp lane j = V*c + e (c < C) is the
+// terms k = j, j + 32, ... in order, which are element e of the vectors c, c
+// + C, c + 2C, ..., so lane c adds them in that order by shuffles; the xor
+// shuffles over 16 ... V lanes become shuffles over lanes c ^ (off / V), and
+// those over V/2 ... 1 adds of elements e and e ^ off within a lane.
+template <typename T, typename TOut>
+__global__ void __launch_bounds__(kFwdDirectThreads) fm_fwd_vec_kernel(FwdArgs a) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int C = 32 / V;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int F = a.n_fields, K = a.k_dim;
+  TOut* out = static_cast<TOut*>(a.out);
+  const int group = a.group;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + tid) / group;
+  const int i = lane & (group - 1);
+  float d[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) d[e] = 0.0f;
+  if (row < a.n_rows && i * V < K) {
+    const T* base = static_cast<const T*>(a.v) + row * a.stride_b + i * V;
+    float s[V], q[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      s[e] = 0.0f;
+      q[e] = 0.0f;
+    }
+    for (int f0 = 0; f0 < F; f0 += kFwdGroup) {
+      uint4 raw[kFwdGroup];
+#pragma unroll
+      for (int g = 0; g < kFwdGroup; ++g) {
+        if (f0 + g < F) raw[g] = __ldg(reinterpret_cast<const uint4*>(base + (f0 + g) * a.stride_f));
+      }
+#pragma unroll
+      for (int g = 0; g < kFwdGroup; ++g) {
+        if (f0 + g < F) {
+          const T* x = reinterpret_cast<const T*>(&raw[g]);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float xe = to_float(x[e]);
+            s[e] = __fadd_rn(s[e], xe);
+            q[e] = __fadd_rn(q[e], __fmul_rn(xe, xe));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) d[e] = __fsub_rn(__fmul_rn(s[e], s[e]), q[e]);
+  }
+  // the partials: lane c < C adds the terms of lanes c, c + C, ... in order
+  const int first = lane - i;  // the row's first lane
+  float p[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) p[e] = __fadd_rn(0.0f, d[e]);
+  for (int m = C; m < group; m += C) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      p[e] = __fadd_rn(p[e], __shfl_sync(0xffffffffu, d[e], first + ((i + m) & (group - 1))));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off >= V; off >>= 1) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = __fadd_rn(p[e], __shfl_xor_sync(0xffffffffu, p[e], off / V));
+  }
+#pragma unroll
+  for (int off = V / 2; off > 0; off >>= 1) {
+    float t[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) t[e] = __fadd_rn(p[e], p[e ^ off]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = t[e];
+  }
+  if (row < a.n_rows && i == 0) out[row] = from_float<TOut>(0.5f * p[0]);
+}
+
+// The direct mode (a row wider than any stage, or no fields or columns): v
+// read straight from device memory, `group` lanes a row (a warp from K = 17
+// on), lane j taking the columns k = j, j + group, ... two at a time, each
+// pair's kFwdGroup fields loaded before any is added. The same order of sums
+// (a group's xor shuffles are the warp's with the lanes past K adding zero).
+template <typename T, typename TOut>
+__global__ void __launch_bounds__(kFwdDirectThreads) fm_fwd_direct_kernel(FwdArgs a) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int F = a.n_fields, K = a.k_dim;
+  TOut* out = static_cast<TOut*>(a.out);
+  const int group = a.group;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x + tid) / group;
+  const int j = lane & (group - 1);
+  float p = 0.0f;
+  if (row < a.n_rows) {
+    const T* base = static_cast<const T*>(a.v) + row * a.stride_b;
+    for (int k = j; k < K; k += 2 * group) {
+      const bool two = k + group < K;
+      float s0 = 0.0f, q0 = 0.0f, s1 = 0.0f, q1 = 0.0f;
+      for (int f0 = 0; f0 < F; f0 += kFwdGroup) {
+        T x0[kFwdGroup], x1[kFwdGroup];
+#pragma unroll
+        for (int g = 0; g < kFwdGroup; ++g) {
+          const T* at = base + (f0 + g) * a.stride_f + k;
+          if (f0 + g < F) x0[g] = *at;
+          if (f0 + g < F && two) x1[g] = at[group];
+        }
+#pragma unroll
+        for (int g = 0; g < kFwdGroup; ++g) {
+          if (f0 + g < F) {
+            const float x = to_float(x0[g]);
+            s0 = __fadd_rn(s0, x);
+            q0 = __fadd_rn(q0, __fmul_rn(x, x));
+            if (two) {
+              const float y = to_float(x1[g]);
+              s1 = __fadd_rn(s1, y);
+              q1 = __fadd_rn(q1, __fmul_rn(y, y));
+            }
+          }
+        }
+      }
+      p = __fadd_rn(p, __fsub_rn(__fmul_rn(s0, s0), q0));
+      if (two) p = __fadd_rn(p, __fsub_rn(__fmul_rn(s1, s1), q1));
+    }
+  }
+  // every lane of the warp takes part, rows past n_rows with p = 0
+  for (int off = group >> 1; off > 0; off >>= 1) {
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
+  }
+  if (row < a.n_rows && j == 0) out[row] = from_float<TOut>(0.5f * p);
+}
+
 template <typename T, int V>
 __global__ void fm_flat_fwd_kernel(const T* __restrict__ v2, float* __restrict__ out,
                                    T* __restrict__ s_out, int n_rows, int n_fields,
@@ -551,6 +832,26 @@ int launch_bwd(const BwdArgs& a, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grid is the plan's: in the staged modes block j takes tiles j, j +
+// blocks, ...; in the others a block takes kFwdDirectThreads / group rows.
+template <typename T, typename TOut>
+int launch_fwd(const FwdArgs& a, int smem, int blocks, cudaStream_t stream) {
+  if (a.mode == kFwdFields) {
+    fm_fwd_vec_kernel<T, TOut><<<blocks, kFwdDirectThreads, 0, stream>>>(a);
+  } else if (a.mode == kFwdDirect) {
+    fm_fwd_direct_kernel<T, TOut><<<blocks, kFwdDirectThreads, 0, stream>>>(a);
+  } else {
+    auto kernel = fm_fwd_kernel<T, TOut>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<blocks, kFwdThreads, smem, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int flat_blocks(int n_rows, int group) {
   const int rows_per_block = (kThreads / 32) * (32 / group);
   return (n_rows + rows_per_block - 1) / rows_per_block;
@@ -560,32 +861,49 @@ int flat_blocks(int n_rows, int group) {
 
 // v: [n_rows, n_fields, k_dim] with strides (stride_b, stride_f, 1) in
 // elements; out: [n_rows] contiguous, in v's type, or fp32 when out_is_f32.
-// is_bf16 selects bf16 over fp32 for v. group: lanes per row, a power of two
-// in [1, 32]. Returns a cudaError_t as int (0 = ok).
-extern "C" int rectpu_fm_cross(const void* v, void* out, int n_rows, int n_fields,
-                               int k_dim, long long stride_b, long long stride_f,
-                               int group, int is_bf16, int out_is_f32, void* stream) {
+// is_bf16 selects bf16 over fp32 for v. The tile plan comes from
+// rectpu_torch/ops/fm.py (fm_fwd_plan): mode 0 copies each tile's span of
+// rows_per_tile rows in one bulk copy, mode 1 each row in its own (rows
+// slot_bytes apart), into a stage of stage_bytes; smem_bytes the block's
+// dynamic shared memory. Mode 2 reads 16-byte vectors
+// straight from device memory (v, both strides and a run of k_dim values
+// 16-byte multiples), mode 3 single values, `group` lanes a row. `blocks`:
+// the grid. Returns a cudaError_t as int (0 = ok).
+extern "C" int rectpu_fm_cross(const void* v, void* out, int n_rows, int n_fields, int k_dim,
+                               long long stride_b, long long stride_f, int is_bf16,
+                               int out_is_f32, int mode, int rows_per_tile, int stage_bytes,
+                               int slot_bytes, int smem_bytes, int group, int blocks,
+                               void* stream) {
   if (n_rows == 0) return static_cast<int>(cudaSuccess);
-  if (group < 1 || group > 32 || (group & (group - 1)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = is_bf16 ? 2 : 4;
+  const long long row_bytes = ((n_fields - 1) * stride_f + k_dim) * es;
+  const long long r = rows_per_tile;
+  const long long rows_per_block = bad_group(group) ? 0 : kFwdDirectThreads / group;
+  bool ok = false;
+  if (mode == kFwdDirect) {
+    ok = rows_per_block > 0 && blocks * rows_per_block >= n_rows;
+  } else if (mode == kFwdFields) {
+    ok = rows_per_block > 0 && blocks * rows_per_block >= n_rows &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0 && (k_dim * es) % 16 == 0 &&
+         (stride_f * es) % 16 == 0 && (n_rows == 1 || (stride_b * es) % 16 == 0) &&
+         group >= 32 / (16 / es) && group * (16 / es) >= k_dim;
+  } else if (n_fields >= 1 && k_dim >= 1 && rows_per_tile >= 1 && blocks >= 1 &&
+             stage_bytes % 16 == 0 && slot_bytes % 16 == 0 &&
+             smem_bytes >= kFwdBarrierBytes + stage_bytes + 4 * rows_per_tile * k_dim) {
+    if (mode == kFwdSpan) {
+      ok = stride_b == n_fields * stride_f && stride_f >= k_dim &&
+           (r - 1) * stride_b * es + row_bytes + 15 <= stage_bytes;
+    } else if (mode == kFwdRows) {
+      ok = row_bytes + 15 <= slot_bytes && r * slot_bytes <= stage_bytes;
+    }
   }
-  const int rows_per_block = (kThreads / 32) * (32 / group);
-  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{v,    out,           n_rows,      n_fields,   k_dim, stride_b,
+                  stride_f, mode, rows_per_tile, stage_bytes, slot_bytes, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && !out_is_f32) {
-    fm_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        n_rows, n_fields, k_dim, stride_b, stride_f, group);
-  } else if (is_bf16) {
-    fm_fwd_kernel<__nv_bfloat16, float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), n_rows, n_fields,
-        k_dim, stride_b, stride_f, group);
-  } else {
-    fm_fwd_kernel<float, float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(v), static_cast<float*>(out), n_rows, n_fields,
-        k_dim, stride_b, stride_f, group);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (!is_bf16) return launch_fwd<float, float>(a, smem_bytes, blocks, s);
+  return out_is_f32 ? launch_fwd<__nv_bfloat16, float>(a, smem_bytes, blocks, s)
+                    : launch_fwd<__nv_bfloat16, __nv_bfloat16>(a, smem_bytes, blocks, s);
 }
 
 // v: [n_rows, n_fields, k_dim] with strides (stride_b, stride_f, 1) in

@@ -9,7 +9,9 @@ choices; in the port each one runs this module's ``fm_cross``, a
 
   - on CUDA tensors, the hand-written kernels of ``kernels/csrc/fm.cu``: the
     forward (the port of the Pallas ``_fm_fwd_kernel``,
-    ``rectpu/ops/fm.py:271``) and the backward (``_fm_bwd_kernel``, :281);
+    ``rectpu/ops/fm.py:271``; three kernels, one a mode of ``fm_fwd_plan``,
+    with one order of sums, which ``fm_fwd_in_order`` reproduces) and the
+    backward (``_fm_bwd_kernel``, :281);
   - on CPU tensors, their plain versions ``fm_cross_xla`` and
     ``fm_cross_bwd_xla``.
 
@@ -47,6 +49,7 @@ rectpu's ``_apply_flat`` calls ``fm_cross_flat``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -69,6 +72,7 @@ _SIGNATURES = {
     "rectpu_fm_cross": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p],
         ctypes.c_int,
     ),
@@ -109,6 +113,30 @@ def fm_cross_xla(v: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch
     s = v32.sum(dim=1)
     square_sum = (v32 * v32).sum(dim=1)
     return (0.5 * (s * s - square_sum).sum(dim=-1)).to(_out_dtype(v, out_dtype))
+
+
+def fm_fwd_in_order(v: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch (``fm.cu``'s header),
+    so its bits on finite inputs: for each (b, k), S and Q summed over f = 0
+    .. F-1 one fp32 add at a time from 0, the term S*S - Q; partial j of 32
+    adds the terms k = j, j+32, ... in order from 0; the partials are added
+    in halves (16, 8, 4, 2, 1: the kernel's xor shuffles); 0.5 times the sum
+    is rounded once to ``out_dtype`` (default v's dtype)."""
+    b, f, k = v.shape
+    s = torch.zeros(b, k, dtype=torch.float32, device=v.device)
+    q = torch.zeros_like(s)
+    for i in range(f):
+        x = v[:, i, :].float()
+        s = s + x
+        q = q + x * x
+    terms = s * s - q
+    p = torch.zeros(b, 32, dtype=torch.float32, device=v.device)
+    for k0 in range(0, k, 32):
+        chunk = terms[:, k0:k0 + 32]
+        p[:, :chunk.shape[1]] = p[:, :chunk.shape[1]] + chunk
+    for half in (16, 8, 4, 2, 1):
+        p = p[:, :half] + p[:, half:2 * half]
+    return (0.5 * p[:, 0]).to(_out_dtype(v, out_dtype))
 
 
 def fm_cross_bwd_xla(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -153,29 +181,128 @@ def _check_v(v: torch.Tensor, who: str) -> None:
 
 
 def fm_cross_cuda(v: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Launch the FM forward kernel on v [B, F, K], fp32 or bf16, on a CUDA
-    device; the result in v's dtype or fp32.
+    """Launch the FM forward on v [B, F, K], fp32 or bf16, on a CUDA device;
+    the result in v's dtype or fp32.
 
     v may be a strided view (``looked[..., :K]`` of the fused gather): the
-    batch and field strides go to the kernel, and only the innermost stride
-    must be 1. Raises on anything the kernel does not take."""
+    batch and field strides go to the kernel that ``fm_fwd_plan`` picks for
+    them, with its plan, and only the innermost stride must be 1. Raises on
+    anything the kernels do not take."""
     _check_v(v, "fm_cross_cuda")
     out_dtype = _out_dtype(v, out_dtype)
     b, f, k = v.shape
     out = torch.empty(b, dtype=out_dtype, device=v.device)
     if b == 0:
         return out
+    plan = fm_fwd_plan(b, f, k, v.stride(0), v.stride(1), v.element_size(),
+                       v.data_ptr() % 16 == 0,
+                       torch.cuda.get_device_properties(v.device).multi_processor_count)
     lib = build.load("fm", _SIGNATURES)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        err = lib.rectpu_fm_cross(v.data_ptr(), out.data_ptr(), b, f, k, v.stride(0),
-                                  v.stride(1), _lanes_per_row(k),
-                                  int(v.dtype == torch.bfloat16),
-                                  int(out_dtype == torch.float32), stream)
+        err = lib.rectpu_fm_cross(v.data_ptr(), out.data_ptr(), b, f, k, plan.stride_b,
+                                  plan.stride_f, int(v.dtype == torch.bfloat16),
+                                  int(out_dtype == torch.float32), FWD_MODES.index(plan.mode),
+                                  plan.rows_per_tile, plan.stage_bytes, plan.slot_bytes,
+                                  plan.smem_bytes, plan.group, plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"fm_cross kernel launch failed: cudaError {err}")
     launches.add()
     return out
+
+
+# The forward kernel's plan (fm.cu). The staged modes: a block of
+# FWD_THREADS threads takes tiles of rows_per_tile rows in turn through one
+# stage; its shared memory holds the mbarrier, the stage and the terms
+# [TB, K] in fp32. A tile is at most FWD_TILE_BYTES and as large as
+# leaves a tile for each of FWD_BLOCKS_PER_SM blocks an SM, so that every SM
+# has several tiles' copies in flight at once even at B=512 (the values timed
+# best of those tried on an H100, PERF.md §6). The "fields" and "direct"
+# modes read device memory straight, FWD_DIRECT_THREADS threads a block,
+# `group` lanes a row.
+FWD_THREADS = 256
+FWD_DIRECT_THREADS = 64
+FWD_BARRIER_BYTES = 128
+FWD_TILE_BYTES = 32 * 1024
+FWD_BLOCKS_PER_SM = 8
+FWD_MAX_ROWS = 64
+FWD_MODES = ("span", "rows", "fields", "direct")  # fm.cu's FwdMode, in order
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class FmFwdPlan:
+    """How the forward kernels read v [B, F, K] (strides in elements,
+    normalised as in ``fm_bwd_plan``).
+
+    ``mode``: "span" and "rows" stage tiles in shared memory as the backward
+    does (one copy a tile, or one a row); "fields" reads each (row, field)
+    run of K values in 16-byte vectors straight from device memory (v, both
+    strides and a run 16-byte multiples, a run at most 32 vectors) and
+    reads no pad; "direct" reads single values straight from device memory
+    (a row wider than any stage, or no fields or columns). ``blocks``: the
+    grid (staged: block j takes tiles j, j + blocks, ...; else a block takes
+    FWD_DIRECT_THREADS / group rows)."""
+
+    mode: str
+    rows_per_tile: int
+    stage_bytes: int
+    slot_bytes: int
+    smem_bytes: int
+    stride_b: int
+    stride_f: int
+    n_tiles: int
+    blocks: int
+    group: int
+
+
+@functools.lru_cache(maxsize=256)
+def fm_fwd_plan(b: int, f: int, k: int, stride_b: int, stride_f: int, elem_bytes: int,
+                aligned: bool, sms: int = H100_SMS) -> FmFwdPlan:
+    """The plan for v [b, f, k] with the given batch and field strides
+    (elements), element size, whether v starts on 16 bytes, and the card's
+    SM count: pure Python, mirrored by the kernels."""
+    if f == 1:
+        stride_f = k
+    if b == 1:
+        stride_b = f * stride_f
+    es = elem_bytes
+
+    def unstaged(mode: str, group: int) -> FmFwdPlan:
+        rows = FWD_DIRECT_THREADS // group
+        return FmFwdPlan(mode, 1, 0, 0, 0, stride_b, stride_f, b, -(-b // rows), group)
+
+    if b == 0 or f == 0 or k == 0:
+        return unstaged("direct", _lanes_per_row(k))
+    row_bytes = ((f - 1) * stride_f + k) * es  # one row's elements, first to last
+    sb = stride_b * es
+    span = stride_b == f * stride_f and stride_f >= k
+    vec = 16 // es  # a vector's columns
+    if (aligned and (k * es) % 16 == 0 and (stride_f * es) % 16 == 0 and sb % 16 == 0
+            and k // vec <= 32 and not (span and stride_f == k)):
+        # aligned runs with pad between fields: 16-byte vectors, no pad read
+        return unstaged("fields", max(32 // vec, _lanes_per_row(k // vec)))
+    mode = "span" if span else "rows"
+    slot = _align16(row_bytes + 15) if mode == "rows" else 0
+
+    def stage_bytes(tb: int) -> int:
+        if mode == "span":  # a window widened to 16-byte boundaries adds at most 15 bytes
+            return _align16((tb - 1) * sb + row_bytes + 15)
+        return tb * slot
+
+    def smem(tb: int) -> int:
+        return FWD_BARRIER_BYTES + stage_bytes(tb) + 4 * tb * k
+
+    want = FWD_BLOCKS_PER_SM * sms
+    tb = 1
+    while (tb < min(b, FWD_MAX_ROWS) and stage_bytes(tb + 1) <= FWD_TILE_BYTES
+           and -(-b // (tb + 1)) >= want):
+        tb += 1
+    if smem(tb) > BWD_SMEM_MAX:
+        return unstaged("direct", _lanes_per_row(k))
+    n_tiles = -(-b // tb)
+    return FmFwdPlan(mode, tb, stage_bytes(tb), slot, _align16(smem(tb)), stride_b, stride_f,
+                     n_tiles, min(n_tiles, want), 0)
 
 
 # The backward kernel's tile plan (fm.cu, fm_bwd_kernel). A block has
@@ -252,12 +379,14 @@ def fm_bwd_plan(b: int, f: int, k: int, stride_b: int, stride_f: int,
     return FmBwdPlan("direct", 1, 0, 0, 0, 0, 0, stride_b, stride_f, b)
 
 
-def fm_bwd_windows(plan: FmBwdPlan, b: int, f: int, k: int, elem_bytes: int,
+def fm_bwd_windows(plan: FmBwdPlan | FmFwdPlan, b: int, f: int, k: int, elem_bytes: int,
                    addr: int) -> list[list[tuple[int, int, int]]]:
-    """For each tile, the bulk copies the kernel makes for v at byte address
-    ``addr``: (first byte, bytes, offset in the stage). The kernel computes
-    the same windows from the same formulas (fm.cu, ``issue_tile``)."""
-    if plan.mode == "direct":
+    """For each tile, the bulk copies a staged plan makes for v at byte
+    address ``addr``: (first byte, bytes, offset in the stage). Both kernels
+    compute the same windows from the same formulas (fm.cu, ``copy_rows``);
+    the forward's "fields" and "direct" modes, like the backward's "direct",
+    stage nothing."""
+    if plan.mode not in ("span", "rows"):
         return []
     sb = plan.stride_b * elem_bytes
     row_bytes = ((f - 1) * plan.stride_f + k) * elem_bytes
