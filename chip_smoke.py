@@ -97,6 +97,16 @@ failed check raises, and the script exits nonzero without the final line:
    tolerances. Then one DNN and one Wide&Deep step (the flagship widths on
    the ml-100k table, batch 4096, the default optimizer) against a CPU copy:
    the loss within 1e-2 relative, each leaf's update within GRAD_REL_L2.
+5e. The DCN and AutoInt trainer CLIs (rectpu_torch.trainers.dcn with
+   --streaming-io --exporter best, and with --fast-step on --sparse-scatter
+   dma; rectpu_torch.trainers.autoint), --preset scaled, K=64, [256, 128],
+   batch 4096, 40 steps in one logging window, Adam, on the same CSV: the
+   same checks, the lookup and scatter counts grown (the fast step's: the
+   lookup, the row set and the segment sum); each run's event file holds the
+   loss and eval/auc, the best exporter's best_metric.json its final AUC;
+   each export is served over HTTP and held against a device="cpu"
+   ServingModel. Then AutoInt's three attention forms ("broadcast", "bf16",
+   "grouped"; the zoo model below) on the card against a CPU copy at B=64.
 5d. Check (3)(b), with --check3 on only (it takes longer than the rest of
    the script, 138 s on an H100): the DeepFM trainer CLI at the reference
    defaults (K=4, [16, 16], dropout 0.1, batch 32, 20,000 steps) at --seed
@@ -121,6 +131,14 @@ failed check raises, and the script exits nonzero without the final line:
    the trainer CLIs' default type): the same numbers, the CIN kernels'
    share of the busy time, and one step's gradients on 512 rows against a
    CPU copy within FP32_GRAD_REL_L2 per leaf.
+6d. The DCN and AutoInt zoo steps (benchmarks/_bench_zoo.py:82-88, 113-119:
+   the flagship's table and widths, batch 8192, bf16, flat layout, mxu
+   scatter; DCN with two full-rank cross layers, DCN with two of rank 256,
+   AutoInt with 2 layers of 2 heads and a packed table): median wall,
+   launches per step, peak device memory, the device's busy time and, for
+   DCN, the CUDA-event time of its cross layers (fp32 GEMMs of bf16 values,
+   forward and backward) beside their bound; one step's gradients on 512
+   rows against a CPU copy within GRAD_REL_L2 per leaf.
 6c. Sparse fast step at full width (benchmarks/_ablate_bigtable.py's
    run_sparse(packed=True, scatter_backend="dma"): DeepFM K=64 [256, 128],
    6,000,640-row table lane-padded to 128 columns, fp32 m|v slab [.., 256],
@@ -189,6 +207,8 @@ from rectpu_torch.features.schema import (
 from rectpu_torch.kernels import build
 from rectpu_torch.data import ml_100k as ml_100k_etl
 from rectpu_torch.models import (
+    AutoIntModel,
+    DCNModel,
     DeepFMModel,
     DLRMModel,
     DNNModel,
@@ -211,12 +231,15 @@ from rectpu_torch.train import sparse as sparse_ops
 from rectpu_torch.train.fast_step import make_sparse_step
 from rectpu_torch.train.loop import TrainConfig, Trainer
 from rectpu_torch.train.optimizers import BF16_SR, adam
+from rectpu_torch.trainers import autoint as autoint_cli
+from rectpu_torch.trainers import dcn as dcn_cli
 from rectpu_torch.trainers import deep as deep_cli
 from rectpu_torch.trainers import deep_fm as deep_fm_cli
 from rectpu_torch.trainers import dlrm as dlrm_cli
 from rectpu_torch.trainers import linear as linear_cli
 from rectpu_torch.trainers import linear_deep as linear_deep_cli
 from rectpu_torch.trainers import xdeep_fm as xdeep_fm_cli
+from rectpu_torch.utils.events import read_events
 from rectpu_torch.utils.timing import event_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -1319,6 +1342,71 @@ def check_family_step(family: str, dev, gen, work: Path) -> dict:
     return out
 
 
+# --- phase 5e: the DCN and AutoInt trainer CLIs ------------------------------
+
+# (label, CLI, flags beside SCALED_ARGS, counters): DCN dense through the
+# streaming input and the best exporter, DCN on the sparse fast step, AutoInt
+ZOO2_CLIS = (
+    ("dcn_bf16_streaming_best", dcn_cli, ("--streaming-io", "--exporter", "best"),
+     (emb_ops.launches, scatter_ops.launches)),
+    ("dcn_bf16_fast_step", dcn_cli, ("--fast-step", "on", "--sparse-scatter", "dma"),
+     (emb_ops.launches, dma_ops.launches, scatter_ops.segment_launches)),
+    ("autoint_bf16", autoint_cli, (), (emb_ops.launches, scatter_ops.launches)),
+)
+
+
+def zoo2_clis(work: Path, seed: int) -> dict:
+    """The DCN and AutoInt trainer CLIs on the card (--preset scaled, K=64,
+    [256, 128], batch 4096, 40 steps in one logging window, Adam): the
+    train_cli checks and counts; the event file holds the loss and the final
+    eval's eval/auc; the best exporter wrote best_metric.json; each export is
+    served over HTTP and held against a device="cpu" ServingModel of it."""
+    out = {}
+    for label, cli, extra, counters in ZOO2_CLIS:
+        res = train_cli(work, seed, cli, label, counters, extra_args=extra,
+                        steps_per_loop=TRAIN_STEPS + 10)
+        job_dir = work / f"train_job_{label}"
+        files = sorted(job_dir.glob("events.out.tfevents.*"))
+        check(len(files) == 1, f"{label}: {len(files)} event files in the job dir")
+        records = read_events(files[0])
+        tags = {t for _, ts in records for t in ts}
+        check({"loss", "examples_per_sec", "eval/auc"} <= tags,
+              f"{label}: event file tags {sorted(tags)}")
+        res["event_records"] = [(step, len(ts)) for step, ts in records]
+        if "best" in extra:
+            best = json.loads((job_dir / "best_metric.json").read_text())
+            check(best["step"] == TRAIN_STEPS and np.isfinite(best["auc"]),
+                  f"{label}: best_metric.json {best}")
+            res["best_metric"] = best
+        res["serving"] = serve_and_check(latest_export(job_dir), label, seed, (1, 512),
+                                         (emb_ops.launches,))
+        out[label] = res
+    return out
+
+
+AUTOINT_FORMS_ROWS = 64
+
+
+def autoint_forms(dev, gen) -> dict:
+    """AutoInt's three attention forms (the zoo model, bf16) on the card
+    against a CPU copy at B=64 (8 groups of 8 for "grouped"): max |logit|
+    difference within the bf16 serving tolerance."""
+    out = {}
+    batch = random_batch(bench_feature_set(), np.random.default_rng(9), dev, AUTOINT_FORMS_ROWS)
+    for impl in ("broadcast", "bf16", "grouped"):
+        card = zoo_model("autoint", 0.0, dev, gen=gen, att_impl=impl)
+        cpu = zoo_model("autoint", 0.0, "cpu", params=params_tree(card), att_impl=impl)
+        with torch.no_grad():
+            got = card(batch["cat_ids"], batch["num_vals"]).double().cpu()
+            want = cpu(batch["cat_ids"].cpu(), batch["num_vals"].cpu()).double()
+        err = (got - want).abs()
+        check(bool(torch.isfinite(got).all()) and bool(
+            (err <= BF16_LOGIT_ATOL + BF16_LOGIT_RTOL * want.abs()).all()),
+              f"autoint {impl}: logits card vs CPU differ by up to {float(err.max()):.3g}")
+        out[impl] = float(err.max())
+    return out
+
+
 # --- check (3): the reference-default DeepFM run on the synthetic ml-100k -------
 
 CHECK3_PIN_AUC, CHECK3_GATE = 0.8124665, 0.002  # rectpu's pin (RESULTS.md:1640), BASELINE.md
@@ -1563,22 +1651,35 @@ def grads_card_vs_cpu(card, cpu, batch: dict, make_trainer, label: str,
 # --- phase 6b: the DLRM and xDeepFM zoo steps --------------------------------
 
 
-def zoo_model(family: str, dropout: float, device, gen=None, params=None, fp32=False):
-    """The scaled zoo configuration of benchmarks/_bench_zoo.py:79-112 (the
+# the zoo's model families (benchmarks/_bench_zoo.py:82-119): DCN with two
+# full-rank cross layers or two of rank 256, AutoInt with 2 layers of 2 heads
+ZOO_FAMILIES = {"dlrm": DLRMModel, "xdeep_fm": XDeepFMModel,
+                "dcn": lambda cfg: DCNModel(cfg, num_cross_layers=2),
+                "dcn_low_rank": lambda cfg: DCNModel(cfg, num_cross_layers=2, low_rank=256),
+                "autoint": lambda cfg, att_impl="broadcast": AutoIntModel(
+                    cfg, num_layers=2, num_heads=2, att_impl=att_impl)}
+PACKED_ZOO = ("xdeep_fm", "autoint")  # the families with a packed linear column
+
+
+def zoo_model(family: str, dropout: float, device, gen=None, params=None, fp32=False,
+              **model_kwargs):
+    """The scaled zoo configuration of benchmarks/_bench_zoo.py:79-119 (the
     310k-row hashed table, K=64, [256, 128], bf16 towers and table
-    cotangent, flat layout, DLRM's [64] bottom MLP or xDeepFM's CIN (64, 64)
-    with a packed table), from ``params`` or a fresh seeded init; with
-    ``fp32``, fp32 towers and table cotangent (the trainer CLIs' default)."""
+    cotangent, flat layout, DLRM's [64] bottom MLP, xDeepFM's CIN (64, 64)
+    with a packed table, DCN's cross layers or AutoInt's attention with a
+    packed table), from ``params`` or a fresh seeded init; with ``fp32``,
+    fp32 towers and table cotangent (the trainer CLIs' default).
+    ``model_kwargs`` go to the family's constructor (AutoInt's ``att_impl``)."""
     cfg = TowerConfig(feature_set=bench_feature_set(), embedding_size=K,
                       hidden_units=(256, 128), dropout=dropout,
                       compute_dtype=None if fp32 else "bfloat16",
                       table_grad_dtype=None if fp32 else "bfloat16", flat_layout=True,
                       scatter_impl="mxu",
-                      table_padding=2048, packed_linear=family == "xdeep_fm")
-    model = DLRMModel(cfg) if family == "dlrm" else XDeepFMModel(cfg)
+                      table_padding=2048, packed_linear=family in PACKED_ZOO)
+    model = ZOO_FAMILIES[family](cfg, **model_kwargs)
     if params is None:
         params = model.init(gen)
-        if family == "xdeep_fm":
+        if family in PACKED_ZOO:
             params["table"][:, K] = torch.randn(params["table"].shape[0], generator=gen) * 0.05
     return load_params(model, params, device)
 
@@ -1599,6 +1700,8 @@ def zoo_trainer(model, work: Path, batch: int, fp32=False) -> Trainer:
 def zoo_counters(family: str, fp32=False) -> tuple:
     if family == "dlrm":
         own = (int_ops.launches,)
+    elif family != "xdeep_fm":  # DCN and AutoInt: the gather and the scatter alone
+        own = ()
     elif fp32:
         own = (cin_ops.launches_fp32, cin_ops.dw_launches_fp32)
     else:
@@ -1619,6 +1722,7 @@ def zoo_step(family: str, dev, gen, work: Path, fp32=False) -> dict:
     counters = zoo_counters(family, fp32)
     for c in counters:
         c.reset()
+    torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for i in range(ZOO_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1628,15 +1732,46 @@ def zoo_step(family: str, dev, gen, work: Path, fp32=False) -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
     launches = {c.name: c.value for c in counters}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = torch.stack(losses).float().cpu().tolist()
     check(all(np.isfinite(losses)), f"{family} zoo step: non-finite loss {losses}")
     for name, n in launches.items():
         check(n > 0, f"{family} zoo step: kernel {name} was not launched")
     profile = profile_step(trainer, batches[0])
     ms = statistics.median(times)
-    return {"step_ms": ms, "examples_per_s": FLAGSHIP_BATCH / (ms / 1e3), "launches": launches,
-            "launches_per_step": {k: v / ZOO_STEPS for k, v in launches.items()},
-            "losses": losses, "profile": profile}
+    out = {"step_ms": ms, "examples_per_s": FLAGSHIP_BATCH / (ms / 1e3), "launches": launches,
+           "launches_per_step": {k: v / ZOO_STEPS for k, v in launches.items()},
+           "losses": losses, "profile": profile, "peak_mem_gib": peak_gib}
+    if family.startswith("dcn"):
+        out["cross"] = time_cross_layers(trainer.model)
+    return out
+
+
+def time_cross_layers(model) -> dict:
+    """CUDA-event ms of a DCN model's cross layers, forward and backward, on
+    a [8192, D] bf16 x0 (the zoo step's): each layer's products are fp32
+    GEMMs of bf16 values (x W, or (x V) U^T); bound by their operations at
+    the fp32 rate."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn(FLAGSHIP_BATCH, model.d, device=dev, generator=gen).to(torch.bfloat16)
+    x0.requires_grad_(True)
+    g = torch.randn(FLAGSHIP_BATCH, model.d, device=dev, generator=gen).to(torch.bfloat16)
+
+    def fwd_bwd():
+        x = x0
+        for layer in model.cross:
+            x = model._cross(layer, x0, x)
+        x.backward(g)
+
+    ms = event_ms(fwd_bwd, iters=10)
+    for p in model.parameters():
+        p.grad = None
+    x0.grad = None
+    # forward x W (or x V, then xV U^T); backward twice that (dx and dW)
+    inner = model.d if model.low_rank is None else 2 * model.low_rank
+    flops = 3 * 2 * FLAGSHIP_BATCH * model.d * inner * len(model.cross)
+    return {"ms": ms, "flops": flops, "bound_ms": flops / FP32_FLOPS * 1e3}
 
 
 def check_zoo_grads(family: str, dev, gen, work: Path, rows: int, fp32=False) -> dict:
@@ -2422,6 +2557,25 @@ def main(argv=None) -> int:
                   f"{st['loss_cuda']:.6f} vs {st['loss_cpu']:.6f}; update relative L2 per "
                   f"leaf { {k: float(f'{v:.3g}') for k, v in st['rel_l2'].items()} }")
 
+        # 5e. the DCN and AutoInt trainer CLIs (DCN also through the streaming
+        # input, the best exporter and the sparse fast step), their event files
+        # and exports served, and AutoInt's three attention forms card vs CPU
+        zoo2 = main_path["zoo2_clis"] = zoo2_clis(work, args.seed)
+        for label, _, extra, _ in ZOO2_CLIS:
+            res, srv = zoo2[label], zoo2[label]["serving"]
+            print(f"training path ({label} trainer CLI, {' '.join(SCALED_ARGS + extra)}, batch "
+                  f"{TRAIN_BATCH}, {TRAIN_STEPS} steps): launches {res['launches']}; mean loss "
+                  f"first 10 steps {res['loss_first10']:.5f}, last 10 {res['loss_last10']:.5f}; "
+                  f"final eval {res['metrics']}; {res['seconds']:.2f} s with data load and "
+                  f"evals; event records (step, values) {res['event_records']}"
+                  f"{'; best ' + str(res['best_metric']) if 'best_metric' in res else ''}; its "
+                  f"export served: launches {srv['launches']}, max |logit - CPU| "
+                  f"{srv['max_logit_err']:.3g}, /predict median ms "
+                  f"{ {n: round(t, 3) for n, t in srv['latency_ms'].items()} } [{gpu}]")
+        forms = main_path["autoint_forms"] = autoint_forms(dev, gen)
+        print(f"check: autoint attention forms card vs CPU (zoo model, bf16, B="
+              f"{AUTOINT_FORMS_ROWS}): max |logit difference| {forms}")
+
         # 5d. check (3)(b): the reference-default DeepFM run
         if args.check3 == "on":
             c3 = main_path["check3"] = check3_default_run(work)
@@ -2497,6 +2651,32 @@ def main(argv=None) -> int:
               f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
               f"(limit {FP32_GRAD_REL_L2:g}) "
               f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
+
+        # 6d. the DCN (full rank and rank 256) and AutoInt zoo steps
+        for family in ("dcn", "dcn_low_rank", "autoint"):
+            zoo = main_path[f"zoo_step_{family}"] = zoo_step(family, dev, gen, work)
+            prof = zoo["profile"]
+            busy = prof["device_busy_ms"]
+            cross = ""
+            if "cross" in zoo:
+                c = zoo["cross"]
+                share = ("" if busy is None else
+                         f", {100 * c['ms'] / busy:.1f} % of the busy time")
+                cross = (f"; the cross layers forward and backward {c['ms']:.4f} ms (fp32 "
+                         f"GEMMs, bound {c['bound_ms']:.4f} ms by operations{share})")
+            print(f"zoo step {family} (_bench_zoo.py config, batch {FLAGSHIP_BATCH}): median "
+                  f"{zoo['step_ms']:.4f} ms, {zoo['examples_per_s']:.0f} examples/s; launches "
+                  f"per step {zoo['launches_per_step']}; peak memory "
+                  f"{zoo['peak_mem_gib']:.3f} GiB; device busy "
+                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} per step in "
+                  f"{prof['device_launches']:.0f} device launches{cross}; top kernels "
+                  f"{[(k, round(t, 4)) for k, t in prof['top_kernels_ms']]}; host: "
+                  f"{prof['host_aten_ops']:.0f} aten ops per step [{gpu}]")
+            grads = main_path[f"zoo_grads_{family}"] = check_zoo_grads(family, dev, gen, work,
+                                                                       512)
+            print(f"check: {family} zoo step gradients card vs CPU (512 rows): loss "
+                  f"{grads['loss_cuda']:.6f} vs {grads['loss_cpu']:.6f}; relative L2 per leaf "
+                  f"{ {k: float(f'{v:.3g}') for k, v in grads['rel_l2'].items()} }")
 
         # 6c. the sparse fast step at full width, against a CPU copy, and its CLI
         fast = main_path["fast_step"] = fast_step_full_width(dev, args.seed, work)
@@ -2583,8 +2763,10 @@ def main(argv=None) -> int:
                 "fm_cross_flat_bwd":
                     main_path["train_cli_autotune"]["launches"]["fm_cross_flat_bwd"]}
     # the lookup and the scatter: the DeepFM CLI's and the families' CLIs' runs
-    for name in ("embedding_lookup", "scatter_rows"):
-        launches[name] += sum(r["launches"][name] for r in main_path["family_clis"].values())
+    # (the DCN fast-step CLI's row sets and segment sums beside the fast step's)
+    runs = [*main_path["family_clis"].values(), *main_path["zoo2_clis"].values()]
+    for name in ("embedding_lookup", "scatter_rows", "scatter_rows_dma", "segment_sum"):
+        launches[name] += sum(r["launches"].get(name, 0) for r in runs)
     heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
              "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
              "fused_adam": ("m bf16, v bf16-SR", "flagship"),

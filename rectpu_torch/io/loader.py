@@ -16,14 +16,19 @@ batch stream is the same as rectpu's ``CsvDataset``:
     remainder rows carried into the next epoch's first batch;
   - EVAL is one ordered pass, the last batch zero-padded with weight 0.
 
-``StreamingCsvDataset`` (out-of-core windows) is not ported yet (ROADMAP.md
-queue A7).
+``StreamingCsvDataset`` reads a file larger than memory in windows of
+chunks, with rectpu's chunk and window order (below), so its batch stream is
+rectpu's ``StreamingCsvDataset(use_native=False)``'s. rectpu's native C++
+parser is not ported (ROADMAP.md queue A9): the port parses every window in
+Python.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import csv
 import dataclasses
+import io
 from pathlib import Path
 
 import numpy as np
@@ -66,15 +71,17 @@ def _number(token: str, default, as_float: bool):
     return x if as_float else int(x)
 
 
-def read_csv_columns(csv_path: str | Path, columns: list[str],
+def read_csv_columns(csv_path: str | Path | bytes, columns: list[str],
                      float_cols: set | frozenset = frozenset()) -> dict:
-    """Read a CSV into {column -> np array}, applying schema defaults.
+    """Read a CSV (a path, or the file's bytes) into {column -> np array},
+    applying schema defaults.
 
     ``float_cols``: columns consumed as raw floats (NumericFeature), read as
     float64; other numeric columns are int64 (integer hashing stringifies
     decimally, so "3" must not become "3.0"). String columns come back as
     numpy str arrays."""
-    with open(csv_path, newline="") as f:
+    with (io.StringIO(csv_path.decode("utf-8"), newline="") if isinstance(csv_path, bytes)
+          else open(csv_path, newline="")) as f:
         reader = csv.reader(f)
         header = next(reader)
         rows = list(reader)
@@ -186,3 +193,235 @@ class CsvDataset:
     def _perm(self, epoch: int, seed: int) -> np.ndarray:
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
         return rng.permutation(self.size)
+
+
+class StreamingCsvDataset:
+    """Out-of-core CSV dataset: windows of chunks are parsed and encoded on
+    demand, so the file is never resident (``rectpu/io/loader.py:274-588``,
+    its pure-Python path).
+
+    The iteration contract is ``CsvDataset``'s: batches of static shape, a
+    checkpointable ``DataState``, sharding, a padded eval. The shuffle:
+    per epoch the CHUNK order is permuted (``SeedSequence([seed, epoch, 7])``),
+    each shard takes ``chunk_perm[shard::num_shards]``, its chunks are
+    grouped into windows of ``window_chunks``, and the rows of a loaded
+    window are permuted (``SeedSequence([seed, epoch, window, 13])``); a
+    batch that straddles two windows (or two epochs) takes the rest of one
+    and the head of the next. A background thread parses the next window
+    while the current one is consumed. ``DataState.index`` counts the rows
+    of this shard's epoch stream consumed, so a resume re-derives the
+    windows from (seed, epoch) and skips to the one that holds ``index``.
+
+    rectpu's native parser is not ported: ``use_native=True`` raises
+    (ROADMAP.md queue A9); None and False parse in Python.
+    """
+
+    def __init__(self, csv_path: str | Path, feature_set: FeatureSet,
+                 label_col: str = "rating", cutoff: int = 5, chunk_rows: int = 65536,
+                 window_chunks: int = 4, use_native: bool | None = None,
+                 prefetch: bool = True):
+        if use_native:
+            raise NotImplementedError("the native CSV loader is not ported to rectpu_torch "
+                                      "yet (ROADMAP.md queue A9)")
+        self.csv_path = Path(csv_path)
+        self.feature_set = feature_set
+        self.label_col = label_col
+        self.cutoff = cutoff
+        self.chunk_rows = chunk_rows
+        self.window_chunks = max(1, window_chunks)
+        self.prefetch = prefetch
+        self._row_perm = None
+        self._scan()
+
+    def apply_row_permutation(self, perm: np.ndarray) -> None:
+        """Relabel the row ids (id -> perm[id]) of every window as it is
+        encoded (a stored row placement)."""
+        self._row_perm = np.asarray(perm, dtype=np.int32)
+
+    def _scan(self, block_size: int = 1 << 24) -> None:
+        """Record the byte offset of every chunk_rows-th data line. A newline
+        ends a row only after an even number of quotes, so a newline inside a
+        quoted field does not split it."""
+        offsets = []
+        n_rows = 0
+        quotes_so_far = 0  # quotes before this block: its parity is the quoted state
+        header_end = None
+        file_pos = 0
+        pending_row_start = None  # byte offset where the next row starts
+        with open(self.csv_path, "rb") as f:
+            while block := f.read(block_size):
+                arr = np.frombuffer(block, np.uint8)
+                nl_pos = np.flatnonzero(arr == 0x0A)
+                if quotes_so_far % 2 == 0 and 0x22 not in arr:
+                    row_ends = nl_pos
+                else:
+                    q_pos = np.flatnonzero(arr == 0x22)
+                    before = np.searchsorted(q_pos, nl_pos) + quotes_so_far
+                    row_ends = nl_pos[before % 2 == 0]
+                    quotes_so_far += q_pos.shape[0]
+                for nl in row_ends.tolist():
+                    pos = file_pos + nl + 1
+                    if header_end is None:
+                        header_end = pos
+                    else:
+                        if n_rows % self.chunk_rows == 0:
+                            offsets.append(pending_row_start)
+                        n_rows += 1
+                    pending_row_start = pos
+                file_pos += len(block)
+        file_size = file_pos
+        if pending_row_start is not None and pending_row_start < file_size:
+            # a last row without a newline
+            if n_rows % self.chunk_rows == 0:
+                offsets.append(pending_row_start)
+            n_rows += 1
+        if header_end is None:
+            raise ValueError(f"{self.csv_path}: no header line")
+        with open(self.csv_path, "rb") as f:
+            self._header = f.read(header_end)
+        self.size = n_rows
+        self._chunk_offsets = offsets + [file_size]
+        self.num_chunks = len(offsets)
+        self._chunk_sizes = [min(self.chunk_rows, n_rows - i * self.chunk_rows)
+                             for i in range(self.num_chunks)]
+        logger.debug("streaming dataset indexed: %s rows, %s chunks from %s", n_rows,
+                     self.num_chunks, self.csv_path)
+
+    def _load_window(self, chunk_ids) -> dict:
+        """Parse and encode the header plus the given chunks."""
+        parts = [self._header]
+        with open(self.csv_path, "rb") as f:
+            for c in chunk_ids:
+                f.seek(self._chunk_offsets[c])
+                parts.append(f.read(self._chunk_offsets[c + 1] - self._chunk_offsets[c]))
+        fs = self.feature_set
+        needed = [f.name for f in fs.categorical] + [f.name for f in fs.numeric]
+        columns = read_csv_columns(b"".join(parts), needed + [self.label_col],
+                                   float_cols={f.name for f in fs.numeric})
+        batch = fs.encode(columns)
+        cat_ids = batch["cat_ids"]
+        if self._row_perm is not None:
+            cat_ids = self._row_perm[cat_ids]
+        return {"cat_ids": cat_ids,
+                "num_vals": batch.get("num_vals",
+                                      np.zeros((cat_ids.shape[0], 0), np.float32)),
+                "labels": (columns[self.label_col] >= self.cutoff).astype(np.float32)}
+
+    def _epoch_windows(self, epoch: int, seed: int, shard_id: int, num_shards: int):
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 7]))
+        chunk_perm = rng.permutation(self.num_chunks)[shard_id::num_shards]
+        wc = self.window_chunks
+        windows = [chunk_perm[i:i + wc] for i in range(0, len(chunk_perm), wc)]
+        sizes = [int(sum(self._chunk_sizes[c] for c in w)) for w in windows]
+        return windows, sizes
+
+    def _window_rows(self, epoch: int, w_idx: int, window, seed: int) -> dict:
+        enc = self._load_window(window)
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, w_idx, 13]))
+        perm = rng.permutation(enc["labels"].shape[0])
+        return {k: v[perm] for k, v in enc.items()}
+
+    def train_batches(self, batch_size: int, state: DataState | None = None, seed: int = 0,
+                      shard_id: int = 0, num_shards: int = 1):
+        """Infinite batches {cat_ids, num_vals, labels} of ``batch_size`` rows,
+        each with the DataState after it."""
+        state = state or DataState(seed=seed)
+        epoch, index = state.epoch, state.index
+        pool = (concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="rectpu-stream")
+                if self.prefetch else None)
+
+        def load(ep, w_idx, window):
+            if pool is None:
+                return self._window_rows(ep, w_idx, window, state.seed)
+            return pool.submit(self._window_rows, ep, w_idx, window, state.seed)
+
+        carry = None
+        fut = None
+        try:
+            while True:
+                windows, sizes = self._epoch_windows(epoch, state.seed, shard_id, num_shards)
+                if not windows:
+                    raise ValueError(f"shard {shard_id}/{num_shards} received no chunks "
+                                     f"({self.num_chunks} total); lower chunk_rows or shards")
+                starts = np.concatenate([[0], np.cumsum(sizes)])
+                # a resume starts in the window that holds `index`
+                w_idx = min(int(np.searchsorted(starts, index, side="right") - 1),
+                            len(windows) - 1)
+                while w_idx < len(windows):
+                    if fut is not None:
+                        rows = fut.result()
+                    else:
+                        rows = load(epoch, w_idx, windows[w_idx])
+                        rows = rows.result() if pool is not None else rows
+                    fut = None
+                    if pool is not None:  # the next window (or the next epoch's first)
+                        if w_idx + 1 < len(windows):
+                            fut = load(epoch, w_idx + 1, windows[w_idx + 1])
+                        else:
+                            nw, _ = self._epoch_windows(epoch + 1, state.seed, shard_id,
+                                                        num_shards)
+                            fut = load(epoch + 1, 0, nw[0]) if nw else None
+                    local = index - int(starts[w_idx])  # offset within the window
+                    n_w = rows["labels"].shape[0]
+                    while local < n_w:
+                        have = 0 if carry is None else carry["labels"].shape[0]
+                        take = min(batch_size - have, n_w - local)
+                        piece = {k: v[local:local + take] for k, v in rows.items()}
+                        local += take
+                        index += take
+                        if carry is not None:
+                            piece = {k: np.concatenate([carry[k], piece[k]]) for k in piece}
+                            carry = None
+                        if piece["labels"].shape[0] == batch_size:
+                            yield piece, DataState(epoch=epoch, index=index, seed=state.seed)
+                        else:
+                            carry = piece
+                    w_idx += 1
+                epoch += 1
+                index = 0
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+    def eval_batches(self, batch_size: int, shard_id: int = 0, num_shards: int = 1):
+        """One ordered pass, a chunk at a time, with ``CsvDataset``'s padding:
+        each shard walks the global rows [shard::num_shards], and every shard
+        yields the same number of batches (trailing all-padding ones)."""
+        max_shard_rows = -(-self.size // num_shards)
+        n_batches = max(-(-max_shard_rows // batch_size), 1)
+        buf = None
+        emitted = 0
+        global_row = 0
+
+        def emit(piece):
+            n = piece["labels"].shape[0]
+            w = np.ones((n,), np.float32)
+            if n < batch_size:
+                pad = batch_size - n
+                piece = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                         for k, v in piece.items()}
+                w = np.concatenate([w, np.zeros((pad,), np.float32)])
+            piece["weights"] = w
+            return piece
+
+        for c in range(self.num_chunks):
+            enc = self._load_window([c])
+            n = enc["labels"].shape[0]
+            mask = (np.arange(global_row, global_row + n) % num_shards) == shard_id
+            global_row += n
+            piece = {k: v[mask] for k, v in enc.items()}
+            buf = piece if buf is None else {k: np.concatenate([buf[k], piece[k]])
+                                             for k in piece}
+            while buf["labels"].shape[0] >= batch_size:
+                out = {k: v[:batch_size] for k, v in buf.items()}
+                buf = {k: v[batch_size:] for k, v in buf.items()}
+                emitted += 1
+                yield emit(out)
+        if buf is not None and buf["labels"].shape[0] and emitted < n_batches:
+            emitted += 1
+            yield emit(buf)
+        while emitted < n_batches:
+            emitted += 1
+            yield emit({"cat_ids": np.zeros((0, self.feature_set.num_fields), np.int32),
+                        "num_vals": np.zeros((0, self.feature_set.num_numeric), np.float32),
+                        "labels": np.zeros((0,), np.float32)})

@@ -1,4 +1,6 @@
+from rectpu_torch.models.autoint import AutoIntModel
 from rectpu_torch.models.base import TowerConfig
+from rectpu_torch.models.dcn import DCNModel
 from rectpu_torch.models.deep_fm import DeepFMModel
 from rectpu_torch.models.dlrm import DLRMModel
 from rectpu_torch.models.dnn import DNNModel
@@ -6,21 +8,9 @@ from rectpu_torch.models.linear import LinearModel
 from rectpu_torch.models.wide_deep import WideDeepModel
 from rectpu_torch.models.xdeep_fm import XDeepFMModel
 
-# rectpu's other families, still to port (ROADMAP.md queue A10)
-_NOT_PORTED = ("dcn", "autoint")
-
-
-class _Registry(dict):
-    def __missing__(self, name):
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model family {name!r} is not ported to rectpu_torch yet "
-                f"(ROADMAP.md queue A10); ported: {sorted(self)}")
-        raise KeyError(name)
-
-
-MODEL_REGISTRY = _Registry(linear=LinearModel, deep=DNNModel, linear_deep=WideDeepModel,
-                           deep_fm=DeepFMModel, dlrm=DLRMModel, xdeep_fm=XDeepFMModel)
+MODEL_REGISTRY = dict(linear=LinearModel, deep=DNNModel, linear_deep=WideDeepModel,
+                      deep_fm=DeepFMModel, dlrm=DLRMModel, xdeep_fm=XDeepFMModel,
+                      dcn=DCNModel, autoint=AutoIntModel)
 
 __all__ = ["TowerConfig", "LinearModel", "DNNModel", "WideDeepModel", "DeepFMModel",
-           "DLRMModel", "XDeepFMModel", "MODEL_REGISTRY"]
+           "DLRMModel", "XDeepFMModel", "DCNModel", "AutoIntModel", "MODEL_REGISTRY"]

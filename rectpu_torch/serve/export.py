@@ -124,6 +124,54 @@ def export_model(
     return final
 
 
+def make_exporter(model, job_dir: str | Path, exports_to_keep: int = 5, row_perm=None,
+                  mode: str = "latest", compare_metric: str = "auc"):
+    """The Trainer's exporter callback ``exporter(params, step, metrics=None)``
+    (``rectpu/serve/export.py:381-432``).
+
+    ``mode="latest"`` exports after every eval (tf.estimator's
+    LatestExporter). ``mode="best"`` is its BestExporter: export only when
+    ``metrics[compare_metric]`` improves on the best so far, kept across
+    restarts in ``<job_dir>/best_metric.json`` as ``{compare_metric: value,
+    "step": step}``; for ``average_loss`` and ``loss`` lower is better, for
+    every other metric higher. Either way the newest ``exports_to_keep``
+    exports are kept."""
+    if not isinstance(model.cfg.activation, str):
+        # fail when the trainer is built, not at the first export
+        raise ValueError(
+            "export requires a string activation (got a callable); register "
+            "it by name in models.base.get_activation"
+        )
+    if mode not in ("latest", "best"):
+        raise ValueError(f"unknown exporter mode {mode!r}")
+    best_path = Path(job_dir) / "best_metric.json"
+    lower_is_better = compare_metric in ("average_loss", "loss")
+
+    def exporter(params, step, metrics=None):
+        if mode == "best":
+            if not metrics or compare_metric not in metrics:
+                logger.warning("best exporter: no %r in eval metrics, skipping export",
+                               compare_metric)
+                return
+            value = float(metrics[compare_metric])
+            prev = None
+            if best_path.exists():
+                prev = json.loads(best_path.read_text()).get(compare_metric)
+            if prev is not None and not (value < prev if lower_is_better else value > prev):
+                logger.info("best exporter: %s=%.6f did not improve on %.6f, skipping export",
+                            compare_metric, value, prev)
+                return
+            logger.info("best exporter: %s improved %s -> %.6f, exporting", compare_metric,
+                        "None" if prev is None else f"{prev:.6f}", value)
+        export_model(params, model, job_dir, step, exports_to_keep, row_perm=row_perm)
+        if mode == "best":
+            tmp = best_path.with_suffix(".tmp")
+            tmp.write_text(json.dumps({compare_metric: value, "step": step}))
+            tmp.replace(best_path)
+
+    return exporter
+
+
 def latest_export(job_dir: str | Path) -> Path | None:
     base = Path(job_dir) / "export" / "exporter"
     if not base.exists():

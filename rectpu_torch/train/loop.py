@@ -19,6 +19,15 @@ What differs from rectpu, and why:
     ships only each batch's row indices; both placements consume the same
     index stream, so training is the same either way.
 
+Events: the Trainer writes rectpu's TensorBoard event file into the job dir
+(``utils/events.py``, ``loop.py:124-131, 380-398, 657-692``): ``loss`` and
+``examples_per_sec`` at each log, ``eval/<metric>`` after each eval and the
+final one, and after each eval before the last a ``params/<path>`` histogram
+and ``params/<path>/fraction_of_zero_values`` of every parameter (a leaf of
+more than 65,536 elements sampled every ``size // 65536``-th). The exporter
+(``serve/export.make_exporter``) is called as ``exporter(params, step,
+metrics=...)`` with the latest eval metrics, which the best exporter compares.
+
 ``profile_dir``, when set, traces the second logging window of the run (the
 ``steps_per_loop`` steps after the first, so that kernel builds and warm-up
 stay out of the trace) with ``utils.profiling.trace``, stops once that
@@ -61,6 +70,7 @@ from rectpu_torch.io.loader import DataState
 from rectpu_torch.models.base import step_seed32
 from rectpu_torch.train import metrics as metrics_lib
 from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
+from rectpu_torch.utils.events import EventWriter
 from rectpu_torch.utils.logging import get_logger
 from rectpu_torch.utils.profiling import trace
 
@@ -99,6 +109,7 @@ class Trainer:
         self.job_dir = Path(job_dir)
         self.config = config
         self.exporter = exporter
+        self.events: EventWriter | None = None  # open while train_and_evaluate runs
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
                                  async_write=config.async_checkpoint)
@@ -144,12 +155,13 @@ class Trainer:
         mode, ds = self.config.data_placement, self.train_ds
         if mode == "host":
             return None
-        nbytes = ds.cat_ids.nbytes + ds.num_vals.nbytes + ds.labels.nbytes
-        if nbytes > self.config.data_placement_max_bytes:
+        resident = hasattr(ds, "cat_ids")  # a StreamingCsvDataset holds no encoded set
+        nbytes = ds.cat_ids.nbytes + ds.num_vals.nbytes + ds.labels.nbytes if resident else 0
+        if not resident or nbytes > self.config.data_placement_max_bytes:
             if mode == "device":
-                raise ValueError("data_placement='device' needs the encoded train set within "
-                                 f"data_placement_max_bytes ({nbytes} B > "
-                                 f"{self.config.data_placement_max_bytes} B)")
+                raise ValueError("data_placement='device' needs a resident (non-streaming) "
+                                 "train set within data_placement_max_bytes "
+                                 f"({self.config.data_placement_max_bytes} B)")
             return None
         return self._to_device({"cat_ids": ds.cat_ids, "num_vals": ds.num_vals,
                                 "labels": ds.labels})
@@ -266,11 +278,35 @@ class Trainer:
                                    "model": getattr(self.model, "name", "model")})
         return params
 
-    def _export(self, params: dict, step: int) -> None:
+    def _export(self, params: dict, step: int, metrics: dict) -> None:
         if self.exporter is not None:
-            self.exporter(params, step)
+            self.exporter(params, step, metrics=metrics)
+
+    def _log_histograms(self, params: dict, step: int, max_elems: int = 65536) -> None:
+        """A histogram and the share of zeros of every parameter leaf, in
+        rectpu's order and tags (``loop.py:380-398``); a leaf of more than
+        ``max_elems`` elements is sampled."""
+        for name, leaf in flatten_tree(params).items():
+            arr = leaf.float().numpy().ravel()
+            if arr.size == 0:
+                continue
+            if arr.size > max_elems:
+                arr = arr[:: max(arr.size // max_elems, 1)]
+            self.events.add_histogram(f"params/{name}", arr, step)
+            self.events.add_scalar(f"params/{name}/fraction_of_zero_values",
+                                   float((arr == 0).mean()), step)
 
     def train_and_evaluate(self, restore: bool = True) -> dict:
+        """Train, evaluate and export (the module docstring's cadence);
+        returns the final eval's metrics."""
+        self.events = EventWriter(self.job_dir)
+        try:
+            return self._train_and_evaluate(restore)
+        finally:
+            self.events.close()
+            self.events = None
+
+    def _train_and_evaluate(self, restore: bool) -> dict:
         cfg = self.config
         params = self.model.init(torch.Generator().manual_seed(cfg.seed))
         if self.warm_start_from:
@@ -328,8 +364,11 @@ class Trainer:
             examples += k * cfg.batch_size
             if cfg.log_every_steps and step % cfg.log_every_steps < cfg.steps_per_loop:
                 dt = time.time() - t_loop
+                eps = examples / max(dt, 1e-9)
                 logger.info("step %d: loss = %.5f (%.1f examples/sec)", step,
-                            self.step_losses[-1], examples / max(dt, 1e-9))
+                            self.step_losses[-1], eps)
+                self.events.add_scalar("loss", self.step_losses[-1], step)
+                self.events.add_scalar("examples_per_sec", eps, step)
                 t_loop, examples = time.time(), 0
 
             due_steps = cfg.save_checkpoints_steps and step % cfg.save_checkpoints_steps == 0
@@ -341,13 +380,18 @@ class Trainer:
                 last_save = time.time()
                 last_metrics = self.evaluate()
                 logger.info("eval at step %d: %s", step, _fmt_metrics(last_metrics))
-                self._export(host_params, step)
+                self.events.add_scalars({f"eval/{k}": v for k, v in last_metrics.items()},
+                                        step)
+                self._log_histograms(host_params, step)
+                self._export(host_params, step, last_metrics)
 
+        batches.close()  # a streaming dataset's prefetch thread stops here
         host_params = self._save(step, data_state)
         if cfg.final_eval:
             last_metrics = self.evaluate()
             logger.info("final eval at step %d: %s", step, _fmt_metrics(last_metrics))
-        self._export(host_params, step)
+            self.events.add_scalars({f"eval/{k}": v for k, v in last_metrics.items()}, step)
+        self._export(host_params, step, last_metrics)
         self.ckpt.close()
         return last_metrics
 

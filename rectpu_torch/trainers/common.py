@@ -4,9 +4,12 @@ The same flags and defaults as rectpu's parser (``common.py:20-222``), so a
 rectpu command line runs here unchanged, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
 port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
-queue instead of being ignored: sharding and EP (queue A12),
-``--streaming-io`` and ``--exporter best`` (A7). The JAX compilation cache
-flag is accepted and has nothing to configure. ``run`` trains with the
+queue instead of being ignored: sharding and EP (queue A12). The JAX
+compilation cache flag is accepted and has nothing to configure.
+``--streaming-io`` reads both CSVs through ``io.loader.StreamingCsvDataset``
+and ``--exporter best`` exports only when ``--best-exporter-metric``
+improves (``serve.export.make_exporter``), as rectpu's
+(``common.py:388-392, 530-532``). ``run`` trains with the
 model's ``default_optimizer`` when given none (the canned estimators':
 FTRL, Adagrad, per-tower), and ``--table-store bfloat16`` wraps the
 optimizer in ``bf16_param_store`` after rectpu's two checks
@@ -89,7 +92,8 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
                              "ships only row indices per step; 'auto' = device when it "
                              "fits 1 GB. Training is the same either way")
     parser.add_argument("--streaming-io", action="store_true",
-                        help="out-of-core input pipeline (not ported yet)")
+                        help="out-of-core input pipeline: windows of CSV chunks parsed on "
+                             "demand, shuffled by chunk and within a window")
     parser.add_argument("--num-data-shards", type=int, default=1,
                         help="data-parallel mesh size (only 1 is ported)")
     parser.add_argument("--num-model-shards", type=int, default=1,
@@ -111,9 +115,11 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
                         help="tree-path prefixes to warm start (e.g. 'emb' 'linear'); "
                              "default: every matching leaf")
     parser.add_argument("--exporter", choices=["latest", "best"], default="latest",
-                        help="'latest' exports after every eval ('best' is not ported yet)")
+                        help="'latest' exports after every eval; 'best' only when the "
+                             "eval metric improves (tf.estimator BestExporter)")
     parser.add_argument("--best-exporter-metric", default="auc",
-                        help="eval metric the 'best' exporter compares")
+                        help="eval metric the 'best' exporter compares (average_loss "
+                             "and loss: lower is better; others: higher)")
     parser.add_argument("--eval-auc", choices=["streaming", "exact"], default="streaming",
                         help="'streaming' = 200-threshold tf.metrics.auc parity; 'exact' = "
                              "rank-based AUC on the gathered eval probabilities")
@@ -213,10 +219,6 @@ def check_supported(args, model) -> None:
             or args.ep_comm_compress is not None):
         _not_ported("EP options (--ep-peer-capacity/--ep-row-placement/--ep-comm-compress)",
                     "A12")
-    if args.streaming_io:
-        _not_ported("--streaming-io", "A7")
-    if args.exporter != "latest":
-        _not_ported("--exporter best", "A7")
 
 
 def resolve_optimizer(args, model, optimizer):
@@ -302,8 +304,8 @@ def resolve_fast_step(args, model, optimizer):
 def build_trainer(args, model, optimizer=None):
     """Datasets + Trainer + exporter from parsed args and a model (and the
     model's default optimizer when ``optimizer`` is None)."""
-    from rectpu_torch.io.loader import CsvDataset
-    from rectpu_torch.serve.export import export_model
+    from rectpu_torch.io.loader import CsvDataset, StreamingCsvDataset
+    from rectpu_torch.serve.export import make_exporter
     from rectpu_torch.train.loop import TrainConfig, Trainer
 
     check_supported(args, model)
@@ -321,8 +323,9 @@ def build_trainer(args, model, optimizer=None):
     if not args.restore:
         shutil.rmtree(args.job_dir, ignore_errors=True)
     Path(args.job_dir).mkdir(parents=True, exist_ok=True)
-    train_ds = CsvDataset(args.train_csv, fs)
-    eval_ds = CsvDataset(args.test_csv, fs)
+    dataset = StreamingCsvDataset if args.streaming_io else CsvDataset
+    train_ds = dataset(args.train_csv, fs)
+    eval_ds = dataset(args.test_csv, fs)
     row_perm = None
     perm_path = Path(args.job_dir) / "row_perm.npy"
     if perm_path.exists():
@@ -345,9 +348,8 @@ def build_trainer(args, model, optimizer=None):
         data_placement=args.data_placement,
     )
 
-    def exporter(params, step):
-        export_model(params, model, args.job_dir, step, row_perm=row_perm)
-
+    exporter = make_exporter(model, args.job_dir, row_perm=row_perm, mode=args.exporter,
+                             compare_metric=args.best_exporter_metric)
     trainer = Trainer(model, optimizer, train_ds, eval_ds, args.job_dir, config,
                       exporter=exporter, device=device, fast_step=fast_step)
     trainer.profile_dir = args.profile_dir

@@ -183,15 +183,16 @@ def test_flat_layout_refuses_a_padded_packed_table():
 
 def test_registry_and_default_optimizers():
     fs = ml_100k_feature_set()
-    assert {"linear", "deep", "linear_deep"} <= set(MODEL_REGISTRY)
-    for name in ("dcn", "autoint"):
-        with pytest.raises(NotImplementedError, match="queue A10"):
-            MODEL_REGISTRY[name]
+    assert {"linear", "deep", "linear_deep", "dcn", "autoint"} <= set(MODEL_REGISTRY)
     names = {name: MODEL_REGISTRY[name](TowerConfig(feature_set=fs)).default_optimizer().name
-             for name in ("linear", "deep", "linear_deep", "deep_fm", "dlrm", "xdeep_fm")}
+             for name in ("linear", "deep", "linear_deep", "deep_fm", "dlrm", "xdeep_fm",
+                          "dcn", "autoint")}
     assert names == {"linear": "Ftrl", "deep": "Adagrad",
                      "linear_deep": "PerSubtree(linear:Ftrl,*:Adagrad)", "deep_fm": "Adam",
-                     "dlrm": "Adam", "xdeep_fm": "Adam"}
+                     "dlrm": "Adam", "xdeep_fm": "Adam", "dcn": "Adam", "autoint": "Adam"}
+    for name in ("dcn", "autoint"):  # both build, and carry the fast step's hook
+        model = MODEL_REGISTRY[name](TowerConfig(feature_set=fs))
+        assert model.name == name and hasattr(model, "apply_looked")
     packed = WideDeepModel(TowerConfig(feature_set=fs, packed_linear=True))
     assert packed.default_optimizer().name == "PackedWideDeep(Ftrl+Adagrad)"
     assert not hasattr(packed, "apply_looked")  # as rectpu's: no fast-step hook

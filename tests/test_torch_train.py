@@ -11,6 +11,8 @@
     by rectpu's Checkpointer and its export by both packages' ``load_model``.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -199,8 +201,7 @@ def test_trainer_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flags,queue", [
-    (["--num-data-shards", "2"], "A12"), (["--streaming-io"], "A7"),
-    (["--exporter", "best"], "A7"), (["--ep-comm-compress", "bf16"], "A12"),
+    (["--num-data-shards", "2"], "A12"), (["--ep-comm-compress", "bf16"], "A12"),
 ])
 def test_unported_flags_raise(flags, queue, tmp_path):
     args = deep_fm_cli.build_parser().parse_args(
@@ -212,11 +213,16 @@ def test_unported_flags_raise(flags, queue, tmp_path):
 @pytest.mark.parametrize("flags,opt_name", [
     (["--compute-dtype", "bfloat16", "--table-store", "bfloat16"], "Adam+Bf16Store"),
     (["--optimizer", "Adagrad"], "Adagrad"),
+    (["--streaming-io"], "Adam"),
+    (["--exporter", "best"], "Adam"),
 ])
 def test_formerly_unported_flags_train(flags, opt_name, tmp_path):
     """--table-store bfloat16 and --optimizer Adagrad, which raised until the
-    rest of rectpu's optimizers were ported, train through the CLI; the store
-    keeps a bf16 table the forward reads and its fp32 master in the state."""
+    rest of rectpu's optimizers were ported, and --streaming-io and
+    --exporter best, which raised until the rest of the trainer surface was
+    ported, train through the CLI; the store keeps a bf16 table the forward
+    reads and its fp32 master in the state, the best exporter records its
+    metric beside the export."""
     data = write_synthetic_dataset(tmp_path / "data", train_rows=300, test_rows=100, seed=1)
     args = deep_fm_cli.build_parser().parse_args(
         ["--device", "cpu", "--train-csv", data["train"], "--test-csv", data["test"],
@@ -231,6 +237,9 @@ def test_formerly_unported_flags_train(flags, opt_name, tmp_path):
         assert trainer.opt_state["master"]["emb"].dtype == torch.float32
         tree, _ = JaxCheckpointer(tmp_path / "job").restore()
         assert set(tree["opt_state"]) == {"inner", "master"}
+    if "--exporter" in flags:
+        best = json.loads((tmp_path / "job" / "best_metric.json").read_text())
+        assert set(best) == {"auc", "step"} and latest_export(tmp_path / "job") is not None
 
 
 def test_table_store_checks(tmp_path):
