@@ -8,7 +8,8 @@ Run from the root of a checkout; it needs one CUDA card, the CUDA toolkit
 failed check raises, and the script exits nonzero without the final line:
 
 1. Build: compile every CUDA kernel from rectpu_torch/kernels/csrc (one
-   nvcc per source, all started together, sm_90a).
+   nvcc per source, all started together, sm_90a), and the native host
+   library from rectpu_torch/io/native (g++; a failed build fails the run).
 2. Serving kernels against their plain PyTorch versions, on the card: the
    lookup on [4224, W] tables, W in {1, 5, 65, 128, 256}, fp32, bf16 and fp32
    rows rounded to bf16, at B in {1, 7, 37, 512, 4096} x 26 fields (bitwise
@@ -20,7 +21,11 @@ failed check raises, and the script exits nonzero without the final line:
    columns (the fast step's), in fp32 and bf16 (a bf16 v's logit in bf16
    and in fp32), then one field and one row too wide to stage: bitwise the
    in-order sums (ops/fm.py::fm_fwd_in_order) and across launches, within
-   fm_tolerance of the plain version.
+   fm_tolerance of the plain version. The lookup's int8 mode (int8 rows and
+   fp32 row scales from serve/quant.py, rows of very different scales and a
+   zero row) at W in {65, 64, 5, 1, 13000}, fp32 and bf16 out: bitwise its
+   plain version (dequant_take) and across launches, out-of-range ids give
+   zero rows.
 3. Training kernels against their plain versions: the scatter at [6144, 65]
    with 4096 x 26 ml-100k ids and at the flagship [311296, 65] with
    8192 x 26 ids, fp32 and bf16, with out-of-range ids and DROP_SENTINEL,
@@ -77,7 +82,27 @@ failed check raises, and the script exits nonzero without the final line:
    and the device's busy time in one forward (torch.profiler). The same for
    a DLRM export (one numeric column through a [64] bottom MLP; lookup and
    interaction counts must grow) and an xDeepFM export (CIN (64, 64),
-   packed table; lookup and CIN counts), bf16 and fp32.
+   packed table; lookup and CIN counts), bf16 and fp32. Every request body
+   but one has the native JSON parser's shape (asserted: it returns
+   columns); one body of ragged keys takes json.loads. The request
+   breakdown gives parse and encode through the native host library and
+   through the Python path (the same model inputs). Each export's write
+   time (with its apply.pt2 program) is printed.
+4b. int8 tables: the DeepFM bf16 and fp32 exports and the DLRM and xDeepFM
+   fp32 exports quantized by the port's CLI (serve/quant.py) and served over
+   HTTP, and the fp32 DeepFM export served with --table-quant int8: each
+   against a device="cpu" ServingModel of the same int8 model at the
+   serving tolerances and against the float model within INT8_PROB_ATOL on
+   probabilities; the int8 gather and the family's kernel must launch.
+   Serialized programs: the DeepFM bf16 and fp32, DLRM bf16 and xDeepFM fp32
+   exports' apply.pt2 served with --serialized (its size and load seconds
+   printed), against the eager model on the CPU at the serving tolerances;
+   the lookup and the family's kernel must launch and be named in the trace
+   of the program's forward. Batch prediction: the batch_predict CLI's
+   main with --label-col rating on a 20,000-row synthetic test CSV with the
+   fp32 DeepFM export, then with --table-quant int8: every row written, the
+   AUC in [0, 1], the kernels launched, each logit equal to the online
+   ServingModel's on the card within the fp32 serving tolerance.
 5. Training path: the trainer CLI (rectpu_torch.trainers.deep_fm,
    --preset scaled, K=64, [256, 128], batch 4096) on a synthetic ml-100k
    CSV written by the port's generator: every step's loss finite, the last
@@ -102,7 +127,8 @@ failed check raises, and the script exits nonzero without the final line:
    dma; rectpu_torch.trainers.autoint), --preset scaled, K=64, [256, 128],
    batch 4096, 40 steps in one logging window, Adam, on the same CSV: the
    same checks, the lookup and scatter counts grown (the fast step's: the
-   lookup, the row set and the segment sum); each run's event file holds the
+   lookup, the row set and the segment sum; the streaming run's windows
+   encoded by the native host library, counted); each run's event file holds the
    loss and eval/auc, the best exporter's best_metric.json its final AUC;
    each export is served over HTTP and held against a device="cpu"
    ServingModel. Then AutoInt's three attention forms ("broadcast", "bf16",
@@ -159,11 +185,14 @@ failed check raises, and the script exits nonzero without the final line:
    lookup also at the flagship step's shape (its fp32 [311296, 65] table
    gathered as bf16, beside the whole-table cast then the kernel) and at
    the fast step's three (the batch's rows and the lazy-Adam rows of the
-   table and of the m|v slab). The FM forward at B=512 and 4096 in bf16 and
-   fp32, at the flagship step's shape (bf16 B=8192, the logit in fp32) and
-   at the fast step's (fp32 looked[..., :64] of 128 columns, B=8192). The
-   fast step's dedupe and lazy-Adam row update are timed whole beside them. The flat FM forward and backward at
-   B=8192, F=26, K=64. Then the device operations of one scatter call (its
+   table and of the m|v slab). The int8 gather at the int8 DeepFM serving
+   shape ([4224, 65] int8, B=4096, bf16 out) beside its plain version, the
+   four-op PyTorch composite and the fp32 gather of the same rows. The FM
+   forward at B=512 and 4096 in bf16 and fp32, at the flagship step's shape
+   (bf16 B=8192, the logit in fp32) and at the fast step's (fp32
+   looked[..., :64] of 128 columns, B=8192). The fast step's dedupe and
+   lazy-Adam row update are timed whole beside them. The flat FM forward
+   and backward at B=8192, F=26, K=64. Then the device operations of one scatter call (its
    sort and its sums) and of one segment sum, by name, with their count a
    call (torch.profiler).
 
@@ -206,6 +235,10 @@ from rectpu_torch.features.schema import (
 )
 from rectpu_torch.kernels import build
 from rectpu_torch.data import ml_100k as ml_100k_etl
+from rectpu_torch.io import native
+from rectpu_torch.io.loader import read_csv_columns
+from rectpu_torch.io.native import build as native_build
+from rectpu_torch.io.native import csv_bridge
 from rectpu_torch.models import (
     AutoIntModel,
     DCNModel,
@@ -225,7 +258,16 @@ from rectpu_torch.ops import interaction as int_ops
 from rectpu_torch.ops import scatter_dma as dma_ops
 from rectpu_torch.ops import scatter_rows as scatter_ops
 from rectpu_torch.ops.autotune import SCATTER_CHUNKS
-from rectpu_torch.serve.export import export_model, latest_export, load_model
+from rectpu_torch.serve import batch_predict as batch_predict_cli
+from rectpu_torch.serve import quant as quant_cli
+from rectpu_torch.serve.export import (
+    PROGRAM,
+    SERVING_REQUIRED,
+    export_model,
+    latest_export,
+    load_model,
+)
+from rectpu_torch.serve.quant import quantize_serving
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
 from rectpu_torch.train import sparse as sparse_ops
 from rectpu_torch.train.fast_step import make_sparse_step
@@ -254,6 +296,7 @@ FM_RTOL_OF_SCALE = 1e-5  # fp32 sums in another order; relative to 0.5*sum_k(S^2
 BF16_REL_ULP = 2.0 ** -7  # one bf16 ulp, relative to the value (8-bit significand)
 FP32_LOGIT_ATOL = 1e-4  # fp32 card vs CPU: 1,664-long dot products in another order
 BF16_LOGIT_ATOL, BF16_LOGIT_RTOL = 2e-2, 1e-2  # bf16 activations may round one ulp apart
+INT8_PROB_ATOL = 0.02  # int8 table vs the float one, on probabilities (rectpu's test_quant)
 FP32_EPS = 2.0 ** -24  # unit roundoff of fp32
 FM_BWD_RTOL = 1e-5  # fp32 S summed in another order; relative to |g| * sum_f |v|
 GRAD_REL_L2 = 1e-2  # card vs CPU gradient, relative L2 per leaf: ~2 bf16 ulps (2^-8)
@@ -265,6 +308,7 @@ FP32_GRAD_REL_L2 = 1e-4
 # systematic shrink of ~4e-6, while one dropped row of 524,288 moves it ~1.4e-3
 DW_REL_L2 = 1e-5
 TRAIN_BATCH, TRAIN_STEPS = 4096, 40  # the trainer CLI phase
+BP_ROWS = 20_000  # the batch prediction phase's test CSV
 AUTOTUNE_CLI_STEPS, AUTOTUNE_CLI_LOOP = 20, 5  # --autotune --profile-dir: window 2 traced
 FLAGSHIP_BATCH, FLAGSHIP_STEPS = 8192, 20
 CIN_O = 64  # xDeepFM's cin_units (64, 64)
@@ -370,7 +414,46 @@ def check_kernels(dev, gen) -> dict:
     check(fm_ops.fm_fwd_plan(5, FIELDS, 3000, v.stride(0), v.stride(1), 4, True).mode
           == "direct", "fm: a 312 KB row was planned for staging")
     check_fm_fwd(v, None, "fm [5, 26, 3000] fp32 (unstaged)", errs)
+    errs["embedding_lookup_int8"] = check_int8_lookup(dev, gen)
     return errs
+
+
+# the int8 gather: the packed K=64 row (K+1 = 65 int8 bytes, the tile path),
+# K=64 unpacked, the K=4 packed row, W=1, and one row too wide for a tile
+INT8_WIDTHS = ((WIDTH, (1, 7, 37, 512, 4096)), (K, (1, 37, 4096)), (5, (1, 37, 4096)),
+               (1, (7, 4096)), (13000, (1, 3)))
+
+
+def check_int8_lookup(dev, gen) -> float:
+    """The gather's int8 mode against its plain version (dequant_take), bitwise,
+    fp32 and bf16 out, on tables quantized by serve/quant.py (a zero row and
+    rows of very different scales among them); bitwise across launches;
+    out-of-range ids give zero rows."""
+    for w, batches in INT8_WIDTHS:
+        v_rows = V_ROWS if w < 1000 else 64
+        table = torch.randn(v_rows, w, generator=gen) * torch.exp(
+            torch.randn(v_rows, 1, generator=gen) * 3)
+        table[1] = 0.0
+        q, s = (torch.from_numpy(a).to(dev) for a in quant_cli.quantize_rows(table))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for b in batches:
+                ids = torch.randint(0, v_rows, (b, FIELDS), generator=gen, dtype=torch.int32)
+                ids.view(-1)[:3] = torch.tensor([-1, v_rows, 1], dtype=torch.int32)
+                ids = ids.to(dev)
+                got = emb_ops.dequant_lookup_cuda(q, s, ids, out_dtype)
+                again = emb_ops.dequant_lookup_cuda(q, s, ids, out_dtype)
+                want = emb_ops.dequant_take(q, s, ids, out_dtype)
+                torch.cuda.synchronize()
+                label = f"int8 lookup W={w} -> {out_dtype} B={b}"
+                check(got.shape == (b, FIELDS, w) and got.dtype == out_dtype, label)
+                check(same_bits(got, want), f"{label}: kernel != plain bitwise")
+                check(same_bits(got, again), f"{label}: two launches differ")
+                check(not got.reshape(-1, w)[:3].any(), f"{label}: out-of-range or zero row "
+                                                        "not zero")
+    print("check: embedding_lookup int8 mode W=65,64,5,1,13000 -> fp32 and bf16, "
+          "B=1..4096: bitwise equal to plain (dequant_take) and across launches, "
+          "out-of-range ids -> zero rows")
+    return 0.0
 
 
 def fm_fwd_views(b: int, k: int, dtype, dev, gen) -> dict:
@@ -1036,8 +1119,14 @@ def make_zoo_export(job_dir: Path, family: str, compute_dtype, gen) -> Path:
     return export_model(params, model, job_dir, step=1)
 
 
-def make_instances(rng, n: int) -> list[dict]:
+def make_instances(rng, n: int, ragged: bool = False) -> list[dict]:
+    """n serving instances. Every instance of a body gives the same keys: the
+    seven required features and a few genre flags chosen for the body (the
+    other genres are absent and default to 0), the shape the native JSON
+    parser takes. ``ragged``: each instance its own genre flags (every third
+    none), a body the native parser refuses and json.loads parses."""
     occupations = ["student", "writer", "engineer", "none", "artist", "doctor", "other"]
+    body_genres = rng.choice(GENRE, size=int(rng.integers(1, 4)), replace=False)
     out = []
     for i in range(n):
         inst = {
@@ -1049,7 +1138,10 @@ def make_instances(rng, n: int) -> list[dict]:
             "zipcode": f"{int(rng.integers(0, 100000)):05d}",  # string, leading zeros kept
             "release_year": int(rng.integers(1922, 1999)),
         }
-        if i % 3:  # every third instance has no genre flags at all (they default to 0)
+        if not ragged:
+            for g in body_genres:
+                inst[str(g)] = int(rng.integers(0, 2))
+        elif i % 3:  # every third instance has no genre flags at all (they default to 0)
             for g in rng.choice(GENRE, size=int(rng.integers(1, 4)), replace=False):
                 inst[str(g)] = 1
         out.append(inst)
@@ -1085,12 +1177,18 @@ def check_predictions(preds: list, instances: list, ref, label: str, atol, rtol)
 
 
 def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
-                    counters=(emb_ops.launches, fm_ops.launches)) -> dict:
-    """Serve one export on the card, drive /predict, hold it against the CPU;
-    every kernel in ``counters`` must be launched by the requests."""
-    ref = load_model(export_dir, device="cpu")
+                    counters=(emb_ops.launches, fm_ops.launches), ref=None,
+                    server_kwargs=None, prob_ref=None, kernel_names=()) -> dict:
+    """Serve one export on the card, drive /predict, hold it against the CPU
+    (``ref``, default a device="cpu" ServingModel of the export); every
+    kernel in ``counters`` must be launched by the requests. ``server_kwargs``
+    go to make_server (--serialized, --table-quant); ``prob_ref``, a second
+    CPU model (the unquantized one of an int8 export), must agree on every
+    probability within INT8_PROB_ATOL; ``kernel_names`` must each name a
+    kernel of the device trace of one forward."""
+    ref = ref or load_model(export_dir, device="cpu")
     httpd, served = make_server(export_dir=str(export_dir), port=0, device="cuda",
-                                batch_window_ms=2.0)
+                                batch_window_ms=2.0, **(server_kwargs or {}))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -1102,6 +1200,13 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
         for c in counters:
             c.reset()
         bodies = [make_instances(rng, n) for n in (1, 8, 64)]
+        for b in bodies:  # the server's parse takes the native path for these bodies
+            check(native.parse_json_instances(json.dumps({"instances": b}).encode())
+                  is not None, f"{label}: the native parser refused a request body")
+        # and json.loads the ragged one
+        bodies.append(make_instances(rng, 8, ragged=True))
+        check(native.parse_json_instances(json.dumps({"instances": bodies[-1]}).encode())
+              is None, f"{label}: the native parser took a body of ragged keys")
         replies = [post(base, "/predict", {"instances": b})["predictions"] for b in bodies]
         # a concurrent burst, which the micro-batcher coalesces
         burst = [make_instances(rng, 8) for _ in range(8)]
@@ -1125,6 +1230,13 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
         for b, r in zip(bodies + burst, replies + burst_replies):
             out["max_logit_err"] = max(out["max_logit_err"],
                                        check_predictions(r, b, ref, label, atol, rtol))
+            if prob_ref is not None:
+                probs = np.array([p["probabilities"] for p in r])
+                want = prob_ref.predict(instances_to_columns(b))["probabilities"]
+                err = float(np.abs(probs - want).max())
+                out["max_prob_err_vs_float"] = max(out.get("max_prob_err_vs_float", 0.0), err)
+                check(err <= INT8_PROB_ATOL, f"{label}: probabilities {err:.3g} from the "
+                                             "unquantized model")
         check(metrics.get("requests_served") == len(bodies) + len(burst),
               f"{label}: /metrics {metrics}")
         out["latency_ms"] = {}
@@ -1139,6 +1251,10 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
             out["latency_ms"][n] = statistics.median(times)
         out["breakdown_ms"] = request_breakdown(served.served, make_instances(rng, 512))
         out["forward_profile"] = profile_forward(served.served, make_instances(rng, 512))
+        for name in kernel_names:
+            check(any(name in k for k in out["forward_profile"]["kernels"]),
+                  f"{label}: no {name} kernel in the forward's trace "
+                  f"{out['forward_profile']['kernels']}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1150,10 +1266,13 @@ def serve_and_check(export_dir: Path, label: str, seed: int, latency_sizes,
 
 def request_breakdown(model, instances: list, reps: int = 20) -> dict:
     """Median host-clock ms of each step of one /predict outside HTTP: JSON
-    parse to columns, request encode (FarmHash, CPU), and the forward on the
-    card including the host->device and device->host copies."""
+    parse to columns and request encode (FarmHash, CPU), each through the
+    native host library and through the Python path (json.loads, the Python
+    FarmHash), and the forward on the card including the host->device and
+    device->host copies. Both encodes give the same model inputs."""
     raw = json.dumps({"instances": instances}).encode()
-    steps = {"parse": [], "encode": [], "forward": []}
+    steps = {"parse": [], "encode": [], "parse_python": [], "encode_python": [],
+             "forward": []}
     for _ in range(reps):
         t0 = time.perf_counter()
         columns, n = parse_request_columns(raw)
@@ -1162,8 +1281,14 @@ def request_breakdown(model, instances: list, reps: int = 20) -> dict:
         t2 = time.perf_counter()
         model.apply_encoded(batch, n)  # ends in a device->host copy: synchronous
         t3 = time.perf_counter()
-        for k, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2)):
+        py_columns, _ = parse_request_columns(raw, use_native=False)
+        t4 = time.perf_counter()
+        py_batch = model.encode_request(py_columns, use_native=False)
+        t5 = time.perf_counter()
+        for k, dt in zip(steps, (t1 - t0, t2 - t1, t4 - t3, t5 - t4, t3 - t2)):
             steps[k].append(dt * 1e3)
+    check(np.array_equal(batch["cat_ids"], py_batch["cat_ids"]),
+          "the native and the Python request encodes differ")
     return {"instances": len(instances), **{k: statistics.median(v) for k, v in steps.items()}}
 
 
@@ -1194,7 +1319,130 @@ def profile_forward(model, instances: list, reps: int = 20) -> dict:
     return {"instances": n, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if events else None,
             "top_kernels_ms": [(e.key[:60], e.self_device_time_total / reps / 1e3)
-                               for e in top]}
+                               for e in top],
+            "kernels": sorted({e.key[:90] for e in events})}
+
+
+# --- phase 4b: int8 tables, serialized programs, batch prediction ---------------
+
+# label -> (the kernels a forward must launch, the kernel names its trace must hold)
+SERVING_KERNELS = {
+    "deep_fm": ((fm_ops.launches,), ("lookup_", "fm_fwd")),
+    "dlrm": ((int_ops.launches,), ("lookup_", "interact_kernel")),
+    "xdeep_fm": ((cin_ops.launches,), ("lookup_", "cin_")),
+}
+
+
+def _family_kernels(label: str):
+    family = label.split("_k64")[0]
+    counters, names = SERVING_KERNELS[family]
+    if family == "xdeep_fm" and "fp32" in label:
+        counters = (cin_ops.launches_fp32,)
+    return counters, names
+
+
+def int8_serving(work: Path, seed: int, exports: dict) -> dict:
+    """The DeepFM bf16 and fp32 exports, quantized by the port's CLI
+    (``python -m rectpu_torch.serve.quant <dir> --out <dir>``), served over
+    HTTP; the fp32 export served with --table-quant int8; the DLRM and
+    xDeepFM fp32 exports quantized and served. Each against a device="cpu"
+    ServingModel of the same quantized model at the serving tolerances and
+    against the unquantized one within INT8_PROB_ATOL; the int8 gather and
+    the family's kernel must launch."""
+    out = {}
+    for label in ("deep_fm_k64_bf16", "deep_fm_k64_fp32", "dlrm_k64_fp32", "xdeep_fm_k64_fp32"):
+        dest = work / f"{label}_int8"
+        t0 = time.perf_counter()
+        quant_cli.main([str(exports[label]), "--out", str(dest)])
+        quant_s = time.perf_counter() - t0
+        meta = json.loads((dest / "model.json").read_text())
+        check(meta["table_quant"] == "int8" and not (dest / PROGRAM).exists(),
+              f"{label}: the quantized export {meta}")
+        counters, _ = _family_kernels(label)
+        res = out[f"{label}_int8"] = serve_and_check(
+            dest, f"{label}_int8", seed, (1, 512), (emb_ops.int8_launches, *counters),
+            prob_ref=load_model(exports[label], device="cpu"))
+        res["quantize_s"] = quant_s
+        res["npz_bytes"] = {"float": (exports[label] / "arrays.npz").stat().st_size,
+                            "int8": (dest / "arrays.npz").stat().st_size}
+    label = "deep_fm_k64_fp32"
+    float_ref = load_model(exports[label], device="cpu")
+    out[f"{label}_table_quant"] = serve_and_check(
+        exports[label], f"{label}_table_quant", seed, (1, 512),
+        (emb_ops.int8_launches, fm_ops.launches), ref=quantize_serving(float_ref),
+        server_kwargs={"table_quant": "int8"}, prob_ref=float_ref)
+    return out
+
+
+def serialized_serving(work: Path, seed: int, exports: dict) -> dict:
+    """Each export's apply.pt2 served with --serialized: its load seconds and
+    size, the predictions against the eager model on the CPU at the serving
+    tolerances, the family's kernels launched and named in the trace of the
+    program's forward."""
+    out = {}
+    for label in ("deep_fm_k64_bf16", "deep_fm_k64_fp32", "dlrm_k64_bf16", "xdeep_fm_k64_fp32"):
+        d = exports[label]
+        meta = json.loads((d / "model.json").read_text())
+        check(meta.get("serialized_apply_torch") is True and (d / PROGRAM).exists(),
+              f"{label}: no program in the export: {meta.get('serialized_apply_torch_error')}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_model(d, use_serialized=True, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        counters, names = _family_kernels(label)
+        res = out[f"{label}_serialized"] = serve_and_check(
+            d, f"{label}_serialized", seed, (1, 512), (emb_ops.launches, *counters),
+            server_kwargs={"use_serialized": True}, kernel_names=names)
+        res.update(load_s=load_s, program_bytes=(d / PROGRAM).stat().st_size,
+                   npz_bytes=(d / "arrays.npz").stat().st_size)
+    return out
+
+
+def batch_prediction(work: Path, seed: int, export_dir: Path) -> dict:
+    """``python -m rectpu_torch.serve.batch_predict --label-col rating`` (its
+    main) on a synthetic test CSV with the fp32 DeepFM export, then with
+    --table-quant int8: every row written, the AUC in [0, 1], the kernels
+    launched, and each prediction equal to the online ServingModel's on the
+    card for the same rows (within the fp32 serving tolerance: other batch
+    sizes may take other matmul algorithms)."""
+    data = work / "bp_data"
+    files = write_synthetic_dataset(data, train_rows=1000, test_rows=BP_ROWS, seed=seed)
+    with open(files["test"], newline="") as f:
+        header = f.readline().strip().split(",")
+    columns = read_csv_columns(files["test"], SERVING_REQUIRED + [g for g in GENRE if g in header])
+    out = {}
+    for tag, flags, counters in (
+            ("fp32", (), (emb_ops.launches, fm_ops.launches)),
+            ("int8", ("--table-quant", "int8"), (emb_ops.int8_launches, fm_ops.launches))):
+        dest = work / f"bp_{tag}.jsonl"
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, metrics = batch_predict_cli.main([
+            "--export-dir", str(export_dir), "--input-csv", files["test"], "--output",
+            str(dest), "--label-col", "rating", "--batch-size", "4096", *flags])
+        seconds = time.perf_counter() - t0
+        launches = {c.name: c.value for c in counters}
+        for name, k in launches.items():
+            check(k > 0, f"batch prediction {tag}: kernel {name} was not launched")
+        records = [json.loads(line) for line in open(dest)]
+        check(n == len(records) == BP_ROWS, f"batch prediction {tag}: {n} rows, "
+                                            f"{len(records)} records")
+        check(0.0 <= metrics["auc"] <= 1.0 and metrics["count"] == BP_ROWS,
+              f"batch prediction {tag}: metrics {metrics}")
+        online = load_model(export_dir, device="cuda")
+        if flags:
+            online = quantize_serving(online)
+        want = online.predict(dict(columns))["logits"]
+        got = np.array([r["logits"] for r in records])
+        err = float(np.abs(got - want).max())
+        check(err <= FP32_LOGIT_ATOL, f"batch prediction {tag}: logits {err:.3g} from the "
+                                      "online model")
+        out[tag] = {"rows": n, "metrics": metrics, "seconds": seconds,
+                    "rows_per_s": n / seconds, "launches": launches, "max_logit_err": err}
+    return out
 
 
 # --- phase 5: the training path (the trainer CLI) -------------------------
@@ -1347,8 +1595,9 @@ def check_family_step(family: str, dev, gen, work: Path) -> dict:
 # (label, CLI, flags beside SCALED_ARGS, counters): DCN dense through the
 # streaming input and the best exporter, DCN on the sparse fast step, AutoInt
 ZOO2_CLIS = (
+    # csv_windows: the streaming input's windows encoded by the native library
     ("dcn_bf16_streaming_best", dcn_cli, ("--streaming-io", "--exporter", "best"),
-     (emb_ops.launches, scatter_ops.launches)),
+     (emb_ops.launches, scatter_ops.launches, csv_bridge.windows)),
     ("dcn_bf16_fast_step", dcn_cli, ("--fast-step", "on", "--sparse-scatter", "dma"),
      (emb_ops.launches, dma_ops.launches, scatter_ops.segment_launches)),
     ("autoint_bf16", autoint_cli, (), (emb_ops.launches, scatter_ops.launches)),
@@ -1983,6 +2232,7 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
                 "plain_ms": event_ms(lambda: fm_ops.fm_cross_xla(v), flush),
                 "library_ms": None, "bound_ms": ms_b, "bound_by": by,
             })
+    rows.append(time_int8_lookup(dev, gen, flush))
     # the flagship step's: its bf16 gather, the logit in fp32; the fast
     # step's: looked[..., :64] of its 128-column fp32 rows (the bound counts
     # the K used columns, read once)
@@ -2001,6 +2251,36 @@ def time_kernels(dev, gen) -> tuple[float, list[dict]]:
             "library_ms": None, "bound_ms": ms_b, "bound_by": by,
         })
     return floor, rows
+
+
+def time_int8_lookup(dev, gen, flush, b: int = 4096) -> dict:
+    """The int8 gather at the int8 DeepFM serving shape: the packed [4224, 65]
+    int8 table and its scales, 4096 x 26 ids, bf16 out (the bf16 export's
+    compute dtype). Beside it: the plain version (dequant_take), the
+    four-op PyTorch composite (index_select of the rows and of the scales, a
+    cast, a multiply, then the cast to bf16), and the fp32 gather of the same
+    rows from the float table rounded to bf16 (the unquantized export's)."""
+    table = torch.randn(V_ROWS, WIDTH, generator=gen) * 0.1
+    q, s = (torch.from_numpy(a).to(dev) for a in quant_cli.quantize_rows(table))
+    table = table.to(dev)
+    ids = torch.randint(0, V_ROWS, (b, FIELDS), generator=gen, dtype=torch.int32).to(dev)
+    ids_long, bf16 = ids.reshape(-1).long(), torch.bfloat16
+
+    def composite():
+        return (q.index_select(0, ids_long).float()
+                * s.index_select(0, ids_long)[:, None]).to(bf16)
+
+    n = ids.numel()
+    # ids read once, each distinct row's int8 values and scale read once, out written once
+    ms_b, by = bound(n * 4 + torch.unique(ids).numel() * (WIDTH + 4) + n * WIDTH * 2, 0)
+    return {"name": "embedding_lookup_int8", "dtype": "int8->bfloat16", "batch": b,
+            "shape": f"[{V_ROWS}, {WIDTH}] int8",
+            "ms": event_ms(lambda: emb_ops.dequant_lookup_cuda(q, s, ids, bf16), flush),
+            "warm_ms": event_ms(lambda: emb_ops.dequant_lookup_cuda(q, s, ids, bf16), None),
+            "plain_ms": event_ms(lambda: emb_ops.dequant_take(q, s, ids, bf16), flush),
+            "composite_ms": event_ms(composite, flush),
+            "fp32_gather_ms": event_ms(lambda: emb_ops.lookup_cuda(table, ids, bf16), flush),
+            "library_ms": None, "bound_ms": ms_b, "bound_by": by}
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
@@ -2424,6 +2704,9 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
 KERNELS = {
     "embedding_lookup": ("rectpu_torch/kernels/csrc/embedding_lookup.cu",
                          "rectpu/ops/embedding.py:70"),
+    # the gather's int8 mode; rectpu's dequantizing gather is XLA, not Pallas
+    "embedding_lookup_int8": ("rectpu_torch/kernels/csrc/embedding_lookup.cu",
+                              "rectpu/serve/quant.py:53"),
     "fm_cross": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:271"),
     "fm_cross_bwd": ("rectpu_torch/kernels/csrc/fm.cu", "rectpu/ops/fm.py:281"),
     "scatter_rows": ("rectpu_torch/kernels/csrc/scatter_rows.cu",
@@ -2472,6 +2755,9 @@ def main(argv=None) -> int:
         for kernel, regs, spill in ptxas_report(r.log):
             print(f"  ptxas {r.name}: {kernel}: {regs} registers, {spill} bytes spilled")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s")
+    lib_path, lib_s = native_build.build()
+    native.load()
+    print(f"build: native host library {lib_path.name} (g++) in {lib_s:.2f} s")
 
     # 2-3. kernels against their plain versions
     gen = torch.Generator().manual_seed(args.seed)
@@ -2482,12 +2768,14 @@ def main(argv=None) -> int:
     errs.update(check_flat_kernels(dev, gen))
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    main_path = {}
+    main_path, exports, export_s = {}, {}, {}
     try:
         # 4. the serving path, bf16 then fp32
         for label, compute, sizes in (("deep_fm_k64_bf16", "bfloat16", (1, 64, 512)),
                                       ("deep_fm_k64_fp32", None, (1, 64, 512))):
-            export_dir = make_export(work / label, compute, gen)
+            t0 = time.perf_counter()
+            export_dir = exports[label] = make_export(work / label, compute, gen)
+            export_s[label] = time.perf_counter() - t0
             main_path[label] = serve_and_check(export_dir, label, args.seed, sizes)
             res = main_path[label]
             print(f"serving path {label}: launches {res['launches']} over "
@@ -2495,8 +2783,10 @@ def main(argv=None) -> int:
                   f"{res['max_logit_err']:.3g}; /predict median ms "
                   f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; one "
                   f"{res['breakdown_ms']['instances']}-instance request outside HTTP, median "
-                  f"ms: parse {res['breakdown_ms']['parse']:.3f}, encode "
-                  f"{res['breakdown_ms']['encode']:.3f}, forward "
+                  f"ms: parse {res['breakdown_ms']['parse']:.3f} native / "
+                  f"{res['breakdown_ms']['parse_python']:.3f} Python, encode "
+                  f"{res['breakdown_ms']['encode']:.3f} native / "
+                  f"{res['breakdown_ms']['encode_python']:.3f} Python, forward "
                   f"{res['breakdown_ms']['forward']:.3f} [{gpu}]")
             prof = res["forward_profile"]
             busy = ("not measured (no device events in the trace)"
@@ -2510,7 +2800,9 @@ def main(argv=None) -> int:
                 own = (int_ops.launches if family == "dlrm" else
                        cin_ops.launches if compute else cin_ops.launches_fp32)
                 label = f"{family}_k64_{tag}"
-                export_dir = make_zoo_export(work / label, family, compute, gen)
+                t0 = time.perf_counter()
+                export_dir = exports[label] = make_zoo_export(work / label, family, compute, gen)
+                export_s[label] = time.perf_counter() - t0
                 res = main_path[label] = serve_and_check(export_dir, label, args.seed, (1, 512),
                                                          (emb_ops.launches, own))
                 prof = res["forward_profile"]
@@ -2520,6 +2812,39 @@ def main(argv=None) -> int:
                       f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; "
                       f"{prof['instances']}-row forward {prof['wall_ms']:.3f} ms wall, device "
                       f"busy {prof['device_busy_ms']} ms [{gpu}]")
+        print(f"export: seconds to write each export (arrays.npz, model.json and the "
+              f"apply.pt2 program) { {k: round(v, 3) for k, v in export_s.items()} }")
+        main_path["export_s"] = export_s
+
+        # 4b. int8 tables (the port's quantize CLI, --table-quant int8), the
+        # serialized programs (--serialized) and batch prediction
+        int8 = main_path["int8_serving"] = int8_serving(work, args.seed, exports)
+        for label, res in int8.items():
+            extra = (f"; quantized in {res['quantize_s']:.2f} s, arrays.npz {res['npz_bytes']}"
+                     if "quantize_s" in res else "")
+            print(f"serving path {label}: launches {res['launches']}, max |logit - CPU int8| "
+                  f"{res['max_logit_err']:.3g}, max |probability - float model| "
+                  f"{res['max_prob_err_vs_float']:.3g}; /predict median ms "
+                  f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; 512-row "
+                  f"forward {res['forward_profile']['wall_ms']:.3f} ms wall, device busy "
+                  f"{res['forward_profile']['device_busy_ms']} ms{extra} [{gpu}]")
+        ser = main_path["serialized_serving"] = serialized_serving(work, args.seed, exports)
+        for label, res in ser.items():
+            print(f"serving path {label}: apply.pt2 {res['program_bytes']} bytes (arrays.npz "
+                  f"{res['npz_bytes']}), loaded on the card in {res['load_s']:.3f} s; launches "
+                  f"{res['launches']}, max |logit - CPU eager| {res['max_logit_err']:.3g}; "
+                  f"/predict median ms "
+                  f"{ {n: round(t, 3) for n, t in res['latency_ms'].items()} }; 512-row "
+                  f"forward {res['forward_profile']['wall_ms']:.3f} ms wall, device busy "
+                  f"{res['forward_profile']['device_busy_ms']} ms; kernels in its trace "
+                  f"{res['forward_profile']['kernels']} [{gpu}]")
+        bp = main_path["batch_predict"] = batch_prediction(work, args.seed,
+                                                           exports["deep_fm_k64_fp32"])
+        for tag, res in bp.items():
+            print(f"batch prediction {tag} (deep_fm_k64_fp32, --label-col rating, batch 4096): "
+                  f"{res['rows']} rows in {res['seconds']:.3f} s ({res['rows_per_s']:.0f} "
+                  f"rows/s); launches {res['launches']}; metrics {res['metrics']}; max |logit "
+                  f"- online| {res['max_logit_err']:.3g} [{gpu}]")
 
         # 5. the training path: the trainer CLI, then its export served
         train = main_path["train_cli"] = train_cli(work, args.seed)
@@ -2739,6 +3064,9 @@ def main(argv=None) -> int:
                 else "")
         if "cast_then_gather_ms" in r:
             tf32 += f", the table cast then the kernel {r['cast_then_gather_ms']:.4f} ms"
+        if "composite_ms" in r:
+            tf32 += (f", the four-op composite {r['composite_ms']:.4f} ms, the fp32 gather of "
+                     f"the same rows {r['fp32_gather_ms']:.4f} ms")
         print(f"time: {r['name']} {r['dtype']} {r.get('shape', '')} {r.get('call', '')} {at}: "
               f"kernel {r['ms']:.4f} ms (L2-warm {r['warm_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {lib} ms, bound {r['bound_ms']:.4f} ms "
@@ -2767,7 +3095,12 @@ def main(argv=None) -> int:
     runs = [*main_path["family_clis"].values(), *main_path["zoo2_clis"].values()]
     for name in ("embedding_lookup", "scatter_rows", "scatter_rows_dma", "segment_sum"):
         launches[name] += sum(r["launches"].get(name, 0) for r in runs)
+    # the int8 gather: the int8 serving runs and the int8 batch prediction
+    launches["embedding_lookup_int8"] = sum(
+        r["launches"]["embedding_lookup_int8"]
+        for r in [*main_path["int8_serving"].values(), main_path["batch_predict"]["int8"]])
     heads = {"embedding_lookup": ("bfloat16", 4096), "fm_cross": ("bfloat16", 4096),
+             "embedding_lookup_int8": ("int8->bfloat16", 4096),
              "fm_cross_bwd": ("bfloat16", "flagship"), "scatter_rows": ("bfloat16", "flagship"),
              "fused_adam": ("m bf16, v bf16-SR", "flagship"),
              "interaction": ("bfloat16", FLAGSHIP_BATCH), "cin": ("bfloat16", f"H={CIN_O}"),
@@ -2790,6 +3123,7 @@ def main(argv=None) -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "dtype": dtype, "at": at,
             **({"bound_3xtf32_ms": head["bound_3xtf32_ms"]} if "bound_3xtf32_ms" in head else {}),
+            **{k: head[k] for k in ("composite_ms", "fp32_gather_ms") if k in head},
         })
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

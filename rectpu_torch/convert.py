@@ -13,7 +13,9 @@ named after its key path (``mlp/0/kernel`` -> ``mlp.0.kernel``): a top-level
 leaf is an attribute, a dict of leaves an ``nn.ParameterDict``, a dict holding
 subtrees an ``nn.ModuleDict``, a list an ``nn.ModuleList`` (or an
 ``nn.ParameterList`` of leaves). Each leaf keeps its own dtype: the fp32
-masters stay fp32 and a bf16 master (``table_dtype="bfloat16"``) stays bf16.
+masters stay fp32 and a bf16 master (``table_dtype="bfloat16"``) stays bf16;
+an integer leaf (the int8 ``q`` of a quantized serving table) does not
+require grad.
 ``params_tree`` is the way back, for export and checkpoint.
 
 ``opt_state_tree`` / ``opt_state_from_tree`` do the same for any
@@ -72,7 +74,9 @@ def load_params(model: nn.Module, params: dict, device=None) -> nn.Module:
     device = torch.device("cpu") if device is None else torch.device(device)
 
     def param(leaf):
-        return nn.Parameter(to_tensor(leaf).detach().to(device).contiguous().clone())
+        t = to_tensor(leaf).detach().to(device).contiguous().clone()
+        # an int8 leaf (a quantized serving table's "q") is a frozen parameter
+        return nn.Parameter(t, requires_grad=t.is_floating_point())
 
     for name, node in params.items():
         if node is None:

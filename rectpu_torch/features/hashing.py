@@ -11,9 +11,11 @@ conversion for non-string hash columns.
 The implementation follows the public FarmHash ``farmhashna::Hash64``
 algorithm. Inputs in this framework are short (<= 32 bytes: decimal ids,
 zipcodes, occupation words), which exercise only the 0-16 and 17-32 byte
-branches; longer branches are implemented for generality. rectpu's vectorized
-C++ version (``rectpu/io/native/farmhash.cc``) has no counterpart in the port
-yet (ROADMAP queue A): ``hash_bucket`` here is the per-element Python loop.
+branches; longer branches are implemented for generality. ``hash_bucket``
+hashes through the native host library's C++ FarmHash
+(``rectpu_torch/io/native/farmhash.cc``, a copy of rectpu's), as rectpu does
+once its library is built; ``use_native=False`` runs the per-element Python
+loop, the plain version it is held against bucket for bucket.
 """
 
 from __future__ import annotations
@@ -183,20 +185,41 @@ def fingerprint64(s: str) -> int:
     return fingerprint64_bytes(s.encode("utf-8"))
 
 
-def hash_bucket(values, num_buckets: int) -> np.ndarray:
+def hash_bucket(values, num_buckets: int, use_native: bool = True) -> np.ndarray:
     """Map an array of raw categorical values to hash buckets.
 
     Semantics of TF's ``categorical_column_with_hash_bucket``
     (reference trainers/ml_100k.py:19-30): non-string inputs are
     stringified (decimal), then ``fingerprint64(s) % num_buckets``.
 
-    The per-element Python loop of ``rectpu.features.hashing.hash_bucket``
-    (its fallback when the native library is unbuilt), bucket for bucket,
-    run once per distinct value for integer and fixed-width string arrays
-    (a CSV column repeats its values many times over). This is the serving
-    request-encode hot path.
+    Native (the default), as ``rectpu/features/hashing.py:199-236`` with its
+    library built: integers in one C call that stringifies them, S-dtype
+    bytes in one fixed-stride call over the array's buffer, other strings
+    as bytes when they are ASCII, else one call over each element's UTF-8.
+    A failed build of the library raises. ``use_native=False`` is the
+    per-element Python loop of rectpu's fallback, bucket for bucket, run
+    once per distinct value for integer and fixed-width string arrays (a
+    CSV column repeats its values many times over). Elements with an
+    embedded NUL byte hash differently on the two paths, as in rectpu: C
+    strings end at the first NUL.
     """
     values = np.asarray(values)
+    if use_native:
+        from rectpu_torch.io import native
+
+        flat = values.reshape(-1)
+        if values.dtype.kind in "iu":
+            out = native.hash_ints(flat.astype(np.int64), num_buckets)
+        elif values.dtype.kind == "S":
+            out = native.hash_strings_array(flat, num_buckets)
+        else:
+            try:
+                as_bytes = np.asarray(flat, dtype=np.bytes_)  # non-ASCII text raises
+            except (UnicodeEncodeError, ValueError):
+                as_bytes = None
+            out = (native.hash_strings(flat, num_buckets) if as_bytes is None
+                   else native.hash_strings_array(as_bytes, num_buckets))
+        return out.reshape(values.shape)
     if values.dtype.kind in "iuSU" and values.size:
         uniq, inverse = np.unique(values.reshape(-1), return_inverse=True)
         return _hash_each(uniq, num_buckets)[inverse].reshape(values.shape)

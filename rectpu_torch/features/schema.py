@@ -61,8 +61,8 @@ class HashFeature:
     num_buckets: int
     dtype: str = "string"  # "string" | "int32" — int32 is stringified before hashing
 
-    def encode(self, values: np.ndarray) -> np.ndarray:
-        return hash_bucket(values, self.num_buckets)
+    def encode(self, values: np.ndarray, use_native: bool = True) -> np.ndarray:
+        return hash_bucket(values, self.num_buckets, use_native)
 
 
 @dataclass(frozen=True)
@@ -204,16 +204,18 @@ class FeatureSet:
     def total_buckets(self) -> int:
         return int(sum(self.field_sizes))
 
-    def encode(self, columns: dict) -> dict:
+    def encode(self, columns: dict, use_native: bool = True) -> dict:
         """Encode raw per-column arrays (name -> 1-D array) into a dense batch:
         ``cat_ids`` [B, num_fields] int32 of GLOBAL row ids and, if numeric
-        features are configured, ``num_vals`` [B, num_numeric] float32."""
+        features are configured, ``num_vals`` [B, num_numeric] float32.
+        ``use_native=False`` hashes with the Python FarmHash (``hash_bucket``)."""
         offs = self.offsets
         n = len(np.asarray(columns[self.categorical[0].name]))
         cat_ids = np.empty((n, len(self.categorical)), dtype=np.int32)
         for i, f in enumerate(self.categorical):
-            np.add(f.encode(columns[f.name]), offs[i], out=cat_ids[:, i],
-                   casting="unsafe")
+            codes = (f.encode(columns[f.name], use_native) if isinstance(f, HashFeature)
+                     else f.encode(columns[f.name]))
+            np.add(codes, offs[i], out=cat_ids[:, i], casting="unsafe")
         batch = {"cat_ids": cat_ids}
         if self.numeric:
             batch["num_vals"] = np.stack(

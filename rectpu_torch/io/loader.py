@@ -18,9 +18,13 @@ batch stream is the same as rectpu's ``CsvDataset``:
 
 ``StreamingCsvDataset`` reads a file larger than memory in windows of
 chunks, with rectpu's chunk and window order (below), so its batch stream is
-rectpu's ``StreamingCsvDataset(use_native=False)``'s. rectpu's native C++
-parser is not ported (ROADMAP.md queue A9): the port parses every window in
-Python.
+rectpu's ``StreamingCsvDataset``'s.
+
+Both datasets parse and encode through the native host library
+(``io/native/csv_loader.cc``, a copy of rectpu's) unless ``use_native=False``
+asks for the Python path above, which stays as the plain version the native
+one is held against. ``use_native=None`` means native, as it does in rectpu
+once its library is built; a failed build raises.
 """
 
 from __future__ import annotations
@@ -85,6 +89,12 @@ def read_csv_columns(csv_path: str | Path | bytes, columns: list[str],
         reader = csv.reader(f)
         header = next(reader)
         rows = list(reader)
+    return columns_from_rows(header, rows, columns, float_cols)
+
+
+def columns_from_rows(header: list[str], rows: list[list[str]], columns: list[str],
+                      float_cols: set | frozenset = frozenset()) -> dict:
+    """``read_csv_columns`` on rows already split by ``csv.reader``."""
     pos = {name: i for i, name in enumerate(header)}
     out = {}
     for col in columns:
@@ -105,6 +115,21 @@ def read_csv_columns(csv_path: str | Path | bytes, columns: list[str],
     return out
 
 
+def _encode_python(source: str | Path | bytes, feature_set: FeatureSet, label_col: str,
+                   cutoff) -> dict:
+    """The Python path: ``read_csv_columns`` (a path or the file's bytes),
+    then ``FeatureSet.encode`` with the Python FarmHash -> {cat_ids,
+    num_vals, labels}."""
+    needed = [f.name for f in feature_set.categorical] + [f.name for f in feature_set.numeric]
+    columns = read_csv_columns(source, needed + [label_col],
+                               float_cols={f.name for f in feature_set.numeric})
+    batch = feature_set.encode(columns, use_native=False)
+    cat_ids = batch["cat_ids"]
+    return {"cat_ids": cat_ids,
+            "num_vals": batch.get("num_vals", np.zeros((cat_ids.shape[0], 0), np.float32)),
+            "labels": (columns[label_col] >= cutoff).astype(np.float32)}
+
+
 class CsvDataset:
     """A fully encoded, in-memory dataset ready for batching.
 
@@ -115,16 +140,15 @@ class CsvDataset:
     """
 
     def __init__(self, csv_path: str | Path, feature_set: FeatureSet,
-                 label_col: str = "rating", cutoff: int = 5):
+                 label_col: str = "rating", cutoff: int = 5, use_native: bool | None = None):
         self.feature_set = feature_set
-        needed = [f.name for f in feature_set.categorical] + [f.name for f in feature_set.numeric]
-        columns = read_csv_columns(csv_path, needed + [label_col],
-                                   float_cols={f.name for f in feature_set.numeric})
-        batch = feature_set.encode(columns)
-        self.cat_ids = batch["cat_ids"]
-        self.num_vals = batch.get(
-            "num_vals", np.zeros((self.cat_ids.shape[0], 0), dtype=np.float32))
-        self.labels = (columns[label_col] >= cutoff).astype(np.float32)
+        if use_native is not False:
+            from rectpu_torch.io.native.csv_bridge import load_and_encode
+
+            enc = load_and_encode(csv_path, feature_set, label_col, cutoff)
+        else:
+            enc = _encode_python(csv_path, feature_set, label_col, cutoff)
+        self.cat_ids, self.num_vals, self.labels = enc["cat_ids"], enc["num_vals"], enc["labels"]
         self.size = self.cat_ids.shape[0]
         logger.debug("dataset loaded: %s rows from %s", self.size, csv_path)
 
@@ -212,17 +236,15 @@ class StreamingCsvDataset:
     of this shard's epoch stream consumed, so a resume re-derives the
     windows from (seed, epoch) and skips to the one that holds ``index``.
 
-    rectpu's native parser is not ported: ``use_native=True`` raises
-    (ROADMAP.md queue A9); None and False parse in Python.
+    A window is parsed and encoded by the native library
+    (``csv_bridge.encode_bytes``) unless ``use_native=False``.
     """
 
     def __init__(self, csv_path: str | Path, feature_set: FeatureSet,
                  label_col: str = "rating", cutoff: int = 5, chunk_rows: int = 65536,
                  window_chunks: int = 4, use_native: bool | None = None,
                  prefetch: bool = True):
-        if use_native:
-            raise NotImplementedError("the native CSV loader is not ported to rectpu_torch "
-                                      "yet (ROADMAP.md queue A9)")
+        self.use_native = use_native is not False
         self.csv_path = Path(csv_path)
         self.feature_set = feature_set
         self.label_col = label_col
@@ -294,18 +316,16 @@ class StreamingCsvDataset:
             for c in chunk_ids:
                 f.seek(self._chunk_offsets[c])
                 parts.append(f.read(self._chunk_offsets[c + 1] - self._chunk_offsets[c]))
-        fs = self.feature_set
-        needed = [f.name for f in fs.categorical] + [f.name for f in fs.numeric]
-        columns = read_csv_columns(b"".join(parts), needed + [self.label_col],
-                                   float_cols={f.name for f in fs.numeric})
-        batch = fs.encode(columns)
-        cat_ids = batch["cat_ids"]
+        data = b"".join(parts)
+        if self.use_native:
+            from rectpu_torch.io.native.csv_bridge import encode_bytes
+
+            enc = encode_bytes(data, self.feature_set, self.label_col, self.cutoff)
+        else:
+            enc = _encode_python(data, self.feature_set, self.label_col, self.cutoff)
         if self._row_perm is not None:
-            cat_ids = self._row_perm[cat_ids]
-        return {"cat_ids": cat_ids,
-                "num_vals": batch.get("num_vals",
-                                      np.zeros((cat_ids.shape[0], 0), np.float32)),
-                "labels": (columns[self.label_col] >= self.cutoff).astype(np.float32)}
+            enc["cat_ids"] = self._row_perm[enc["cat_ids"]]
+        return enc
 
     def _epoch_windows(self, epoch: int, seed: int, shard_id: int, num_shards: int):
         rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, 7]))

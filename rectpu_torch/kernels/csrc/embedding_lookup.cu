@@ -1,5 +1,7 @@
 // Embedding-row gather for Hopper (sm_90a): out[r, :] = table[ids[r], :],
-// optionally rounding an fp32 table's rows to bf16 on the way.
+// optionally rounding an fp32 table's rows to bf16 on the way; and its
+// dequantizing mode for int8 serving tables, out[r, :] = float(q[ids[r], :]) *
+// s[ids[r]] in fp32 or rounded once to bf16 (rectpu_lookup_rows_int8).
 //
 // Replaces rectpu/ops/embedding.py::_fwd_kernel (:70), the Pallas kernel that
 // lookup_pallas (:170) runs for every field of the ml-100k table on the TPU
@@ -18,6 +20,16 @@
 // table.to(torch.bfloat16)[ids], NaN and infinities included: rectpu's
 // gather_dtype cast (lookup_split, :267) folded into the gather, which saves
 // the model a pass over the whole table each step.
+//
+// The int8 mode (rectpu_torch/serve/quant.py: a per-row symmetric int8 table
+// and its fp32 scales) computes rectpu's dequant_lookup (rectpu/serve/quant.py:
+// 53-62), an fp32 product of the int8 value and its row's scale, followed by
+// the cast to the compute dtype in lookup_fields (rectpu/models/base.py:
+// 324-337): one IEEE fp32 multiply (nothing to fuse into an FMA) and at most
+// one round to nearest even, so it is bitwise the plain
+// (q[ids].float() * s[ids, None]).to(dtype). It takes the tile path (or the
+// rows path for a row too wide for a tile): an int8 row of K+1 = 65 bytes is
+// not 16-byte aligned, and the vector path moves 16-byte chunks as they are.
 //
 // What bounds it on this card: bytes. No arithmetic at all: the ids, the
 // rows read (at most the table) and the output written once.
@@ -48,6 +60,7 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +80,31 @@ __device__ __forceinline__ TOut convert(TIn x) {
 template <>
 __device__ __forceinline__ uint16_t convert<float, uint16_t>(float x) {
   return __bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// One element of the table at p as the output's bits; for an int8 table the
+// product with its row's scale s, in fp32, then rounded once to the output.
+template <typename TIn, typename TOut>
+__device__ __forceinline__ TOut load_elem(const TIn* p, float s) {
+  return convert<TIn, TOut>(__ldg(p));
+}
+template <>
+__device__ __forceinline__ float load_elem<int8_t, float>(const int8_t* p, float s) {
+  return static_cast<float>(__ldg(p)) * s;
+}
+template <>
+__device__ __forceinline__ uint16_t load_elem<int8_t, uint16_t>(const int8_t* p, float s) {
+  return __bfloat16_as_ushort(__float2bfloat16(static_cast<float>(__ldg(p)) * s));
+}
+
+// The scale of row id of an int8 table (1 for every other table).
+template <typename TIn>
+__device__ __forceinline__ float row_scale(const float* scales, int32_t id) {
+  if constexpr (std::is_same_v<TIn, int8_t>) {
+    return __ldg(scales + id);
+  } else {
+    return 1.0f;
+  }
 }
 
 // 16 bytes of output from the table: one 16-byte load when TIn and TOut are
@@ -172,9 +210,9 @@ constexpr int kTileCols = 8;
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-    lookup_tile_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ ids,
-                       TOut* __restrict__ out, int64_t n_ids, int32_t n_table_rows,
-                       int32_t width, int rows_per_tile) {
+    lookup_tile_kernel(const TIn* __restrict__ table, const float* __restrict__ scales,
+                       const int32_t* __restrict__ ids, TOut* __restrict__ out, int64_t n_ids,
+                       int32_t n_table_rows, int32_t width, int rows_per_tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   int32_t* s_ids = reinterpret_cast<int32_t*>(smem);
   TOut* s_out = reinterpret_cast<TOut*>(smem + (rows_per_tile * 4 + 15) / 16 * 16);
@@ -208,11 +246,12 @@ __global__ void __launch_bounds__(kThreads)
         const int32_t id = p < pairs ? s_ids[row] : -1;
         const bool ok = id >= 0 && id < n_table_rows;
         const TIn* src = table + static_cast<int64_t>(ok ? id : 0) * width + c0;
+        const float sc = ok ? row_scale<TIn>(scales, id) : 0.0f;
         at[u] = row * width + c0;
         n[u] = p < pairs ? min(kTileCols, width - c0) : 0;
 #pragma unroll
         for (int j = 0; j < kTileCols; ++j) {
-          x[u][j] = ok && j < n[u] ? convert<TIn, TOut>(__ldg(src + j)) : TOut(0);
+          x[u][j] = ok && j < n[u] ? load_elem<TIn, TOut>(src + j, sc) : TOut(0);
         }
       }
 #pragma unroll
@@ -242,9 +281,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
-    lookup_rows_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ ids,
-                       TOut* __restrict__ out, int64_t n_ids, int32_t n_table_rows,
-                       int32_t width) {
+    lookup_rows_kernel(const TIn* __restrict__ table, const float* __restrict__ scales,
+                       const int32_t* __restrict__ ids, TOut* __restrict__ out, int64_t n_ids,
+                       int32_t n_table_rows, int32_t width) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / kWarp);
   for (int64_t row = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
@@ -253,8 +292,9 @@ __global__ void __launch_bounds__(kThreads)
     TOut* dst = out + row * width;
     if (id >= 0 && id < n_table_rows) {
       const TIn* src = table + static_cast<int64_t>(id) * width;
+      const float sc = row_scale<TIn>(scales, id);
 #pragma unroll 4
-      for (int c = lane; c < width; c += kWarp) dst[c] = convert<TIn, TOut>(__ldg(src + c));
+      for (int c = lane; c < width; c += kWarp) dst[c] = load_elem<TIn, TOut>(src + c, sc);
     } else {
 #pragma unroll 4
       for (int c = lane; c < width; c += kWarp) dst[c] = TOut(0);
@@ -285,24 +325,29 @@ void resident(void (*kernel)(Params...), int blocks, int smem, cudaStream_t s,
 }
 
 template <typename TIn, typename TOut>
-int launch(const void* table, const void* ids, void* out, long long n_ids, int n_table_rows,
-           int width, int path, int param, int blocks, int smem, cudaStream_t s) {
+int launch(const void* table, const float* scales, const void* ids, void* out, long long n_ids,
+           int n_table_rows, int width, int path, int param, int blocks, int smem,
+           cudaStream_t s) {
   const auto* t = static_cast<const TIn*>(table);
   const auto* i = static_cast<const int32_t*>(ids);
   auto* o = static_cast<TOut*>(out);
   if (path == kVector) {
-    const int chunks = width / Chunk<TIn, TOut>::kOut;
-    const int cpl = (chunks + param - 1) / param;  // chunks a lane
-    auto kernel = cpl == 1   ? lookup_vec_kernel<TIn, TOut, kVecRows, 1>
-                  : cpl == 2 ? lookup_vec_kernel<TIn, TOut, kVecRows, 2>
-                             : lookup_vec_kernel<TIn, TOut, kVecRows, 0>;
-    kernel<<<blocks, kThreads, 0, s>>>(t, i, o, n_ids, n_table_rows, width, param);
+    if constexpr (std::is_same_v<TIn, int8_t>) {
+      return static_cast<int>(cudaErrorInvalidValue);  // no vector path for int8 rows
+    } else {
+      const int chunks = width / Chunk<TIn, TOut>::kOut;
+      const int cpl = (chunks + param - 1) / param;  // chunks a lane
+      auto kernel = cpl == 1   ? lookup_vec_kernel<TIn, TOut, kVecRows, 1>
+                    : cpl == 2 ? lookup_vec_kernel<TIn, TOut, kVecRows, 2>
+                               : lookup_vec_kernel<TIn, TOut, kVecRows, 0>;
+      kernel<<<blocks, kThreads, 0, s>>>(t, i, o, n_ids, n_table_rows, width, param);
+    }
   } else if (path == kTile) {
-    resident(lookup_tile_kernel<TIn, TOut>, blocks, smem, s, t, i, o, n_ids, n_table_rows,
-             width, param);
+    resident(lookup_tile_kernel<TIn, TOut>, blocks, smem, s, t, scales, i, o, n_ids,
+             n_table_rows, width, param);
   } else {
-    lookup_rows_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(t, i, o, n_ids, n_table_rows,
-                                                              width);
+    lookup_rows_kernel<TIn, TOut><<<blocks, kThreads, 0, s>>>(t, scales, i, o, n_ids,
+                                                              n_table_rows, width);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -341,16 +386,47 @@ extern "C" int rectpu_lookup_rows(const void* table, const void* ids, void* out,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bytes == 4 && out_bytes == 4) {
-    return launch<uint32_t, uint32_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
-                                      blocks, smem, s);
+    return launch<uint32_t, uint32_t>(table, nullptr, ids, out, n_ids, n_table_rows, width, path,
+                                      param, blocks, smem, s);
   }
   if (in_bytes == 2 && out_bytes == 2) {
-    return launch<uint16_t, uint16_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
-                                      blocks, smem, s);
+    return launch<uint16_t, uint16_t>(table, nullptr, ids, out, n_ids, n_table_rows, width, path,
+                                      param, blocks, smem, s);
   }
   if (in_bytes == 4 && out_bytes == 2) {
-    return launch<float, uint16_t>(table, ids, out, n_ids, n_table_rows, width, path, param,
-                                   blocks, smem, s);
+    return launch<float, uint16_t>(table, nullptr, ids, out, n_ids, n_table_rows, width, path,
+                                   param, blocks, smem, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 mode: q [n_table_rows, width] int8 row-major, scales
+// [n_table_rows] fp32, ids [n_ids] int32, out [n_ids, width] fp32 (out_bytes
+// 4) or bf16 (out_bytes 2): out[r, c] = float(q[id, c]) * scales[id], rounded
+// once to bf16 for a bf16 out, a zero row for an id outside [0,
+// n_table_rows). The plan as above for in_bytes 1, path 1 "tile" or 2 "rows"
+// (the vector path is refused). Returns a cudaError_t as int (0 = ok).
+extern "C" int rectpu_lookup_rows_int8(const void* q, const void* scales, const void* ids,
+                                       void* out, long long n_ids, int n_table_rows,
+                                       int width, int out_bytes, int path, int param,
+                                       int blocks, int smem, void* stream) {
+  if (n_ids == 0 || width == 0) return static_cast<int>(cudaSuccess);
+  const bool bad_tile =
+      path == kTile && (param < 1 || param > kThreads ||
+                        (static_cast<int64_t>(param) * width * out_bytes) % 16 != 0 ||
+                        reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+                        smem < (param * 4 + 15) / 16 * 16 + param * width * out_bytes ||
+                        smem > 48 * 1024);
+  if (bad_tile || (path != kTile && path != kRows) || blocks < 1 ||
+      (out_bytes != 4 && out_bytes != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* sc = static_cast<const float*>(scales);
+  if (out_bytes == 4) {
+    return launch<int8_t, float>(q, sc, ids, out, n_ids, n_table_rows, width, path, param,
+                                 blocks, smem, s);
+  }
+  return launch<int8_t, uint16_t>(q, sc, ids, out, n_ids, n_table_rows, width, path, param,
+                                  blocks, smem, s);
 }

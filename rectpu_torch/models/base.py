@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from rectpu_torch.features.schema import FeatureSet
-from rectpu_torch.ops.embedding import lookup
+from rectpu_torch.ops.embedding import dequant_gather, lookup
 from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index, mul32
 
 
@@ -260,12 +260,23 @@ def pack_fused_table(emb: torch.Tensor, w: torch.Tensor, pad_cols: int = 0) -> t
     return t
 
 
-def lookup_fields(table: torch.Tensor, cat_ids: torch.Tensor, cfg: TowerConfig) -> torch.Tensor:
+def is_quantized(table) -> bool:
+    """A quantized table leaf (``serve/quant.py``): {"q": int8 [V, W], "s": fp32 [V]}."""
+    return isinstance(table, (dict, torch.nn.ParameterDict)) and "q" in table and "s" in table
+
+
+def lookup_fields(table, cat_ids: torch.Tensor, cfg: TowerConfig) -> torch.Tensor:
     """[B, F] ids -> [B, F, W] field rows, in the compute dtype when one is
     set: the table is cast to it before the gather (``gather_dtype``,
     ``rectpu/ops/embedding.py:501``), and the dense table cotangent is rounded
-    to ``table_grad_dtype`` before its cast back to the table's dtype."""
+    to ``table_grad_dtype`` before its cast back to the table's dtype.
+
+    A quantized table leaf takes the gather's int8 mode (``dequant_gather``):
+    rectpu's ``lookup_fn=dequant_lookup`` then the cast to the compute dtype
+    (``rectpu/models/base.py:324-337``), serving only."""
     dtype = cfg.torch_compute_dtype
+    if is_quantized(table):
+        return dequant_gather(table["q"], table["s"], cat_ids, dtype or torch.float32)
     emb = lookup(table, cat_ids, impl=cfg.embedding_impl, gather_dtype=dtype,
                  grad_dtype=cfg.torch_table_grad_dtype)
     return emb.to(dtype) if dtype is not None else emb

@@ -39,6 +39,11 @@ each 64-row chunk from zero and adds the chunks rounded to nearest).
 rectpu pins its "auto" to "xla" even on the TPU (:199), a speed choice; the
 port has no XLA and no counterpart of that pin: on a CUDA tensor it always
 launches the kernels.
+
+``cin_op`` (``rectpu_torch::cin``) registers the contraction as a
+``torch.library`` op with a fake shape, which ``cin_core`` and
+``cin_core_kmajor`` call only while ``torch.export`` traces: a serialized
+serving program (``serve/export.py``) records it.
 """
 
 from __future__ import annotations
@@ -394,6 +399,26 @@ def _weight_grad(x, y, g, layout):
     return cin_dw_cuda(x, y, g, layout)
 
 
+@torch.library.custom_op("rectpu_torch::cin", mutates_args=())
+def cin_op(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
+    """The contraction as a registered op, for serialized programs: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    return _contract(x, y, w, layout)
+
+
+@cin_op.register_fake
+def _(x, y, w, layout):
+    b, o = x.shape[0], w.shape[2]
+    shape = (b, o, x.shape[2]) if layout == "legacy" else (b, x.shape[1], o)
+    return x.new_empty(shape)
+
+
+def _core(x, y, w, layout):
+    if torch.compiler.is_exporting():
+        return cin_op(x, y, w, layout)
+    return _CinCore.apply(x, y, w, layout)
+
+
 class _CinCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, w, layout):
@@ -419,10 +444,10 @@ class _CinCore(torch.autograd.Function):
 def cin_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """out[b,o,k] = sum_{h,m} w[h,m,o] x[b,h,k] y[b,m,k], differentiable:
     x [B, H, K], y [B, M, K], w [H, M, O] -> [B, O, K] in x's dtype."""
-    return _CinCore.apply(x, y, w, "legacy")
+    return _core(x, y, w, "legacy")
 
 
 def cin_core_kmajor(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same function in K-major layout: x [B, K, H], y [B, K, M], w
     [H, M, O] -> [B, K, O], differentiable."""
-    return _CinCore.apply(x, y, w, "kmajor")
+    return _core(x, y, w, "kmajor")

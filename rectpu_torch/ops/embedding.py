@@ -25,6 +25,15 @@ cast then the gather and spares the pass over the whole table. Ids outside
 ``[0, V)`` give a zero row and receive no gradient, as the Pallas one-hot
 kernels do.
 
+``dequant_gather`` is the gather's int8 mode for quantized serving tables
+(``serve/quant.py``): int8 rows q [V, W] and fp32 scales s [V] give
+``float(q[id]) * s[id]`` in fp32 or rounded once to bf16, a zero row for an
+id outside the table; on CPU tensors its plain version ``dequant_take``. It
+is rectpu's ``dequant_lookup`` (``rectpu/serve/quant.py:53-62``, XLA there)
+followed by ``lookup_fields``' cast, bit for bit; one launch where plain
+PyTorch takes two gathers, a cast and a multiply with an fp32 [B, F, W]
+intermediate. Serving only: it has no backward.
+
 ``lookup_plan`` is the kernel's launch plan (its path, the rows a tile or
 the lanes a row, the blocks), pure Python so that the CPU tests check it.
 """
@@ -43,6 +52,7 @@ from rectpu_torch.ops.scatter_rows import scatter_rows_dense
 IMPLS = ("auto", "take", "onehot", "pallas", "split")
 
 launches = LaunchCount("embedding_lookup")
+int8_launches = LaunchCount("embedding_lookup_int8")
 
 _DTYPE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _SIGNATURES = {
@@ -50,6 +60,12 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    "rectpu_lookup_rows_int8": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -188,6 +204,76 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
     return lookup_cuda(table, ids, out_dtype)
 
 
+def dequant_take(q: torch.Tensor, s: torch.Tensor, ids: torch.Tensor,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of the int8 gather: ``(q[ids].float() * s[ids, None])``
+    in ``out_dtype``; rows of out-of-range ids are zero."""
+    return (lookup_take(q, ids).float() * lookup_take(s[:, None], ids)).to(out_dtype)
+
+
+def dequant_lookup_cuda(q: torch.Tensor, s: torch.Tensor, ids: torch.Tensor,
+                        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the gather's int8 mode: q [V, W] int8 and s [V] fp32,
+    contiguous; ids [...] int32, contiguous, on the same card -> [..., W] in
+    ``out_dtype`` (fp32, or bf16 rounded to nearest even). Raises on
+    anything else."""
+    if not (q.is_cuda and s.device == q.device and ids.device == q.device):
+        raise ValueError(f"dequant_lookup_cuda needs q, s and ids on one CUDA device, got "
+                         f"{q.device}, {s.device} and {ids.device}")
+    if (q.dim() != 2 or q.dtype != torch.int8 or s.shape != (q.shape[0],)
+            or s.dtype != torch.float32):
+        raise ValueError(f"q must be 2-D int8 and s its fp32 row scales, got {tuple(q.shape)} "
+                         f"{q.dtype} and {tuple(s.shape)} {s.dtype}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32, got {ids.dtype}")
+    if out_dtype not in _DTYPE_BYTES:
+        raise ValueError(f"the int8 gather writes float32 or bfloat16, not {out_dtype}")
+    if not (q.is_contiguous() and s.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("dequant_lookup_cuda needs contiguous q, s and ids")
+    v, w = q.shape
+    if v >= 2**31 or w >= 2**31:
+        raise ValueError(f"table {tuple(q.shape)} exceeds the kernel's int32 extents")
+    out = torch.empty(*ids.shape, w, dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    # int8 rows never take the vector path, which moves 16-byte chunks as they are
+    plan = lookup_plan(ids.numel(), w, 1, _DTYPE_BYTES[out_dtype], aligned=False,
+                       n_sms=_sm_count(q.device))
+    lib = build.load("embedding_lookup", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rectpu_lookup_rows_int8(q.data_ptr(), s.data_ptr(), ids.data_ptr(),
+                                          out.data_ptr(), ids.numel(), v, w,
+                                          _DTYPE_BYTES[out_dtype], PATHS.index(plan.path),
+                                          plan.param, plan.blocks, plan.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_lookup int8 kernel launch failed: cudaError {err}")
+    int8_launches.add()
+    return out
+
+
+def dequant_gather(q: torch.Tensor, s: torch.Tensor, ids: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(q[ids].float() * s[ids, None]).to(out_dtype)``: the plain version
+    for CPU tensors, the gather kernel's int8 mode for CUDA tensors."""
+    if q.device.type == "cpu" and ids.device.type == "cpu":
+        return dequant_take(q, s, ids, out_dtype)
+    return dequant_lookup_cuda(q, s, ids, out_dtype)
+
+
+@torch.library.custom_op("rectpu_torch::gather", mutates_args=())
+def gather_op(table: torch.Tensor, ids: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``gather_rows`` as a registered op: what a serialized program
+    (``serve/export.py``) records for the lookup, and runs as the kernel on
+    CUDA tensors and the plain version on CPU tensors."""
+    return gather_rows(table.contiguous(), ids, out_dtype)
+
+
+@gather_op.register_fake
+def _(table, ids, out_dtype):
+    return table.new_empty((*ids.shape, table.shape[1]), dtype=out_dtype)
+
+
 class _Lookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids, gather_dtype, grad_dtype):
@@ -221,7 +307,14 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, impl: str = "auto",
     ``grad_dtype`` is the dtype the dense cotangent is rounded to before the
     cast back to the table's dtype (None: fp32). CPU tensors take the plain
     versions, CUDA tensors the kernels (which raise on what they do not
-    take)."""
+    take). While ``torch.export`` traces, it records the registered op
+    ``rectpu_torch::gather`` instead (``gather_op``)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown embedding_impl {impl!r} (expected one of {IMPLS})")
+    if torch.compiler.is_exporting():
+        # the serialized program records the registered op (forward only)
+        if gather_dtype is not None and gather_dtype != table.dtype and not (
+                table.dtype == torch.float32 and gather_dtype == torch.bfloat16):
+            table = table.to(gather_dtype)
+        return gather_op(table, ids, gather_dtype or table.dtype)
     return _Lookup.apply(table, ids, gather_dtype, grad_dtype)

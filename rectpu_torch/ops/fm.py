@@ -44,6 +44,11 @@ same inputs choose the same function (the kernels themselves take any F*K).
 Only the autotuner reaches the dispatcher: it times both routes through it
 and pins the faster. The flat-layout DeepFM calls ``fm_cross`` directly, as
 rectpu's ``_apply_flat`` calls ``fm_cross_flat``.
+
+``fm_cross_op`` (``rectpu_torch::fm_cross``) registers the forward as a
+``torch.library`` op with a fake shape, which ``fm_cross`` calls only while
+``torch.export`` traces: a serialized serving program (``serve/export.py``)
+records it and runs the kernel (CUDA) or the plain version (CPU).
 """
 
 from __future__ import annotations
@@ -450,13 +455,30 @@ class _FmCross(torch.autograd.Function):
         return fm_cross_bwd_cuda(v, g), None
 
 
+@torch.library.custom_op("rectpu_torch::fm_cross", mutates_args=())
+def fm_cross_op(v: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The FM forward as a registered op, for serialized programs: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if v.device.type == "cpu":
+        return fm_cross_xla(v, out_dtype)
+    return fm_cross_cuda(v, out_dtype)
+
+
+@fm_cross_op.register_fake
+def _(v, out_dtype):
+    return v.new_empty((v.shape[0],), dtype=out_dtype)
+
+
 def fm_cross(v: torch.Tensor, impl: str = "auto",
              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """FM second-order logit from field embeddings v [B, F, K] -> [B] in v's
     dtype (or ``out_dtype=torch.float32``), differentiable in v. ``impl`` is
-    the recorded ``fm_impl``; every value runs the same function."""
+    the recorded ``fm_impl``; every value runs the same function. While
+    ``torch.export`` traces, it records ``rectpu_torch::fm_cross``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown fm_impl {impl!r} (expected one of {IMPLS})")
+    if torch.compiler.is_exporting():
+        return fm_cross_op(v, _out_dtype(v, out_dtype))
     return _FmCross.apply(v, out_dtype)
 
 

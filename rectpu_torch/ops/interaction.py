@@ -33,6 +33,11 @@ rectpu forms (a batched matmul forming the full z, :246-269) compute the same
 exact-product function. The 3D form of the model (``interact``, rectpu's
 ``DLRMModel._interact``: the einsum with exact products) runs the kernel with
 exact products.
+
+``interact_op`` (``rectpu_torch::interact``) registers the forward as a
+``torch.library`` op with a fake shape, which ``interact`` and
+``interact_flat`` call only while ``torch.export`` traces: a serialized
+serving program (``serve/export.py``) records it.
 """
 
 from __future__ import annotations
@@ -257,6 +262,27 @@ class _Interact(torch.autograd.Function):
         return interact_bwd(flat, g, n, k, itself), None, None, None, None
 
 
+@torch.library.custom_op("rectpu_torch::interact", mutates_args=())
+def interact_op(flat: torch.Tensor, n: int, k: int, itself: bool,
+                round_products: bool) -> torch.Tensor:
+    """The pair-dot forward as a registered op, for serialized programs: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if flat.device.type == "cpu":
+        return interact_plain(flat, n, k, itself, round_products)
+    return interact_cuda(flat.contiguous(), n, k, itself, round_products)
+
+
+@interact_op.register_fake
+def _(flat, n, k, itself, round_products):
+    return flat.new_empty((flat.shape[0], num_pairs(n, itself)), dtype=torch.float32)
+
+
+def _interact(flat: torch.Tensor, n: int, k: int, itself: bool, rounded: bool) -> torch.Tensor:
+    if torch.compiler.is_exporting():
+        return interact_op(flat, n, k, itself, rounded)
+    return _Interact.apply(flat, n, k, itself, rounded)
+
+
 def set_interact_auto_impl(name: str, device_type: str = "cuda") -> None:
     """Pin what "auto" resolves to (the autotuner's pick)."""
     if name not in ("xla", "pallas", "pallas-mxu"):
@@ -274,11 +300,11 @@ def interact_flat(flat: torch.Tensor, num_fields: int, k: int, itself: bool = Fa
     if impl == "auto":
         impl = _INTERACT_AUTO[device_key(flat)]
     rounded = impl == "pallas-mxu"
-    return _Interact.apply(flat.contiguous(), num_fields, k, itself, rounded)
+    return _interact(flat.contiguous(), num_fields, k, itself, rounded)
 
 
 def interact(vectors: torch.Tensor, itself: bool = False) -> torch.Tensor:
     """The 3D form: vectors [B, n, K] -> [B, P] fp32 with exact products
     (rectpu's einsum ``DLRMModel._interact``), through the same kernel."""
     b, n, k = vectors.shape
-    return _Interact.apply(vectors.reshape(b, n * k).contiguous(), n, k, itself, False)
+    return _interact(vectors.reshape(b, n * k).contiguous(), n, k, itself, False)

@@ -15,26 +15,41 @@ returns a
 required features user_id, item_id, age, gender, occupation, zipcode,
 release_year, with the 19 genre flags optional and defaulting to 0 — and
 returns the binary head's outputs (logits / logistic / probabilities /
-class_id). ``export_model`` writes the same layout from a rectpu-layout
-parameter tree, without rectpu's serialized StableHLO graph
-(``serialized_apply: false``).
+class_id). An int8-quantized export (``"table_quant": "int8"``,
+``serve/quant.py``) is served through the gather kernel's int8 mode.
 
-Not ported yet (ROADMAP.md queue A): ``use_serialized=True`` (rectpu's
-``apply.jaxexport`` is a StableHLO graph with no PyTorch counterpart) and
-int8-quantized exports (``table_quant: "int8"``).
+``export_model`` writes the same layout from a rectpu-layout parameter tree,
+and beside it ``apply.pt2``: the port's counterpart of rectpu's
+``apply.jaxexport`` (a StableHLO graph, ``rectpu/serve/export.py:67-105``,
+which the port cannot run; ``"serialized_apply"`` keeps its meaning and is
+false in the port's exports). ``apply.pt2`` is a ``torch.export`` program of
+the forward, cat_ids [b, F] int32 and num_vals [b, N] fp32 to logits [b]
+fp32, with a dynamic batch dimension and the parameters as inputs, so the
+weights live only in ``arrays.npz`` (the example inputs are not saved).
+As rectpu pins its graph to shape-polymorphic kernels (plain gather, XLA
+FM, no flat layout), the program is traced without the flat layout, and the
+kernels it runs are the registered forward ops ``rectpu_torch::gather``,
+``::fm_cross``, ``::interact`` (exact products) and ``::cin``: the port's
+kernels on CUDA tensors and their plain versions on CPU tensors.
+``model.json`` records ``"serialized_apply_torch": true``, or false and the
+error (``"serialized_apply_torch_error"``) where export failed, as rectpu
+records its own. ``load_model(..., use_serialized=True)`` runs the program
+without the model's Python code.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from rectpu_torch.convert import load_params
+from rectpu_torch.convert import flatten_tree, load_params
 from rectpu_torch.device import resolve_device
 from rectpu_torch.features.schema import GENRE, FeatureSet, is_string_column, ml_100k_feature_set
 from rectpu_torch.models import MODEL_REGISTRY, TowerConfig
@@ -43,6 +58,7 @@ from rectpu_torch.train.checkpoint import (
     _load_flat_npz,
     _rebuild,
     _treedef_template,
+    to_tensor,
 )
 from rectpu_torch.train.metrics import binary_predictions
 from rectpu_torch.utils.logging import get_logger
@@ -60,6 +76,73 @@ def model_toggle_kwargs(model) -> dict:
         k: (list(v) if isinstance(v := getattr(model, k), tuple) else v)
         for k in model.EXPORT_KWARGS
     }
+
+
+PROGRAM = "apply.pt2"
+_PROGRAMS: dict = {}  # traced program bytes by (family, config, toggles, leaves)
+_PROGRAMS_LOCK = threading.Lock()
+
+
+class _Apply(torch.nn.Module):
+    """The exported function: (params, cat_ids, num_vals) -> logits, the
+    params swapped into ``model`` by ``functional_call``. The model is held
+    outside the module tree, so none of its tensors is lifted into the
+    program."""
+
+    def __init__(self, model):
+        super().__init__()
+        object.__setattr__(self, "_model", model)
+
+    def forward(self, params: dict, cat_ids: torch.Tensor, num_vals: torch.Tensor):
+        return torch.func.functional_call(self._model, params, (cat_ids, num_vals))
+
+
+def _program_params(params) -> dict:
+    """{module parameter name: CPU tensor} of a rectpu-layout tree: the
+    program's first input."""
+    return {k.replace("/", "."): to_tensor(v).detach().cpu().contiguous()
+            for k, v in flatten_tree(params).items()}
+
+
+def _serialized_apply_bytes(model, params) -> bytes:
+    """The ``torch.export`` program of ``model``'s forward as bytes (see the
+    module docstring), traced once per family, config, toggles and parameter
+    shapes in a process (a failure is remembered too)."""
+    flat = _program_params(params)
+    key = json.dumps([model.name, repr(dataclasses.replace(model.cfg, flat_layout=False)),
+                      model_toggle_kwargs(model),
+                      [(k, list(v.shape), str(v.dtype)) for k, v in flat.items()]])
+    with _PROGRAMS_LOCK:
+        if key not in _PROGRAMS:
+            try:
+                _PROGRAMS[key] = _export_program(model, params, flat)
+            except Exception as e:  # a failed export fails the same way next time
+                _PROGRAMS[key] = e
+        got = _PROGRAMS[key]
+    if isinstance(got, Exception):
+        raise got
+    return got
+
+
+def _export_program(model, params, flat: dict) -> bytes:
+    import io
+
+    traced = model.__class__(dataclasses.replace(model.cfg, flat_layout=False),
+                             **model_toggle_kwargs(model))
+    load_params(traced, params, "meta")
+    fs = model.cfg.feature_set
+    b = 4  # an example size that is not specialised (0 and 1 are)
+    args = (flat, torch.zeros(b, fs.num_fields, dtype=torch.int32),
+            torch.zeros(b, fs.num_numeric, dtype=torch.float32))
+    batch = torch.export.Dim("batch", min=1)
+    with torch.no_grad():
+        ep = torch.export.export(_Apply(traced).eval(), args,
+                                 dynamic_shapes=({k: None for k in flat}, {0: batch},
+                                                 {0: batch}))
+    ep._example_inputs = None  # the weights live in arrays.npz only
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    return buf.getvalue()
 
 
 def export_model(
@@ -112,6 +195,14 @@ def export_model(
         if row_perm is not None:
             np.save(tmp / "row_perm.npy", np.asarray(row_perm, dtype=np.int32))
             meta["row_placement"] = True
+        try:
+            (tmp / PROGRAM).write_bytes(_serialized_apply_bytes(model, params))
+            meta["serialized_apply_torch"] = True
+        except Exception as e:  # recorded, as rectpu records a failed jax.export
+            logger.warning("torch.export serialization skipped: %s",
+                           str(e).splitlines()[0] if str(e) else type(e).__name__)
+            meta["serialized_apply_torch"] = False
+            meta["serialized_apply_torch_error"] = f"{type(e).__name__}: {e}"[:500]
         (tmp / "model.json").write_text(json.dumps(meta))
         tmp.rename(final)
     except BaseException:
@@ -212,8 +303,9 @@ class ServingModel:
             }
             self.apply_encoded(batch, n)
 
-    def encode_request(self, features: dict) -> dict:
-        """Validate + encode raw serving features to dense model arrays.
+    def encode_request(self, features: dict, use_native: bool = True) -> dict:
+        """Validate + encode raw serving features to dense model arrays
+        (``use_native=False``: the Python FarmHash, the plain version).
 
         Required keys: user_id, item_id, age, gender, occupation, zipcode,
         release_year. The 19 genre flags are optional and default to 0
@@ -254,7 +346,7 @@ class ServingModel:
         for f in self.feature_set.numeric:
             if f.name not in columns:
                 columns[f.name] = np.asarray(features[f.name]).reshape(-1)
-        batch = self.feature_set.encode(columns)
+        batch = self.feature_set.encode(columns, use_native)
         batch = {k: np.asarray(v) for k, v in batch.items()}
         if self.row_perm is not None:
             # match training's frequency-aware row relabeling
@@ -290,24 +382,60 @@ class ServingModel:
         return self.apply_encoded(batch, batch["cat_ids"].shape[0])
 
 
+class SerializedApply(torch.nn.Module):
+    """A loaded ``apply.pt2`` program with its parameters on one device: the
+    ``model`` of a ServingModel that serves the program. Neither is a
+    submodule, so ``.to()`` and ``.eval()`` leave them as they are."""
+
+    def __init__(self, program, params: dict):
+        super().__init__()
+        object.__setattr__(self, "_program", program)
+        object.__setattr__(self, "_params", params)
+
+    def forward(self, cat_ids: torch.Tensor, num_vals: torch.Tensor) -> torch.Tensor:
+        return self._program(self._params, cat_ids, num_vals)
+
+
+def _load_program(path: Path, params, device) -> SerializedApply:
+    """The program at ``path`` on ``device`` with ``params`` (a rectpu-layout
+    tree) as its inputs."""
+    ep = torch.export.load(path)
+    if device.type != "cpu":
+        from torch.export.passes import move_to_device_pass
+
+        ep = move_to_device_pass(ep, device)  # devices traced in as constants
+    flat = {k: v.to(device) for k, v in _program_params(params).items()}
+    return SerializedApply(ep.module(), flat)
+
+
 def load_model(export_dir: str | Path, use_serialized: bool = False,
                device=None) -> ServingModel:
     """Rebuild a ServingModel from an export directory (rectpu's or the
-    port's), on ``device`` (default ``cuda``)."""
-    if use_serialized:
-        raise NotImplementedError(
-            "use_serialized: the export's apply.jaxexport is a StableHLO graph with "
-            "no PyTorch counterpart yet (ROADMAP.md queue A, serving)")
+    port's), on ``device`` (default ``cuda``).
+
+    ``use_serialized=True`` runs the export's ``apply.pt2`` program instead
+    of the model's Python code; an export without one raises
+    ``FileNotFoundError``, and an int8-quantized export raises
+    ``ValueError`` (its program was dropped with the float table)."""
     device = resolve_device(device)
     export_dir = Path(export_dir)
     meta = json.loads((export_dir / "model.json").read_text())
-    if meta.get("table_quant") == "int8":
-        raise NotImplementedError(
-            "int8-quantized exports are not served by rectpu_torch yet "
-            "(ROADMAP.md queue A, serving)")
+    if use_serialized:
+        if meta.get("table_quant") == "int8":
+            raise ValueError("quantized exports carry no serialized program (it was traced "
+                             "over float params); load without use_serialized")
+        if not (meta.get("serialized_apply_torch") and (export_dir / PROGRAM).exists()):
+            # every export rectpu wrote, and one whose torch.export failed
+            raise FileNotFoundError(f"no serialized apply program ({PROGRAM}) in {export_dir}")
     params = _rebuild(meta["template"], _load_flat_npz(export_dir / "arrays.npz"))
     tc = meta["tower_config"]
     feature_set = ml_100k_feature_set(numeric=tuple(meta.get("numeric_features", ())))
+    row_perm = None
+    if meta.get("row_placement"):
+        row_perm = np.load(export_dir / "row_perm.npy")
+    if use_serialized:
+        return ServingModel(_load_program(export_dir / PROGRAM, params, device), feature_set,
+                            row_perm=row_perm, device=device)
     cfg = TowerConfig(
         feature_set=feature_set,
         embedding_size=tc["embedding_size"],
@@ -323,7 +451,4 @@ def load_model(export_dir: str | Path, use_serialized: bool = False,
     )
     model = MODEL_REGISTRY[meta["model"]](cfg, **meta.get("model_kwargs", {}))
     load_params(model, params, device)
-    row_perm = None
-    if meta.get("row_placement"):
-        row_perm = np.load(export_dir / "row_perm.npy")
     return ServingModel(model, feature_set, row_perm=row_perm, device=device)

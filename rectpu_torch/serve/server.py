@@ -18,6 +18,9 @@ Response: {"predictions": [{"probabilities": p, "logistic": p, "logits": l,
 "class_id": c}]} — the reference binary head's full output set. GET /healthz
 and /metrics as in rectpu. Stdlib http.server only. The model runs on the
 card (``--device cuda``, the default) unless ``--device cpu`` is given.
+``--serialized`` serves the export's ``apply.pt2`` program and
+``--table-quant int8`` an int8 table (``serve/quant.py``), as rectpu's flags
+do; the two exclude each other.
 """
 
 from __future__ import annotations
@@ -44,10 +47,21 @@ def instances_to_columns(instances: list[dict]) -> dict:
     return columns
 
 
-def parse_request_columns(raw: bytes) -> tuple[dict, int]:
-    """Request body bytes -> (columns dict, n_rows), through ``json.loads``
-    (rectpu's defining path; its native JSON-column parser is not ported yet,
-    ROADMAP.md queue A)."""
+def parse_request_columns(raw: bytes, use_native: bool = True) -> tuple[dict, int]:
+    """Request body bytes -> (columns dict, n_rows).
+
+    Native (the default), as ``rectpu/serve/server.py:42-62``: the native
+    host library's JSON parser (``io/native/json_columns.cc``) builds the
+    columns with no Python object a value. A body outside its fast shape
+    (it returns None) goes through ``json.loads``, which defines the
+    behaviour, error semantics included; so does every body with
+    ``use_native=False``. A failed build of the library raises."""
+    if use_native:
+        from rectpu_torch.io import native
+
+        parsed = native.parse_json_instances(raw)
+        if parsed is not None:
+            return parsed
     body = json.loads(raw or b"{}")
     instances = body["instances"]
     return instances_to_columns(instances), len(instances)
@@ -296,17 +310,21 @@ def make_server(job_dir: str | None = None, export_dir: str | None = None,
     (``serve`` does that), and ``served`` is the default model as the handler
     sees it (a ``MicroBatcher`` when batching is on, which the caller closes
     after ``httpd.shutdown()``)."""
-    if use_serialized:
-        raise NotImplementedError(
-            "--serialized: rectpu's apply.jaxexport StableHLO graph has no PyTorch "
-            "counterpart yet (ROADMAP.md queue A, serving)")
-    if table_quant:
-        raise NotImplementedError(
-            "--table-quant int8 is not ported to rectpu_torch yet (ROADMAP.md queue A, "
-            "serving)")
+    if use_serialized and table_quant:
+        # the program was traced over float params: quantized serving runs the
+        # Python model, which contradicts an explicit --serialized
+        raise ValueError("--serialized and --table-quant are mutually exclusive")
 
     def loader(edir):
-        return load_model(edir, device=device)
+        m = load_model(edir, use_serialized=use_serialized, device=device)
+        if table_quant == "int8":
+            # in-memory quantization (serve/quant.py); a quantized export
+            # needs no flag
+            from rectpu_torch.serve.quant import quantize_serving
+
+            m = quantize_serving(m)
+            logger.info("embedding table quantized to int8 (per-row scales)")
+        return m
 
     def wrap(m):
         if batch_window_ms <= 0:
@@ -365,7 +383,8 @@ if __name__ == "__main__":
                     help="torch device to serve on: cuda (default; raises without "
                          "a GPU) or cpu")
     ap.add_argument("--serialized", action="store_true",
-                    help="rectpu's StableHLO graph (not ported: raises)")
+                    help="run the export's serialized program (apply.pt2) instead of the "
+                         "model's Python code")
     ap.add_argument("--batch-window-ms", type=float, default=2.0,
                     help="coalesce concurrent requests into one device call, "
                          "waiting up to this long to fill a batch (0 disables)")
@@ -373,7 +392,7 @@ if __name__ == "__main__":
                     help="batches allowed in flight on the device before the "
                          "dispatcher backpressures (pipelining depth)")
     ap.add_argument("--table-quant", choices=["int8"], default=None,
-                    help="int8 table quantization (not ported: raises)")
+                    help="quantize the embedding table to int8 at load time")
     ap.add_argument("--num-dispatchers", type=int, default=1,
                     help="dispatcher threads: 1 = pipelined single dispatcher; "
                          ">1 = pool overlapping dispatch round trips")

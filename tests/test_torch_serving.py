@@ -162,7 +162,8 @@ def test_port_imports_neither_jax_nor_rectpu():
     """Every rectpu_torch module (the training slice's, the DLRM and
     xDeepFM slice's, the sparse fast step's and the autotuner's, timing's
     and profiling's, the Linear, DNN and Wide&Deep families', their trainer
-    CLIs' and the ml-100k ETL's among them), and
+    CLIs', the ml-100k ETL's, int8 serving's, batch prediction's and the
+    native host library's among them), and
     chip_smoke.py, import without pulling in jax, any module of rectpu, or
     pandas (the machine with the card has none)."""
     code = (
@@ -182,7 +183,9 @@ def test_port_imports_neither_jax_nor_rectpu():
         "        'rectpu_torch.models.linear', 'rectpu_torch.models.dnn',\n"
         "        'rectpu_torch.models.wide_deep', 'rectpu_torch.trainers.linear',\n"
         "        'rectpu_torch.trainers.deep', 'rectpu_torch.trainers.linear_deep',\n"
-        "        'rectpu_torch.data.ml_100k'}\n"
+        "        'rectpu_torch.data.ml_100k', 'rectpu_torch.serve.quant',\n"
+        "        'rectpu_torch.serve.batch_predict', 'rectpu_torch.io.native',\n"
+        "        'rectpu_torch.io.native.build', 'rectpu_torch.io.native.csv_bridge'}\n"
         "assert need <= set(mods) and len(mods) > 30, mods\n"
         "for name in mods: importlib.import_module(name)\n"
         "import chip_smoke\n"

@@ -197,8 +197,23 @@ def test_streaming_shards_row_placement_and_eval_match_rectpu(csv_files):
 
 
 def test_streaming_native_loader_is_not_ported(csv_files):
-    with pytest.raises(NotImplementedError, match="queue A9"):
-        StreamingCsvDataset(csv_files["train"], ml_100k_feature_set(), use_native=True)
+    """(Named when the native loader was missing.) ``use_native=True`` now
+    encodes every window through the native library: the same batches as the
+    Python path's and rectpu's, one native window a window loaded."""
+    from rectpu_torch.io.native import csv_bridge
+
+    fs = ml_100k_feature_set(numeric=NUMERIC)
+    kw = dict(chunk_rows=CHUNK_ROWS, window_chunks=WINDOW_CHUNKS, prefetch=False)
+    native = StreamingCsvDataset(csv_files["quoted"], fs, use_native=True, **kw)
+    plain = StreamingCsvDataset(csv_files["quoted"], fs, use_native=False, **kw)
+    ref = JaxStreaming(csv_files["quoted"], jax_feature_set(numeric=NUMERIC),
+                       chunk_rows=CHUNK_ROWS, window_chunks=WINDOW_CHUNKS, use_native=False,
+                       prefetch=False)
+    csv_bridge.windows.reset()
+    got = _take(native.train_batches(BATCH, seed=2), 14)
+    assert csv_bridge.windows.value == 6  # 9 chunks in windows of 2: 5, then 1 of epoch 2
+    _same_batches(got, _take(plain.train_batches(BATCH, seed=2), 14))
+    _same_batches(got, _take(ref.train_batches(BATCH, seed=2), 14))
 
 
 # --- TensorBoard event files ---------------------------------------------------
