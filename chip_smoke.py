@@ -174,6 +174,37 @@ failed check raises, and the script exits nonzero without the final line:
    against a CPU copy at bench.py's 311,296-row table (each leaf's update
    and the m|v rows). Then the trainer CLI with --preset scaled --fast-step
    on --sparse-scatter dma (batch 4096) trains and its export is served.
+8. Sharded training (rectpu_torch/parallel), every rank a process on the one
+   card (NCCL takes no two ranks on one device, so the ranks run over Gloo,
+   which parallel/mesh.py chooses; the port hands Gloo CUDA tensors, which
+   Gloo copies through host memory itself; these times say nothing of NCCL
+   across cards):
+   (a) each collective once in a world-size-1 NCCL group on cuda:0; then,
+       over Gloo with 2 ranks, each autograd collective's forward and
+       backward exactly against its definition;
+   (b) the flagship step (phase 6's config, K=64, 311,296 rows, batch 8192,
+       hash dropout, flat layout, mxu backward, fused Adam on the table)
+       SHARD_STEPS steps on mesh 1x2 under 2d, 2d with bf16 rows, dedup
+       (lossless capacity), dedup with int8 rows and 1d, and on mesh 2x2
+       under 2d, against the single-process step from the same params,
+       every run through the Trainer's batches of one resident train set
+       (each rank's block of every global batch, checked): per-step losses
+       and each leaf's update, as the sharded save gathers it and rank 0's
+       checkpoint holds it, within SHARD_LOSS_RTOL / SHARD_UPDATE_REL_L2
+       (int8: rectpu's loss bound and INT8_UPDATE_REL_L2; a control run
+       with a 4-bit grid planted on the int8 wire must fail that check);
+       the sharded eval against one process's eval of the same params; the
+       median step beside phase 6's, the kernels the ranks launched;
+   (c) the full-width fast step (phase 6c's table, 3,000,320 rows a rank)
+       on mesh 1x2 under dedup against the single-process fast step on the
+       same card, both through the Trainer's batches, each rank's table and
+       m|v rows;
+   (d) the DeepFM CLI under torchrun at 2 ranks (--num-model-shards 2
+       --ep-mode dedup --ep-row-placement freq --ep-peer-capacity auto, the
+       CLI's defaults with hash dropout, batch 64, 200 steps: rectpu's
+       multi-process configuration) against the CLI at 1 rank with the same
+       row placement (rectpu's _assert_matches tolerances on the eval
+       metrics and the parameter digest); its export is served.
 7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (for the
@@ -204,9 +235,12 @@ The second-to-last lines are the kernels' JSON summary and the card's
 from __future__ import annotations
 
 import argparse
+import gc
 import inspect
 import json
 import logging
+import math
+import pickle
 import re
 import shutil
 import statistics
@@ -236,7 +270,7 @@ from rectpu_torch.features.schema import (
 from rectpu_torch.kernels import build
 from rectpu_torch.data import ml_100k as ml_100k_etl
 from rectpu_torch.io import native
-from rectpu_torch.io.loader import read_csv_columns
+from rectpu_torch.io.loader import CsvDataset, read_csv_columns
 from rectpu_torch.io.native import build as native_build
 from rectpu_torch.io.native import csv_bridge
 from rectpu_torch.models import (
@@ -258,6 +292,8 @@ from rectpu_torch.ops import interaction as int_ops
 from rectpu_torch.ops import scatter_dma as dma_ops
 from rectpu_torch.ops import scatter_rows as scatter_ops
 from rectpu_torch.ops.autotune import SCATTER_CHUNKS
+from rectpu_torch.parallel import mesh as mesh_lib
+from rectpu_torch.parallel.plan import ParallelPlan
 from rectpu_torch.serve import batch_predict as batch_predict_cli
 from rectpu_torch.serve import quant as quant_cli
 from rectpu_torch.serve.export import (
@@ -1764,12 +1800,12 @@ def flagship_model(dropout: float, device, gen=None, params=None) -> DeepFMModel
     return load_params(model, params, device)
 
 
-def flagship_trainer(model, work: Path) -> Trainer:
+def flagship_trainer(model, work: Path, plan=None, train_ds=None, eval_ds=None) -> Trainer:
     opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR},
                fused_leaves=("table",))
-    trainer = Trainer(model, opt, None, None, work / "flagship",
+    trainer = Trainer(model, opt, train_ds, eval_ds, work / "flagship",
                       TrainConfig(batch_size=FLAGSHIP_BATCH, seed=0),
-                      device=next(model.parameters()).device)
+                      device=next(model.parameters()).device, plan=plan)
     trainer.opt_state = opt.init(flat_params(model))
     return trainer
 
@@ -2038,7 +2074,8 @@ def check_zoo_grads(family: str, dev, gen, work: Path, rows: int, fp32=False) ->
 # --- phase 6c: the sparse fast step at full width --------------------------
 
 
-def fast_model(fs: FeatureSet, dropout: float, device, seed: int = 0, params=None):
+def fast_model(fs: FeatureSet, dropout: float, device, seed: int = 0, params=None,
+               dropout_impl: str = "threefry"):
     """benchmarks/_ablate_bigtable.py:78-96's model (``run_sparse(packed=True,
     scatter_backend="dma")``): DeepFM K=64 [256, 128], bf16 towers, one
     packed table lane-padded to 128 columns, table_padding 2048; from
@@ -2046,7 +2083,7 @@ def fast_model(fs: FeatureSet, dropout: float, device, seed: int = 0, params=Non
     N(0, 1/K), the linear column N(0, 0.05^2), zero pad, glorot MLP)."""
     cfg = TowerConfig(feature_set=fs, embedding_size=K, hidden_units=(256, 128),
                       dropout=dropout, compute_dtype="bfloat16", table_padding=2048,
-                      packed_linear=True, packed_col_pad=128)
+                      packed_linear=True, packed_col_pad=128, dropout_impl=dropout_impl)
     model = DeepFMModel(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -2701,6 +2738,549 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
+# --- phase 8: sharded training (rectpu_torch/parallel) on the one card --------
+#
+# One process a rank, every rank on cuda:0 (the machine has one card, and NCCL
+# takes no two ranks on one device), over Gloo, which ``parallel/mesh.py``
+# chooses. The port hands Gloo CUDA tensors; Gloo copies each payload through
+# host memory itself.
+# These phases test the code paths and the kernels on the card; their times
+# say nothing of NCCL across cards.
+
+SHARD_STEPS = 5
+# (ep_mode, wire format); bf16 rows on the 2d wire round what the bf16 towers
+# round anyway, so that run is held to the exact modes' bounds; "int8-control"
+# plants a 4-bit grid on the int8 wire, and the int8 check must refuse it
+FLAGSHIP_RUNS_1X2 = (("2d", None), ("2d", "bf16"), ("dedup", None), ("dedup", "int8"),
+                     ("dedup", "int8-control"), ("1d", None))
+FLAGSHIP_RUNS_2X2 = (("2d", None),)
+# sharded vs single-process step on the card, exact wire formats. Not the
+# fp32 bound of another order of sums alone: the towers are bf16, so each
+# rank's weight gradient over its batch slice is a bf16 GEMM rounded once
+# (2^-8 relative) before the fp32 sum over the ranks, where the single step
+# rounds the whole batch's once; an Adam step from a near-zero gradient can
+# then take the other sign, and the flagship's v is stochastically rounded
+# with the shard's element indices. Per-step loss relative error, and each
+# leaf's SHARD_STEPS-step update against the single-process update, relative
+# L2: 2.5 times the one-step card-vs-CPU bound FAST_UPDATE_REL_L2, for five
+# steps of it.
+SHARD_LOSS_RTOL = 1e-3
+SHARD_UPDATE_REL_L2 = 2.5 * FAST_UPDATE_REL_L2
+# int8 rows on the wire: rectpu's loss bound for one compressed step
+# (tests/test_comm_compress.py: rtol 5e-3), and each leaf's update against
+# the single-process update, relative L2, within INT8_UPDATE_REL_L2, set
+# between the card's readings (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the
+# exact modes' largest leaf 0.022, int8's 0.085 (mlp/0/bias; table 0.032),
+# the 4-bit control's 0.316 (table 0.244)
+INT8_LOSS_RTOL, INT8_UPDATE_REL_L2 = 5e-3, 0.15
+# the sharded eval of the trained params (each rank's rows [i::n], metric
+# sums over the ranks) against one process's eval of the same params: its
+# bf16 towers run GEMMs of another batch size, which may round an
+# activation the other way (2^-8 relative); the int8 run's eval, whose rows
+# ride the int8 wire, is held to INT8_LOSS_RTOL
+SHARD_EVAL_ROWS, SHARD_EVAL_RTOL = 16384, 1e-3
+# the CLI at 2 ranks vs 1: rectpu's _assert_matches (tests/test_multiprocess.py:76)
+# at the configuration of its multi-process runs (tests/mp_worker.py: K=4,
+# [16, 16], batch 64, 200 steps), the CLI's defaults but the batch
+CLI_METRIC_RTOL, CLI_METRIC_ATOL, CLI_DIGEST_RTOL = 1e-4, 1e-5, 1e-5
+SHARD_CLI_BATCH, SHARD_CLI_STEPS = 64, 200
+
+
+def _rank_entry(rank, world, store, backend, jobs, out):
+    """A spawned rank: join the group, run ``jobs`` [(function name, kwargs)]
+    in order, pickle the results (or the traceback) to ``out``."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        resolve_device("cuda")
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        try:
+            result = [globals()[name](**kwargs) for name, kwargs in jobs]
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # the parent raises it with the rank's traceback
+        import traceback
+
+        result = traceback.format_exc()
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_ranks(world: int, work: Path, jobs, backend: str | None = None,
+              timeout: float = 600.0) -> list:
+    """Spawn ``world`` ranks on cuda:0 running ``jobs``; their results, in rank
+    order. The backend is ``parallel/mesh.choose_backend``'s unless named."""
+    import multiprocessing as mp
+
+    backend = backend or mesh_lib.choose_backend(torch.device("cuda", 0), world)
+    tag = f"ranks_{len(list(work.glob('ranks_*')))}"
+    d = work / tag
+    d.mkdir()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, str(d / "store"), backend, jobs,
+                                                     str(d / f"{r}.pkl")))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    results = []
+    for r, p in enumerate(procs):
+        path = d / f"{r}.pkl"
+        check(path.exists(), f"rank {r} of {jobs[0][0]} wrote nothing (exit {p.exitcode})")
+        with open(path, "rb") as f:
+            got = pickle.load(f)  # written by the ranks above
+        check(not isinstance(got, str), f"rank {r} of {[j[0] for j in jobs]} failed:\n{got}")
+        results.append(got)
+    return results
+
+
+def nccl_world1() -> dict:
+    """Each collective once in a world-size-1 NCCL group on cuda:0."""
+    import torch.distributed as dist
+
+    x = torch.arange(8.0, device="cuda").reshape(4, 2)
+    outs = {"all_gather": torch.empty_like(x), "reduce_scatter": torch.empty_like(x),
+            "all_to_all": torch.empty_like(x), "all_reduce": x.clone()}
+    dist.all_gather_into_tensor(outs["all_gather"], x)
+    dist.reduce_scatter_tensor(outs["reduce_scatter"], x)
+    dist.all_to_all_single(outs["all_to_all"], x)
+    dist.all_reduce(outs["all_reduce"])
+    torch.cuda.synchronize()
+    for name, y in outs.items():
+        check(same_bits(y, x), f"NCCL world 1: {name} changed its input")
+    return {"backend": dist.get_backend(), "ops": sorted(outs)}
+
+
+def sharded_collectives() -> dict:
+    """Each autograd collective of parallel/collectives.py over the 1 x world
+    mesh on the card, forward and backward against its definition (both
+    ranks' inputs are known to each)."""
+    import torch.distributed as dist
+
+    from rectpu_torch.parallel import collectives as coll
+
+    world = dist.get_world_size()
+    mesh = mesh_lib.make_mesh(1, world, "cuda")
+    r = mesh.rank
+
+    def x_of(i):
+        return torch.arange(8 * world * 3, dtype=torch.float32, device="cuda").reshape(
+            8 * world, 3) + 100.0 * i
+
+    def g_of(i, shape):
+        return torch.arange(math.prod(shape), dtype=torch.float32, device="cuda").reshape(
+            shape) * (i + 1)
+
+    xs = [x_of(i) for i in range(world)]
+    n = xs[0].shape[0] // world
+    want = {
+        "all_gather": (torch.cat(xs), lambda: sum(g_of(i, (8 * world * world, 3))
+                                                 for i in range(world))[r * 8 * world:
+                                                                         (r + 1) * 8 * world]),
+        "psum_scatter": (sum(xs)[r * n:(r + 1) * n],
+                         lambda: torch.cat([g_of(i, (n, 3)) for i in range(world)])),
+        "all_to_all": (torch.cat([x[r * n:(r + 1) * n] for x in xs]),
+                       lambda: torch.cat([g_of(i, (8 * world, 3))[r * n:(r + 1) * n]
+                                          for i in range(world)])),
+        "psum": (sum(xs), lambda: g_of(r, (8 * world, 3))),
+    }
+    errs = {}
+    for name, (y_want, dx_want) in want.items():
+        x = xs[r].clone().requires_grad_()
+        y = getattr(coll, name)(x, mesh.model)
+        y.backward(g_of(r, tuple(y.shape)))
+        errs[name] = max(float((y.detach() - y_want).abs().max()),
+                         float((x.grad - dx_want()).abs().max()))
+        check(errs[name] == 0.0, f"collective {name} on the card: max error {errs[name]}")
+    return {"backend": mesh.backend, "max_err": errs}
+
+
+def _update_rel_l2(got: dict, ref: dict, p0: dict) -> dict:
+    """Per leaf: |(got - p0) - (ref - p0)| / |ref - p0| (L2)."""
+    out = {}
+    for k, r in ref.items():
+        du = (got[k].float() - p0[k].float()) - (r.float() - p0[k].float())
+        den = float((r.float() - p0[k].float()).norm())
+        out[k] = float(du.norm()) / max(den, 1e-30)
+    return out
+
+
+def _host_copy(tree):
+    """A tree of host tensors that no later in-place update reaches."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_copy(v) for v in tree]
+    return tree.detach().cpu().clone()
+
+
+def _flat_tree(model, plan=None) -> dict:
+    tree = params_tree(model)
+    if plan is not None:
+        tree = plan.gather_params(tree)
+    return flatten_tree(tree)
+
+
+def _shard_counters() -> tuple:
+    return (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, scatter_ops.launches,
+            scatter_ops.segment_launches, adam_ops.launches, dma_ops.launches)
+
+
+def _flagship_data(seed: int, rows: int):
+    """A resident dataset of ``rows`` random flagship examples (20 % positives)."""
+    rng = np.random.default_rng(seed)
+    return CsvDataset.from_arrays(random_ids(bench_feature_set(), rows, rng),
+                                  (rng.random(rows) < 0.2).astype(np.float32))
+
+
+def _coarse_int8_rows(x: torch.Tensor):
+    """The control's faulty int8 wire: per-row scale amax/7, a 4-bit grid."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    return torch.round(xf / scale).to(torch.int8), scale
+
+
+def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str) -> dict:
+    """The flagship step (bench.py's config, hash dropout 0.1) SHARD_STEPS
+    times single-process, then under each (ep_mode, wire format) of ``runs``
+    from the same params, each through the Trainer's own batches (a resident
+    train set, each rank's block of every global batch, checked against the
+    single run's), then the sharded eval against a single-process eval of
+    the same params, and the sharded save (the table shards gathered, rank 0
+    writes) read back: per-step losses, each leaf's update in the checkpoint
+    against the single-process update, median step ms, kernel launches.
+    The wire format "int8-control" is the int8 run with a 4-bit grid planted
+    on the wire, which the int8 check must refuse."""
+    from rectpu_torch.parallel import embedding_ep
+    from rectpu_torch.train.checkpoint import Checkpointer
+
+    dev = torch.device("cuda", 0)
+    work = Path(work)
+    base = flagship_model(0.1, "cpu", gen=torch.Generator().manual_seed(seed))
+    p0 = params_tree(base)
+    train_ds = _flagship_data(seed + 1, SHARD_STEPS * FLAGSHIP_BATCH)
+    eval_ds = _flagship_data(seed + 2, SHARD_EVAL_ROWS)
+    single = flagship_model(0.1, dev, params=p0)
+    trainer = flagship_trainer(single, work, train_ds=train_ds)
+    batches = trainer._batches(None)
+    ref_losses, ref_ids = [], []
+    for i in range(SHARD_STEPS):
+        b, _ = next(batches)
+        ref_ids.append(b["cat_ids"].clone())
+        ref_losses.append(float(trainer.train_step(b, i)))
+    batches.close()
+    ref = flatten_tree(params_tree(single))
+    flat0 = flatten_tree(p0)
+    del single, trainer
+    out = {}
+    for mode, cc in runs:
+        control = cc == "int8-control"
+        plan = ParallelPlan.create(num_data, num_model, device="cuda",
+                                   table_rows=base.cfg.padded_buckets, ep_mode=mode,
+                                   ep_comm_compress="int8" if control else cc,
+                                   scatter_impl="mxu")
+        name = f"{num_data}x{num_model} {mode}" + (f" {cc}" if cc else "")
+        job = work / f"flagship_{name.replace(' ', '_')}"
+        model = flagship_model(0.1, dev, params=plan.shard_params(p0))
+        trainer = flagship_trainer(model, job, plan, train_ds=train_ds, eval_ds=eval_ds)
+        n, pos = plan.batch_shards, plan.batch_index
+        rows = FLAGSHIP_BATCH // n
+        batches = trainer._batches(None)
+        torch.cuda.synchronize()
+        for c in _shard_counters():
+            c.reset()
+        losses, times = [], []
+        quantize = embedding_ep._quantize_rows_int8
+        if control:
+            embedding_ep._quantize_rows_int8 = _coarse_int8_rows
+        try:
+            for i in range(SHARD_STEPS):
+                b, data_state = next(batches)
+                check(same_bits(b["cat_ids"], ref_ids[i][pos * rows:(pos + 1) * rows]),
+                      f"sharded flagship {name}: step {i}'s batch is not the rank's block")
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = trainer.train_step(b, i)
+                end.record()
+                losses.append(float(plan.global_value(loss)))
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        finally:
+            embedding_ep._quantize_rows_int8 = quantize
+        batches.close()
+        launches = {c.name: c.value for c in _shard_counters()}
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        res = {"backend": plan.mesh.backend, "losses": losses, "ref_losses": ref_losses,
+               "loss_rel_err": loss_err, "step_ms": statistics.median(times[1:]),
+               "step_ms_all": times, "launches": launches}
+        if control:
+            got = _flat_tree(model, plan)
+        else:
+            saved_tree = trainer._save(SHARD_STEPS, data_state)  # the gather is a collective
+            got = flatten_tree(saved_tree)
+            evaluated = trainer.evaluate()  # the metric sums are collectives
+            if plan.mesh.rank == 0:
+                trainer.ckpt.wait()
+                read = flatten_tree(Checkpointer(trainer.job_dir).restore()[0]["params"])
+                check(sorted(read) == sorted(got)
+                      and all(same_bits(read[k], got[k].cpu()) for k in got),
+                      f"sharded flagship {name}: the checkpoint is not the gathered params")
+                alone = flagship_model(0.1, dev, params=_host_copy(saved_tree))
+                res["eval"], res["eval_single"] = evaluated, flagship_trainer(
+                    alone, job / "alone", eval_ds=eval_ds).evaluate()
+                del alone
+        rel = _update_rel_l2(got, ref, flat0)
+        res["update_rel_l2"] = rel
+        if control:
+            res["refused"] = (loss_err > INT8_LOSS_RTOL
+                              or any(v > INT8_UPDATE_REL_L2 for v in rel.values()))
+            check(res["refused"], f"sharded flagship {name}: the int8 check passed a 4-bit "
+                                  f"wire (loss rel err {loss_err}, update rel L2 {rel})")
+        else:
+            loss_bound, update_bound = ((INT8_LOSS_RTOL, INT8_UPDATE_REL_L2) if cc == "int8"
+                                        else (SHARD_LOSS_RTOL, SHARD_UPDATE_REL_L2))
+            check(loss_err <= loss_bound, f"sharded flagship {name}: loss rel err "
+                                          f"{loss_err} > {loss_bound}")
+            check(all(v <= update_bound for v in rel.values()),
+                  f"sharded flagship {name}: update rel L2 {rel} > {update_bound}")
+            if "eval" in res:
+                # the int8 run's sharded eval rides the int8 wire too
+                eval_bound = INT8_LOSS_RTOL if cc == "int8" else SHARD_EVAL_RTOL
+                ev, ev1 = res["eval"], res["eval_single"]
+                check(ev["count"] == ev1["count"] == SHARD_EVAL_ROWS,
+                      f"sharded flagship {name}: eval count {ev['count']} vs {ev1['count']}")
+                for key in ("auc", "average_loss", "accuracy"):
+                    check(abs(ev[key] - ev1[key]) <= eval_bound * abs(ev1[key]),
+                          f"sharded flagship {name}: eval {key} {ev[key]} vs one process "
+                          f"{ev1[key]}")
+        for kname in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows",
+                      "segment_sum", "fused_adam"):
+            check(launches[kname] > 0, f"sharded flagship {name}: {kname} was not launched")
+        out[name] = res
+        del model, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fast_trainer(model, data, job: Path, plan=None) -> Trainer:
+    """A Trainer over ``make_sparse_step`` at lr 1e-3 on the resident ``data``."""
+    fast = make_sparse_step(model, learning_rate=1e-3, plan=plan)
+    trainer = Trainer(model, adam(1e-3), data, None, job,
+                      TrainConfig(batch_size=BIG_BATCH, seed=0),
+                      device=torch.device("cuda", 0), fast_step=fast, plan=plan)
+    trainer.opt_state = fast[0](flat_params(model))
+    return trainer
+
+
+def sharded_fast_step(num_data: int, num_model: int, mode: str, seed: int, work: str) -> dict:
+    """The full-width sparse fast step (6,000,640 x 128 fp32 table, fp32 m|v
+    [.., 256], batch 8192, hash dropout) SHARD_STEPS times single-process on
+    this rank, then sharded (``make_sparse_step(plan=...)``) from the same
+    params, both through the Trainer's batches of one resident train set:
+    losses, this shard's table and m|v update against the single-process
+    rows, median step ms, launches."""
+    dev = torch.device("cuda", 0)
+    fs = big_feature_set()
+    rng = np.random.default_rng(seed + 2)
+    data = CsvDataset.from_arrays(random_ids(fs, SHARD_STEPS * BIG_BATCH, rng),
+                                  (rng.random(SHARD_STEPS * BIG_BATCH) < 0.2).astype(np.float32))
+    # hash dropout: its masks key on global rows, so the ranks draw the single run's
+    single = fast_model(fs, 0.1, dev, seed, dropout_impl="hash")
+    v_rows = single.cfg.padded_buckets
+    v_shard = v_rows // num_model
+    p0 = _host_copy(params_tree(single))
+    trainer = _fast_trainer(single, data, Path(work) / "fast_single")
+    batches = trainer._batches(None)
+    ref_losses = [float(trainer.train_step(next(batches)[0], i)) for i in range(SHARD_STEPS)]
+    batches.close()
+    mi = torch.distributed.get_rank() % num_model
+    rows = slice(mi * v_shard, (mi + 1) * v_shard)
+    ref_table = single.table.detach()[rows].clone()
+    ref_mv = trainer.opt_state["mv_sparse"]["table"][rows].clone()
+    ref_rest = {k: v.detach().clone() for k, v in flat_params(single).items() if k != "table"}
+    del single, trainer, batches
+    torch.cuda.empty_cache()
+
+    plan = ParallelPlan.create(num_data, num_model, device="cuda", table_rows=v_rows,
+                               ep_mode=mode)
+    model = fast_model(fs, 0.1, dev, params=plan.shard_params(p0), dropout_impl="hash")
+    trainer = _fast_trainer(model, data, Path(work) / "fast_sharded", plan)
+    state = trainer.opt_state
+    check(tuple(model.table.shape) == (v_shard, 128)
+          and tuple(state["mv_sparse"]["table"].shape) == (v_shard, 256),
+          f"sharded fast step: shard {tuple(model.table.shape)}, m|v "
+          f"{tuple(state['mv_sparse']['table'].shape)}")
+    batches = trainer._batches(None)
+    torch.cuda.synchronize()
+    for c in _shard_counters():
+        c.reset()
+    losses, times = [], []
+    for i in range(SHARD_STEPS):
+        b, _ = next(batches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = trainer.train_step(b, i)
+        end.record()
+        losses.append(float(plan.global_value(loss)))
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    batches.close()
+    launches = {c.name: c.value for c in _shard_counters()}
+    t0 = p0["table"][rows].to(dev)
+    rel = _update_rel_l2({"table": model.table.detach(),
+                          **{k: v.detach() for k, v in flat_params(model).items()
+                             if k != "table"}},
+                         {"table": ref_table, **ref_rest},
+                         {"table": t0, **{k: v.to(dev) for k, v in flatten_tree(p0).items()
+                                          if k != "table"}})
+    mv = state["mv_sparse"]["table"]
+    mv_rel = float((mv - ref_mv).norm()) / max(float(ref_mv.norm()), 1e-30)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    check(loss_err <= SHARD_LOSS_RTOL, f"sharded fast step: loss rel err {loss_err}")
+    check(all(v <= SHARD_UPDATE_REL_L2 for v in rel.values()),
+          f"sharded fast step: update rel L2 {rel} > {SHARD_UPDATE_REL_L2}")
+    check(mv_rel <= SHARD_UPDATE_REL_L2, f"sharded fast step: m|v rel L2 {mv_rel}")
+    for kname in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "segment_sum",
+                  "scatter_rows_dma"):
+        check(launches[kname] > 0, f"sharded fast step: {kname} was not launched")
+    return {"backend": plan.mesh.backend, "mode": mode, "v_shard": v_shard,
+            "losses": losses, "ref_losses": ref_losses, "loss_rel_err": loss_err,
+            "update_rel_l2": rel, "mv_rel_l2": mv_rel, "step_ms": statistics.median(times[1:]),
+            "step_ms_all": times, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _cli_argv(data_dir: Path, job: Path) -> list:
+    return ["--dropout-impl", "hash", "--batch-size", str(SHARD_CLI_BATCH), "--train-steps",
+            str(SHARD_CLI_STEPS), "--save-checkpoints-steps", str(SHARD_CLI_STEPS),
+            "--steps-per-loop", "50",
+            "--train-csv", str(data_dir / "train.csv"), "--test-csv",
+            str(data_dir / "test.csv"), "--job-dir", str(job), "--device", "cuda"]
+
+
+def _run_cli(nproc: int, argv: list) -> tuple[dict, float, str]:
+    import ast
+    import os
+
+    module = ["-m", "rectpu_torch.trainers.deep_fm", *argv]
+    cmd = ([sys.executable, *module] if nproc == 1 else
+           [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}", *module])
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"DeepFM CLI at {nproc} rank(s) failed:\n{log[-3000:]}")
+    done = [line for line in log.splitlines() if "rectpu_torch.trainers :: done: " in line]
+    check(len(done) == nproc, f"DeepFM CLI at {nproc} rank(s): {len(done)} 'done' lines")
+    return ast.literal_eval(done[0].split("done: ", 1)[1]), seconds, log
+
+
+def _digest(job: Path) -> float:
+    from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
+
+    step = Checkpointer(job).latest_step()
+    flat = _load_flat_npz(job / f"ckpt-{step}" / "arrays.npz")
+    return float(sum(v.double().abs().sum() for k, v in flat.items() if k.startswith("params/")))
+
+
+def sharded_cli(work: Path, seed: int) -> dict:
+    """The DeepFM CLI under torchrun at 2 ranks (dedup, freq placement, auto
+    capacity) against the same CLI at 1 rank with the same placement, then
+    its export served for a few requests."""
+    data_dir = work / "data"
+    if not (data_dir / "train.csv").exists():
+        write_synthetic_dataset(data_dir, train_rows=100_000, test_rows=10_000, seed=seed)
+    multi_job, single_job = work / "shard_cli_2", work / "shard_cli_1"
+    multi, multi_s, log = _run_cli(2, _cli_argv(data_dir, multi_job) + [
+        "--num-model-shards", "2", "--ep-mode", "dedup", "--ep-row-placement", "freq",
+        "--ep-peer-capacity", "auto"])
+    cap = re.findall(r"ep_peer_capacity auto -> (\d+)", log)
+    single_job.mkdir()
+    shutil.copy(multi_job / "row_perm.npy", single_job / "row_perm.npy")
+    single, single_s, _ = _run_cli(1, _cli_argv(data_dir, single_job) + ["--restore"])
+    for key in ("auc", "average_loss", "accuracy"):
+        check(bool(np.isclose(single[key], multi[key], rtol=CLI_METRIC_RTOL,
+                              atol=CLI_METRIC_ATOL)),
+              f"sharded CLI: {key} {multi[key]} vs one rank {single[key]}")
+    check(multi["count"] == single["count"], f"sharded CLI: eval count {multi['count']}")
+    d_multi, d_single = _digest(multi_job), _digest(single_job)
+    check(bool(np.isclose(d_multi, d_single, rtol=CLI_DIGEST_RTOL)),
+          f"sharded CLI: param digest {d_multi} vs one rank {d_single}")
+    export_dir = latest_export(multi_job)
+    check(export_dir is not None and (export_dir / "row_perm.npy").exists(),
+          "sharded CLI: no export with its row placement")
+    httpd, served = make_server(export_dir=str(export_dir), port=0, device="cuda",
+                                batch_window_ms=1.0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        instances = make_instances(np.random.default_rng(seed), 8)
+        preds = post(f"http://127.0.0.1:{httpd.server_address[1]}", "/predict",
+                     {"instances": instances})["predictions"]
+        one = post(f"http://127.0.0.1:{httpd.server_address[1]}", "/predict",
+                   {"instances": instances[:1]})["predictions"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        served.close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "sharded CLI export server thread did not stop")
+    ref = load_model(export_dir, device="cpu")
+    check_predictions(preds, instances, ref, "sharded CLI export", FP32_LOGIT_ATOL, 1e-4)
+    check(abs(one[0]["logits"] - preds[0]["logits"]) <= FP32_LOGIT_ATOL,
+          "sharded CLI export: one instance alone vs in a batch")
+    return {"metrics_2": multi, "metrics_1": single, "digest_2": d_multi, "digest_1": d_single,
+            "seconds_2": multi_s, "seconds_1": single_s, "peer_capacity": cap,
+            "served": len(preds) + len(one)}
+
+
+def sharded_phases(work: Path, seed: int) -> dict:
+    """Phases 8a-8d (see the module docstring)."""
+    # the ranks allocate on this process's card: give back what earlier phases cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    res["nccl"] = run_ranks(1, work, [("nccl_world1", {})], backend="nccl")[0][0]
+    flag_jobs = [("sharded_collectives", {}),
+                 ("sharded_flagship", {"num_data": 1, "num_model": 2,
+                                       "runs": FLAGSHIP_RUNS_1X2, "seed": seed,
+                                       "work": str(work)})]
+    got = run_ranks(2, work, flag_jobs)
+    res["collectives"] = got[0][0]
+    res["flagship"] = dict(got[0][1])
+    got4 = run_ranks(4, work, [("sharded_flagship", {"num_data": 2, "num_model": 2,
+                                                     "runs": FLAGSHIP_RUNS_2X2, "seed": seed,
+                                                     "work": str(work)})])
+    res["flagship"].update(got4[0][0])
+    for name in res["flagship"]:
+        ranks = got if name.startswith("1x2") else got4
+        idx = 1 if name.startswith("1x2") else 0
+        res["flagship"][name]["launches"] = {
+            k: sum(r[idx][name]["launches"][k] for r in ranks)
+            for k in res["flagship"][name]["launches"]}
+    fast = run_ranks(2, work, [("sharded_fast_step", {"num_data": 1, "num_model": 2,
+                                                      "mode": "dedup", "seed": seed,
+                                                      "work": str(work)})])
+    res["fast_step"] = dict(fast[0][0])
+    res["fast_step"]["launches"] = {k: sum(r[0]["launches"][k] for r in fast)
+                                    for k in fast[0][0]["launches"]}
+    res["fast_step"]["update_rel_l2_ranks"] = [r[0]["update_rel_l2"] for r in fast]
+    res["fast_step"]["mv_rel_l2_ranks"] = [r[0]["mv_rel_l2"] for r in fast]
+    res["cli"] = sharded_cli(work, seed)
+    return res
+
+
 KERNELS = {
     "embedding_lookup": ("rectpu_torch/kernels/csrc/embedding_lookup.cu",
                          "rectpu/ops/embedding.py:70"),
@@ -3035,6 +3615,49 @@ def main(argv=None) -> int:
               f"10 {train['loss_last10']:.5f}; final eval {train['metrics']}; "
               f"{train['seconds']:.2f} s with data load and evals; its export answered "
               f"/predict {train['predict']} [{gpu}]")
+
+        # 8. sharded training on the one card
+        sh = main_path["sharded"] = sharded_phases(work, args.seed)
+        nc, co = sh["nccl"], sh["collectives"]
+        print(f"sharded (a) collectives: NCCL, world size 1 on cuda:0, ran {nc['ops']}; "
+              f"{co['backend']}, 2 ranks on cuda:0: each autograd collective forward and "
+              f"backward against its definition, max error {co['max_err']} (bound 0); the "
+              f"port hands Gloo CUDA tensors, which Gloo copies through host memory itself "
+              f"[{gpu}]")
+        for name, r in sh["flagship"].items():
+            control = name.endswith("int8-control")
+            loss_bound, update_bound = ((INT8_LOSS_RTOL, INT8_UPDATE_REL_L2) if "int8" in name
+                                        else (SHARD_LOSS_RTOL, SHARD_UPDATE_REL_L2))
+            ev = (f"; eval {r['eval']} vs one process {r['eval_single']} (rtol "
+                  f"{INT8_LOSS_RTOL if 'int8' in name else SHARD_EVAL_RTOL}), the checkpoint "
+                  f"read back" if "eval" in r else "")
+            print(f"sharded (b) flagship step mesh {name} ({r['backend']}, every rank on "
+                  f"cuda:0, the Trainer's batches): median {r['step_ms']:.4f} ms a step beside "
+                  f"the single-process step's {flag['step_ms']:.4f} ms (phase 6); per-step "
+                  f"loss max relative error {r['loss_rel_err']:.3g} (bound {loss_bound}); each "
+                  f"leaf's {SHARD_STEPS}-step update vs the single process, relative L2 (bound "
+                  f"{update_bound}) { {k: float(f'{v:.3g}') for k, v in r['update_rel_l2'].items()} }"
+                  + (" -- a control: the check refused it" if control else ev)
+                  + f"; launches on all ranks {r['launches']} [{gpu}]")
+        fs_ = sh["fast_step"]
+        print(f"sharded (c) fast step mesh 1x2 {fs_['mode']} ({fs_['backend']}, every rank on "
+              f"cuda:0, [{fs_['v_shard']}, 128] fp32 table and [{fs_['v_shard']}, 256] m|v a "
+              f"rank): median {fs_['step_ms']:.4f} ms a step beside the single-process "
+              f"step's {fast['step_ms']:.4f} ms (phase 6c); per-step loss max relative error "
+              f"{fs_['loss_rel_err']:.3g} (bound {SHARD_LOSS_RTOL}); update relative L2 per "
+              f"rank {fs_['update_rel_l2_ranks']}, m|v {fs_['mv_rel_l2_ranks']} (bound "
+              f"{SHARD_UPDATE_REL_L2}); launches on all ranks {fs_['launches']}; peak memory "
+              f"of rank 0 {fs_['peak_mem_gib']:.2f} GiB [{gpu}]")
+        cli = sh["cli"]
+        print(f"sharded (d) DeepFM CLI under torchrun, 2 ranks (dedup, freq placement, "
+              f"capacity auto -> {cli['peer_capacity']}), batch {SHARD_CLI_BATCH}, "
+              f"{SHARD_CLI_STEPS} steps, {cli['seconds_2']:.1f} s, against 1 rank "
+              f"({cli['seconds_1']:.1f} s): eval {cli['metrics_2']} vs {cli['metrics_1']}; "
+              f"param digest {cli['digest_2']:.6f} vs {cli['digest_1']:.6f} (rtol "
+              f"{CLI_METRIC_RTOL}, atol {CLI_METRIC_ATOL}; digest rtol {CLI_DIGEST_RTOL}); its "
+              f"export answered {cli['served']} predictions [{gpu}]")
+        print(f"sharded: these times are 2 or 4 processes on one card over Gloo and say "
+              f"nothing of NCCL across cards [{gpu}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3095,6 +3718,13 @@ def main(argv=None) -> int:
     runs = [*main_path["family_clis"].values(), *main_path["zoo2_clis"].values()]
     for name in ("embedding_lookup", "scatter_rows", "scatter_rows_dma", "segment_sum"):
         launches[name] += sum(r["launches"].get(name, 0) for r in runs)
+    # the sharded phases' ranks (phase 8b and 8c; not 8b's planted-fault control)
+    sharded_runs = [*(r for name, r in main_path["sharded"]["flagship"].items()
+                      if not name.endswith("control")),
+                    main_path["sharded"]["fast_step"]]
+    for name in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows", "segment_sum",
+                 "fused_adam", "scatter_rows_dma"):
+        launches[name] += sum(r["launches"].get(name, 0) for r in sharded_runs)
     # the int8 gather: the int8 serving runs and the int8 batch prediction
     launches["embedding_lookup_int8"] = sum(
         r["launches"]["embedding_lookup_int8"]

@@ -169,40 +169,58 @@ class CsvDataset:
         self.cat_ids = np.asarray(perm, dtype=np.int32)[self.cat_ids]
 
     def train_index_batches(self, batch_size: int, state: DataState | None = None,
-                            seed: int = 0):
+                            seed: int = 0, shard_id: int = 0, num_shards: int = 1):
         """Infinite shuffled row-index batches of shape [batch_size]: yields
         (row_indices int64, DataState after the batch). ``train_batches``
-        materializes the same batches."""
+        materializes the same batches.
+
+        Sharded (``rectpu/io/loader.py:166-206``): every shard walks the same
+        epoch stream in global batches of ``batch_size * num_shards`` and
+        takes the contiguous block ``[shard_id * batch_size, (shard_id + 1)
+        * batch_size)`` of each, so the shards' blocks in order are the
+        single-process batch, row for row; ``DataState.index`` is the global
+        offset, the same on every shard."""
         state = state or DataState(seed=seed)
         epoch, index = state.epoch, state.index
+        gbs = batch_size * num_shards
+        lo, hi = shard_id * batch_size, (shard_id + 1) * batch_size
         perm = self._perm(epoch, state.seed)
         carry = np.empty((0,), dtype=perm.dtype)
         while True:
-            take = batch_size - carry.shape[0]
+            take = gbs - carry.shape[0]
             if index + take <= perm.shape[0]:
                 sel = perm[index: index + take]
                 index += take
                 rows = np.concatenate([carry, sel]) if carry.size else sel
                 carry = np.empty((0,), dtype=perm.dtype)
-                yield rows, DataState(epoch=epoch, index=index, seed=state.seed)
+                yield rows[lo:hi], DataState(epoch=epoch, index=index, seed=state.seed)
             else:
                 carry = np.concatenate([carry, perm[index:]])
                 epoch += 1
                 index = 0
                 perm = self._perm(epoch, state.seed)
 
-    def train_batches(self, batch_size: int, state: DataState | None = None, seed: int = 0):
+    def train_batches(self, batch_size: int, state: DataState | None = None, seed: int = 0,
+                      shard_id: int = 0, num_shards: int = 1):
         """Infinite shuffled batches {cat_ids, num_vals, labels} with the
-        DataState after each."""
-        for rows, st in self.train_index_batches(batch_size, state=state, seed=seed):
+        DataState after each (a shard's block of each global batch, as
+        ``train_index_batches``)."""
+        for rows, st in self.train_index_batches(batch_size, state=state, seed=seed,
+                                                 shard_id=shard_id, num_shards=num_shards):
             yield {"cat_ids": self.cat_ids[rows], "num_vals": self.num_vals[rows],
                    "labels": self.labels[rows]}, st
 
-    def eval_batches(self, batch_size: int):
-        """One ordered pass; the last batch is zero-padded with weight 0."""
-        n_batches = max(-(-self.size // batch_size), 1)
+    def eval_batches(self, batch_size: int, shard_id: int = 0, num_shards: int = 1):
+        """One ordered pass; the last batch is zero-padded with weight 0.
+        Sharded, each shard walks the rows ``[shard_id::num_shards]`` and every
+        shard yields the same number of batches (trailing all-padding ones
+        where it runs short), since the sharded eval runs collectives each
+        batch (``rectpu/io/loader.py:241-252``)."""
+        rows = np.arange(self.size)[shard_id::num_shards]
+        max_shard_rows = -(-self.size // num_shards)
+        n_batches = max(-(-max_shard_rows // batch_size), 1)
         for b in range(n_batches):
-            sel = np.arange(b * batch_size, min((b + 1) * batch_size, self.size))
+            sel = rows[b * batch_size: (b + 1) * batch_size]
             n = sel.shape[0]
             ids, num, lab = self.cat_ids[sel], self.num_vals[sel], self.labels[sel]
             w = np.ones((n,), dtype=np.float32)

@@ -47,9 +47,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     _dot,
     glorot_uniform,
@@ -101,7 +101,7 @@ def field_attention(q, k, v) -> torch.Tensor:
     return torch.einsum("bmhn,bnhe->bmhe", att.float(), v.float()).to(q.dtype)
 
 
-class AutoIntModel(nn.Module):
+class AutoIntModel(RecModel):
     name = "autoint"
     EXPORT_KWARGS = ("use_linear", "num_layers", "num_heads", "head_dim", "att_impl",
                      "att_group")
@@ -200,16 +200,15 @@ class AutoIntModel(nn.Module):
                 raise NotImplementedError(
                     f"the flat layout does not take a lane-padded packed table (width "
                     f"{self.table.shape[1]} > K+1={k + 1}), as rectpu's lookup_flat does not")
-            looked = lookup_fields(self.table, cat_ids, cfg)
-            logits = looked[..., k].float().sum(dim=-1) + self.linear["b"]
-            return logits + self._att_logit(looked[..., :k])
+            emb, lin = self.flat_lookup(self.table, cat_ids, has_lin=True)
+            return lin + self.linear["b"] + self._att_logit(emb)
         logits = torch.zeros(cat_ids.shape[0], dtype=torch.float32, device=cat_ids.device)
         if self.use_linear and not self.fused:
             logits = logits + linear_tower_logit(self.linear, cat_ids, num_vals,
                                                  cfg.embedding_impl)
         table = (self.table if self.packed
-                 else pack_fused_table(self.emb, self.linear["w"]) if self.fused else self.emb)
-        looked = lookup_fields(table, cat_ids, cfg)
+                 else self.ep_table(self.emb, self.linear["w"]) if self.fused else self.emb)
+        looked = lookup_fields(table, cat_ids, cfg, self.lookup_fn)
         return logits + self.apply_looked(looked, num_vals)
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,

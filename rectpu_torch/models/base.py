@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from rectpu_torch.features.schema import FeatureSet
 from rectpu_torch.ops.embedding import dequant_gather, lookup
@@ -67,23 +68,32 @@ def init_mlp(generator: torch.Generator, in_dim: int, hidden_units, out_dim: int
     ]
 
 
-def hash_dropout_mask(seed32: int, shape, rate: float, device=None) -> torch.Tensor:
+def hash_dropout_mask(seed32: int, shape, rate: float, device=None,
+                      row_offset: int = 0) -> torch.Tensor:
     """Counter-hash Bernoulli(1 - rate) keep mask, bit for bit rectpu's
     (``rectpu/models/base.py:72-135``): for an even last width one hash per
     two elements, its low 16 bits for columns [0, last/2) and its high 16
     bits for [last/2, last), each against a 16-bit threshold; for an odd last
     width one hash per element with the murmur finalizer and a 32-bit
-    threshold."""
+    threshold.
+
+    ``row_offset``: ``shape`` is rows [row_offset, row_offset + shape[0]) of
+    the global batch, and the hashes key on the global element index, so a
+    rank's slice gets the rows of the global mask (rectpu masks the global
+    array under GSPMD)."""
     shape = tuple(int(d) for d in shape)
     if rate <= 0.0:
         return torch.ones(shape, dtype=torch.bool, device=device)
     keep_p = 1.0 - rate
     last = shape[-1] if shape else 0
     if len(shape) >= 1 and last % 2 == 0 and last > 0:
-        h = counter_hash(flat_index(shape[:-1] + (last // 2,), device), seed32)
+        hashed = shape[:-1] + (last // 2,)
+        start = row_offset * (math.prod(hashed[1:]) if len(hashed) > 1 else 1)
+        h = counter_hash(flat_index(hashed, device, start), seed32)
         thresh = max(1, min(0xFFFF, int(round(keep_p * 65536.0))))
         return torch.cat([(h & 0xFFFF) < thresh, (h >> 16) < thresh], dim=-1)
-    h = counter_hash(flat_index(shape, device), seed32)
+    start = row_offset * (math.prod(shape[1:]) if len(shape) > 1 else 1)
+    h = counter_hash(flat_index(shape, device, start), seed32)
     h = mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     thresh = min(0xFFFFFFFF, int(round(keep_p * 4294967296.0)))
@@ -138,7 +148,7 @@ def _dot(x: torch.Tensor, kernel: torch.Tensor, out_dtype: torch.dtype) -> torch
 
 def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
               dropout: float = 0.0, train: bool = False, seed32: int | None = None,
-              dropout_impl: str = "threefry") -> torch.Tensor:
+              dropout_impl: str = "threefry", row_offset: int = 0) -> torch.Tensor:
     """Forward through the hidden layers (activation, then dropout in train
     mode), then the linear logit.
 
@@ -151,7 +161,10 @@ def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
     as JAX's weak type). ``seed32`` (``step_seed32``) seeds both dropout
     impls: "hash" through ``hash_dropout_mask`` with rectpu's per-layer salt,
     "threefry" through a ``torch.Generator`` seeded with the same salted
-    value. Returns [B, out] fp32."""
+    value. ``row_offset`` is the first global batch row of ``x`` (a rank's
+    slice under a ParallelPlan): the hash mask keys on global rows, and the
+    threefry stream is salted with it (0 leaves it as it is). Returns [B,
+    out] fp32."""
     act = get_activation(activation)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -166,9 +179,11 @@ def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
         if drop:
             salt = _layer_seed(seed32, i)
             if dropout_impl == "hash":
-                keep = hash_dropout_mask(salt, x.shape, dropout, device=x.device)
+                keep = hash_dropout_mask(salt, x.shape, dropout, device=x.device,
+                                         row_offset=row_offset)
             else:
-                gen = torch.Generator(device=x.device).manual_seed(salt)
+                gen = torch.Generator(device=x.device).manual_seed(
+                    (salt + 0x9E3779B9 * row_offset) & MASK32)
                 keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
             scale = torch.full((), 1.0 - dropout, dtype=x.dtype, device=x.device)
             x = torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -265,7 +280,43 @@ def is_quantized(table) -> bool:
     return isinstance(table, (dict, torch.nn.ParameterDict)) and "q" in table and "s" in table
 
 
-def lookup_fields(table, cat_ids: torch.Tensor, cfg: TowerConfig) -> torch.Tensor:
+class RecModel(nn.Module):
+    """Base of the model zoo: the two hooks a ``parallel.ParallelPlan`` sets.
+
+    ``lookup_fn`` (None: the local gather) replaces the table gather with the
+    plan's EP exchange, as rectpu's ``apply(..., lookup_fn=...)``; its
+    ``flat_variant`` serves the flat layout. ``row_offset`` is the first
+    global batch row of this rank's slice, which the dropout masks key on."""
+
+    lookup_fn = None
+    row_offset = 0
+
+    def ep_table(self, emb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """[V, K+1] = [emb | w] (``pack_fused_table``), assembled per call;
+        under EP ``emb`` is this rank's shard and ``w`` (replicated) gives
+        its rows of the shard."""
+        if self.lookup_fn is not None:
+            w = self.lookup_fn.local_rows(w)
+        return pack_fused_table(emb, w)
+
+    def flat_lookup(self, table, cat_ids: torch.Tensor, has_lin: bool):
+        """The flat layout's rows from ``table`` [V, K(+1)]: (emb [B, F, K]
+        in the compute dtype, lin [B] fp32 or None). Under EP the plan's flat
+        exchange, else the local gather, whose lin sums column K over the
+        fields in fp32."""
+        cfg = self.cfg
+        k = cfg.embedding_size
+        if self.lookup_fn is not None:
+            emb_flat, lin = self.lookup_fn.flat_variant(table, cat_ids, has_lin=has_lin)
+            emb = emb_flat.reshape(emb_flat.shape[0], -1, k)
+            dtype = cfg.torch_compute_dtype
+            return (emb.to(dtype) if dtype is not None else emb), lin
+        looked = lookup_fields(table, cat_ids, cfg)
+        return looked[..., :k], (looked[..., k].float().sum(dim=-1) if has_lin else None)
+
+
+def lookup_fields(table, cat_ids: torch.Tensor, cfg: TowerConfig,
+                  lookup_fn=None) -> torch.Tensor:
     """[B, F] ids -> [B, F, W] field rows, in the compute dtype when one is
     set: the table is cast to it before the gather (``gather_dtype``,
     ``rectpu/ops/embedding.py:501``), and the dense table cotangent is rounded
@@ -273,8 +324,14 @@ def lookup_fields(table, cat_ids: torch.Tensor, cfg: TowerConfig) -> torch.Tenso
 
     A quantized table leaf takes the gather's int8 mode (``dequant_gather``):
     rectpu's ``lookup_fn=dequant_lookup`` then the cast to the compute dtype
-    (``rectpu/models/base.py:324-337``), serving only."""
+    (``rectpu/models/base.py:324-337``), serving only.
+
+    ``lookup_fn`` (a plan's EP exchange) gathers instead, from the table in
+    its own dtype, and the rows are then cast, as rectpu's ``lookup_fields``."""
     dtype = cfg.torch_compute_dtype
+    if lookup_fn is not None:
+        emb = lookup_fn(table, cat_ids)
+        return emb.to(dtype) if dtype is not None else emb
     if is_quantized(table):
         return dequant_gather(table["q"], table["s"], cat_ids, dtype or torch.float32)
     emb = lookup(table, cat_ids, impl=cfg.embedding_impl, gather_dtype=dtype,

@@ -26,9 +26,9 @@ values, so one path serves both.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     _dot,
     apply_mlp,
@@ -41,7 +41,7 @@ from rectpu_torch.models.base import (
 from rectpu_torch.models.dnn import append_numeric
 
 
-class DCNModel(nn.Module):
+class DCNModel(RecModel):
     name = "dcn"
     EXPORT_KWARGS = ("num_cross_layers", "low_rank")
 
@@ -100,7 +100,7 @@ class DCNModel(nn.Module):
         layers = [(layer["kernel"], layer["bias"]) for layer in self.top]
         return apply_mlp(layers, x, cfg.activation, compute_dtype=cfg.torch_compute_dtype,
                          dropout=cfg.dropout, train=train, seed32=seed32,
-                         dropout_impl=cfg.dropout_impl)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,
                      train: bool = False, seed32: int | None = None) -> torch.Tensor:
@@ -112,7 +112,8 @@ class DCNModel(nn.Module):
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:
         """cat_ids [B, F] int32 global row ids, num_vals [B, N] -> logits [B]
         fp32. ``train`` turns the top tower's dropout on, seeded by ``seed32``."""
-        return self.apply_looked(lookup_fields(self.emb, cat_ids, self.cfg), num_vals,
+        return self.apply_looked(lookup_fields(self.emb, cat_ids, self.cfg, self.lookup_fn),
+                                 num_vals,
                                  train=train, seed32=seed32)
 
     def default_optimizer(self):

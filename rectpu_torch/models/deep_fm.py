@@ -38,9 +38,9 @@ rounded to ``table_grad_dtype`` and then cast back to the master's dtype.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     apply_mlp,
     init_embedding_table,
@@ -55,7 +55,7 @@ from rectpu_torch.models.base import (
 from rectpu_torch.ops.fm import fm_cross, fm_cross3_xla
 
 
-class DeepFMModel(nn.Module):
+class DeepFMModel(RecModel):
     name = "deep_fm"
     EXPORT_KWARGS = ("use_linear", "use_mf", "use_dnn", "fm_order")
 
@@ -133,7 +133,7 @@ class DeepFMModel(nn.Module):
         when packed, else assembled per call (differentiable in both)."""
         if self.packed:
             return self.table
-        return pack_fused_table(self.emb, self.linear["w"])
+        return self.ep_table(self.emb, self.linear["w"])
 
     def _mlp_layers(self):
         return [(layer["kernel"], layer["bias"]) for layer in self.mlp]
@@ -151,7 +151,7 @@ class DeepFMModel(nn.Module):
                                                  self.cfg.embedding_impl)
         if self.use_mf or self.use_dnn:
             table = self.fused_table() if self.fused else self.emb
-            looked = lookup_fields(table, cat_ids, self.cfg)
+            looked = lookup_fields(table, cat_ids, self.cfg, self.lookup_fn)
             logits = logits + self.apply_looked(looked, num_vals, train=train, seed32=seed32)
         return logits
 
@@ -159,7 +159,8 @@ class DeepFMModel(nn.Module):
         cfg = self.cfg
         return apply_mlp(self._mlp_layers(), flat, cfg.activation,
                          compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
-                         train=train, seed32=seed32, dropout_impl=cfg.dropout_impl)[:, 0]
+                         train=train, seed32=seed32, dropout_impl=cfg.dropout_impl,
+                         row_offset=self.row_offset)[:, 0]
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,
                      train: bool = False, seed32: int | None = None) -> torch.Tensor:
@@ -198,9 +199,8 @@ class DeepFMModel(nn.Module):
             raise NotImplementedError(
                 f"the flat layout does not take a lane-padded packed table (width "
                 f"{self.table.shape[1]} > K+1={k + 1}), as rectpu's lookup_flat does not")
-        looked = lookup_fields(self.table, cat_ids, cfg)
-        emb = looked[..., :k]
-        logits = looked[..., k].float().sum(dim=-1) + self.linear["b"]
+        emb, lin = self.flat_lookup(self.table, cat_ids, has_lin=True)
+        logits = lin + self.linear["b"]
         if self.use_mf:
             logits = logits + fm_cross(emb, impl=cfg.fm_impl, out_dtype=torch.float32)
             if self.fm_order >= 3:

@@ -31,9 +31,9 @@ salts the step's seed32 with ``tower_seed32(seed32, 2)``.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     apply_mlp,
     get_activation,
@@ -45,7 +45,7 @@ from rectpu_torch.models.base import (
 from rectpu_torch.ops.interaction import IMPLS, interact, interact_flat, num_pairs
 
 
-class DLRMModel(nn.Module):
+class DLRMModel(RecModel):
     name = "dlrm"
     EXPORT_KWARGS = ("bot_hidden_units", "arch_interaction_itself", "interaction_impl")
 
@@ -100,16 +100,17 @@ class DLRMModel(nn.Module):
         return apply_mlp(self._layers(self.top), top_in, cfg.activation,
                          compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
                          train=train, seed32=tower_seed32(seed32, 2),
-                         dropout_impl=cfg.dropout_impl)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
 
     def forward(self, cat_ids: torch.Tensor, num_vals: torch.Tensor | None = None, *,
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:
         """cat_ids [B, F] int32 global row ids, num_vals [B, N] -> logits [B]
         fp32. ``train`` turns dropout on, seeded by ``seed32``."""
-        emb = lookup_fields(self.emb, cat_ids, self.cfg)  # [B, F, K]
         if self.cfg.flat_layout and self.cfg.num_fields > 0:
+            emb, _ = self.flat_lookup(self.emb, cat_ids, has_lin=False)  # [B, F, K]
             flat = emb.reshape(emb.shape[0], -1)
             return self.apply_from_flat(flat, num_vals, train=train, seed32=seed32)
+        emb = lookup_fields(self.emb, cat_ids, self.cfg, self.lookup_fn)  # [B, F, K]
         return self.apply_looked(emb, num_vals, train=train, seed32=seed32)
 
     def apply_from_flat(self, flat: torch.Tensor, num_vals: torch.Tensor | None, *,

@@ -16,9 +16,9 @@ layout is the TPU's, and the port computes the same values from the
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     apply_mlp,
     init_embedding_table,
@@ -48,7 +48,8 @@ def deep_tower_logit(model, emb: torch.Tensor, num_vals: torch.Tensor | None, tr
     layers = [(layer["kernel"], layer["bias"]) for layer in model.mlp]
     return apply_mlp(layers, emb.reshape(emb.shape[0], -1), cfg.activation,
                      compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
-                     train=train, seed32=seed32, dropout_impl=cfg.dropout_impl)[:, 0]
+                     train=train, seed32=seed32, dropout_impl=cfg.dropout_impl,
+                     row_offset=model.row_offset)[:, 0]
 
 
 def init_dnn(generator: torch.Generator, cfg: TowerConfig) -> dict:
@@ -63,7 +64,7 @@ def init_dnn(generator: torch.Generator, cfg: TowerConfig) -> dict:
     return params
 
 
-class DNNModel(nn.Module):
+class DNNModel(RecModel):
     name = "deep"
     EXPORT_KWARGS = ()
 
@@ -76,7 +77,8 @@ class DNNModel(nn.Module):
 
     def input_layer(self, cat_ids: torch.Tensor, num_vals: torch.Tensor | None) -> torch.Tensor:
         """[B, F(+N), K] field rows: the gather, then the numeric fields' rows."""
-        return append_numeric(self, lookup_fields(self.emb, cat_ids, self.cfg), num_vals)
+        return append_numeric(self, lookup_fields(self.emb, cat_ids, self.cfg, self.lookup_fn),
+                              num_vals)
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,
                      train: bool = False, seed32: int | None = None) -> torch.Tensor:
@@ -87,7 +89,7 @@ class DNNModel(nn.Module):
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:
         """cat_ids [B, F] int32 global row ids, num_vals [B, N] -> logits [B]
         fp32. ``train`` turns dropout on, seeded by ``seed32``."""
-        looked = lookup_fields(self.emb, cat_ids, self.cfg)
+        looked = lookup_fields(self.emb, cat_ids, self.cfg, self.lookup_fn)
         return deep_tower_logit(self, looked, num_vals, train, seed32)
 
     def default_optimizer(self):

@@ -12,12 +12,11 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
-from rectpu_torch.models.base import TowerConfig, init_linear_tower, linear_tower_logit
+from rectpu_torch.models.base import RecModel, TowerConfig, init_linear_tower, linear_tower_logit
 
 
-class LinearModel(nn.Module):
+class LinearModel(RecModel):
     name = "linear"
     EXPORT_KWARGS = ()
 

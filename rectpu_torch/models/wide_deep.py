@@ -26,9 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     init_linear_tower,
     linear_tower_logit,
@@ -38,7 +38,7 @@ from rectpu_torch.models.base import (
 from rectpu_torch.models.dnn import deep_tower_logit, init_dnn
 
 
-class WideDeepModel(nn.Module):
+class WideDeepModel(RecModel):
     name = "linear_deep"
     EXPORT_KWARGS = ()
 
@@ -62,14 +62,14 @@ class WideDeepModel(nn.Module):
         k = cfg.embedding_size
         if not cfg.fuse_linear_lookup:
             wide = linear_tower_logit(self.linear, cat_ids, num_vals, cfg.embedding_impl)
-            looked = lookup_fields(self.emb, cat_ids, cfg)
+            looked = lookup_fields(self.emb, cat_ids, cfg, self.lookup_fn)
             return wide + deep_tower_logit(self, looked, num_vals, train, seed32)
-        aug = self.table if self.packed else pack_fused_table(self.emb, self.linear["w"])
+        aug = self.table if self.packed else self.ep_table(self.emb, self.linear["w"])
         if cfg.flat_layout and cfg.num_numeric == 0 and aug.shape[1] > k + 1:
             raise NotImplementedError(
                 f"the flat layout does not take a lane-padded packed table (width "
                 f"{aug.shape[1]} > K+1={k + 1}), as rectpu's lookup_flat does not")
-        looked = lookup_fields(aug, cat_ids, cfg)  # [B, F, K+1(+pad)]
+        looked = lookup_fields(aug, cat_ids, cfg, self.lookup_fn)  # [B, F, K+1(+pad)]
         wide = looked[..., k].float().sum(dim=-1) + self.linear["b"]
         if "w_num" in self.linear and num_vals is not None:
             wide = wide + num_vals.float() @ self.linear["w_num"]

@@ -29,9 +29,9 @@ always runs the first form: an export does not record the flat layout.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from rectpu_torch.models.base import (
+    RecModel,
     TowerConfig,
     apply_mlp,
     glorot_uniform,
@@ -45,7 +45,7 @@ from rectpu_torch.models.base import (
 from rectpu_torch.ops.cin import cin_core, cin_core_kmajor
 
 
-class XDeepFMModel(nn.Module):
+class XDeepFMModel(RecModel):
     name = "xdeep_fm"
     EXPORT_KWARGS = ("use_linear", "use_cin", "use_dnn", "cin_units", "cin_layout")
 
@@ -149,7 +149,7 @@ class XDeepFMModel(nn.Module):
         layers = [(layer["kernel"], layer["bias"]) for layer in self.mlp]
         return apply_mlp(layers, flat, cfg.activation, compute_dtype=cfg.torch_compute_dtype,
                          dropout=cfg.dropout, train=train, seed32=seed32,
-                         dropout_impl=cfg.dropout_impl)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
 
     def forward(self, cat_ids: torch.Tensor, num_vals: torch.Tensor | None = None, *,
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:
@@ -165,10 +165,10 @@ class XDeepFMModel(nn.Module):
             if self.packed:
                 table = self.table
             elif self.fused:
-                table = pack_fused_table(self.emb, self.linear["w"])
+                table = self.ep_table(self.emb, self.linear["w"])
             else:
                 table = self.emb
-            looked = lookup_fields(table, cat_ids, self.cfg)
+            looked = lookup_fields(table, cat_ids, self.cfg, self.lookup_fn)
             logits = logits + self.apply_looked(looked, num_vals, train=train, seed32=seed32)
         return logits
 
@@ -205,9 +205,8 @@ class XDeepFMModel(nn.Module):
             raise NotImplementedError(
                 f"the flat layout does not take a lane-padded packed table (width "
                 f"{self.table.shape[1]} > K+1={k + 1}), as rectpu's lookup_flat does not")
-        looked = lookup_fields(self.table, cat_ids, cfg)
-        emb = looked[..., :k]
-        logits = looked[..., k].float().sum(dim=-1) + self.linear["b"]
+        emb, lin = self.flat_lookup(self.table, cat_ids, has_lin=True)
+        logits = lin + self.linear["b"]
         if self.use_cin:
             logits = logits + self._cin_logit(emb)
         if self.use_dnn:

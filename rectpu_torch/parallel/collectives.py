@@ -1,0 +1,143 @@
+"""The collectives of the EP exchanges, with their transposes.
+
+rectpu differentiates through ``shard_map``, so JAX derives each
+collective's transpose. Here every differentiated collective is a
+``torch.autograd.Function`` over one mesh axis (``parallel/mesh.Axis``),
+named after the ``lax`` call it replaces, with the transpose JAX uses:
+
+  - ``all_gather`` (tiled, along dim 0): transposes to ``psum_scatter``
+    (JAX's ``_all_gather_transpose_rule``);
+  - ``psum_scatter`` (tiled, along dim 0): transposes to ``all_gather``;
+  - ``all_to_all`` (split = concat = 0): its own transpose (device i's block
+    j lands on device j's block i, and back);
+  - ``psum`` of a value that varies over the axis into one that does not:
+    its transpose is ``pvary``, the identity on each rank. Every rank of the
+    axis then holds the whole cotangent, because the ranks of the axis
+    compute the same function of the same summed value (rectpu's ``1d``
+    exchange, whose towers are replicated over 'model').
+
+The CPU tests hold each against rectpu's gradients. ``raw_*`` are the same
+collectives outside autograd (ids, metrics, gradient reductions). A failed
+collective raises.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+import torch.distributed as dist
+
+from rectpu_torch.parallel.mesh import Axis
+
+
+def raw_all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along dim 0, in axis order."""
+    if axis.size == 1:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((axis.size * x.shape[0], *x.shape[1:]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # the _tensor names' deprecation
+        dist.all_gather_into_tensor(out, x, group=axis.group)
+    return out
+
+
+def raw_psum_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Sum ``x`` over the axis and keep this rank's block of dim 0."""
+    if axis.size == 1:
+        return x
+    if x.shape[0] % axis.size:
+        raise ValueError(f"psum_scatter: dim 0 ({x.shape[0]}) is not divisible by the "
+                         f"{axis.name} axis ({axis.size})")
+    x = x.contiguous()
+    out = x.new_empty((x.shape[0] // axis.size, *x.shape[1:]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=axis.group)
+    return out
+
+
+def raw_all_to_all(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Block j of dim 0 goes to rank j; block i of the result came from rank i."""
+    if axis.size == 1:
+        return x
+    if x.shape[0] % axis.size:
+        raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) is not divisible by the "
+                         f"{axis.name} axis ({axis.size})")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=axis.group)
+    return out
+
+
+def raw_psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Sum ``x`` over the axis (a new tensor; ``x`` is left as it is)."""
+    if axis.size == 1:
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return raw_all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_psum_scatter(g.contiguous(), ctx.axis), None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return raw_psum_scatter(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_all_gather(g.contiguous(), ctx.axis), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return raw_all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_all_to_all(g.contiguous(), ctx.axis), None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return raw_psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=0, tiled=True)``, differentiable."""
+    return _AllGather.apply(x, axis)
+
+
+def psum_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``, differentiable."""
+    return _PsumScatter.apply(x, axis)
+
+
+def all_to_all(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0)``, differentiable."""
+    return _AllToAll.apply(x, axis)
+
+
+def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``lax.psum(x, axis)`` of a value that varies over the axis, differentiable."""
+    return _Psum.apply(x, axis)

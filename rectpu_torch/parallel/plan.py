@@ -1,0 +1,269 @@
+"""ParallelPlan: the glue between the Trainer and the mesh, the port of
+``rectpu/parallel/plan.py``.
+
+Every sharding decision, as in rectpu:
+
+  - the batch: each rank takes its slice. Under EP in "2d" or "dedup" the
+    batch is sharded over every rank (rank r takes slice r of B/(D*M),
+    rectpu's ``P(('data', 'model'))``); otherwise over 'data' alone (slice d
+    of B/D, the same on every model rank);
+  - parameters: a 2-D leaf of ``table_rows`` rows (and its optimizer-state
+    twins) keeps rows [m*V/M, (m+1)*V/M) on model index m under EP; every
+    other leaf is replicated;
+  - ``lookup_fn``: the EP exchange, with ``.flat_variant`` for the flat
+    layout.
+
+rectpu leaves the data-parallel gradient sum to GSPMD. Here it is explicit,
+after backward (``reduce_grads``): the gradients of replicated leaves are
+summed over the batch axes (every rank under 2d/dedup, 'data' under 1d and
+plain data parallelism), each table shard's over 'data'. Each rank's loss
+is its share of the global batch's loss (``local_loss``: its sum over the
+global batch size under the mean reduction), so the summed gradient is the
+single-process gradient of the global batch, not an average of means.
+
+``tp_mlp`` (rectpu's Megatron towers, ``plan.py:140-176``) is not ported
+(ROADMAP.md queue A17).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from rectpu_torch.parallel.collectives import raw_all_gather, raw_psum
+from rectpu_torch.parallel.embedding_ep import (make_ep_lookup, make_ep_lookup_2d,
+                                                make_ep_lookup_2d_flat, make_ep_lookup_dedup,
+                                                make_ep_lookup_dedup_flat, make_ep_lookup_flat)
+from rectpu_torch.parallel.mesh import Axis, Mesh, make_mesh
+
+SCATTER_IMPLS = ("xla", "mxu", "auto")
+
+
+class _LocalRows(torch.autograd.Function):
+    """Rows [m*V/M, (m+1)*V/M) of a replicated [V] leaf (the unpacked linear
+    weight a fused table concatenates to its embedding shard). Its transpose
+    pads the cotangent with zeros, and under 1d also sums it over 'model':
+    the model ranks of a data row then hold the same whole-row gradient, as
+    every replicated leaf's, before the sum over 'data'."""
+
+    @staticmethod
+    def forward(ctx, w, mi, v_shard, model, sum_model):
+        ctx.meta = (mi, v_shard, w.shape[0], model, sum_model)
+        return w[mi * v_shard:(mi + 1) * v_shard]
+
+    @staticmethod
+    def backward(ctx, g):
+        mi, v_shard, rows, model, sum_model = ctx.meta
+        full = g.new_zeros((rows, *g.shape[1:]))
+        full[mi * v_shard:(mi + 1) * v_shard] = g
+        if sum_model:
+            full = raw_psum(full, model)
+        return full, None, None, None, None
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+@dataclass
+class ParallelPlan:
+    mesh: Mesh
+    ep: bool  # row-shard the table over 'model'
+    lookup_fn: object | None
+    table_rows: int | None = None  # the padded table row count, the EP key
+    ep_mode: str = "2d"
+    ep_comm_compress: str | None = None
+    ep_peer_capacity: int | None = None
+    tp_mlp: bool = False
+    scatter_impl: str = "xla"
+
+    @classmethod
+    def create(cls, num_data_shards: int, num_model_shards: int = 1, device="cpu",
+               table_rows: int | None = None, ep_mode: str = "2d",
+               ep_comm_compress: str | None = None, ep_peer_capacity: int | None = None,
+               tp_mlp: bool = False, scatter_impl: str = "xla", mesh: Mesh | None = None):
+        """rectpu's arguments, defaults and checks (``plan.py:64-112``);
+        ``device`` ("cpu" or "cuda") and ``mesh`` (default ``make_mesh``
+        over the process group) replace rectpu's ``devices``."""
+        if tp_mlp:
+            raise NotImplementedError("tensor-parallel towers (--tp-mlp) are not ported to "
+                                      "rectpu_torch yet (ROADMAP.md queue A17)")
+        if scatter_impl not in SCATTER_IMPLS:
+            raise ValueError(f"scatter_impl must be one of {SCATTER_IMPLS}")
+        if scatter_impl == "auto":
+            scatter_impl = "xla"  # rectpu's unpinned _FLAT_SCATTER_AUTO, resolved once
+        if ep_peer_capacity is not None and ep_mode != "dedup":
+            raise ValueError("ep_peer_capacity only applies to ep_mode='dedup'")
+        if mesh is None:
+            mesh = make_mesh(num_data_shards, num_model_shards, device)
+        elif (mesh.num_data, mesh.num_model) != (num_data_shards, num_model_shards):
+            raise ValueError(f"mesh {mesh.num_data}x{mesh.num_model} is not the plan's "
+                             f"{num_data_shards}x{num_model_shards}")
+        ep = num_model_shards > 1
+        cc = ep_comm_compress
+        if ep and table_rows is not None and table_rows % num_model_shards:
+            raise ValueError(f"table_rows={table_rows} is not divisible by "
+                             f"{num_model_shards} model shards")
+        if not ep:
+            lookup_fn = None
+        elif ep_mode == "2d":
+            lookup_fn = make_ep_lookup_2d(mesh, comm_compress=cc)
+            lookup_fn.flat_variant = make_ep_lookup_2d_flat(mesh, comm_compress=cc,
+                                                            scatter_impl=scatter_impl)
+        elif ep_mode == "dedup":
+            lookup_fn = make_ep_lookup_dedup(mesh, peer_capacity=ep_peer_capacity,
+                                             comm_compress=cc, scatter_impl=scatter_impl)
+            lookup_fn.flat_variant = make_ep_lookup_dedup_flat(
+                mesh, peer_capacity=ep_peer_capacity, comm_compress=cc,
+                scatter_impl=scatter_impl)
+        else:
+            if cc is not None:
+                raise ValueError("ep_comm_compress requires ep_mode '2d' or 'dedup'")
+            lookup_fn = make_ep_lookup(mesh)
+            lookup_fn.flat_variant = make_ep_lookup_flat(mesh, scatter_impl=scatter_impl)
+        plan = cls(mesh=mesh, ep=ep, lookup_fn=lookup_fn, table_rows=table_rows,
+                   ep_mode=ep_mode, ep_comm_compress=ep_comm_compress,
+                   ep_peer_capacity=ep_peer_capacity, tp_mlp=tp_mlp,
+                   scatter_impl=scatter_impl)
+        if lookup_fn is not None:
+            lookup_fn.local_rows = plan.local_rows
+        return plan
+
+    # -- the batch ------------------------------------------------------------
+
+    @property
+    def batch_2d(self) -> bool:
+        """The batch is sharded over every rank (2d/dedup EP)."""
+        return self.ep and self.ep_mode in ("2d", "dedup")
+
+    @property
+    def batch_axis(self) -> Axis:
+        """The ranks that hold distinct batch slices."""
+        return self.mesh.world if self.batch_2d else self.mesh.data
+
+    @property
+    def batch_shards(self) -> int:
+        return self.batch_axis.size
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's slice of the global batch."""
+        return self.batch_axis.index
+
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch {name: [B, ...] array}, on its device."""
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
+            n = v.shape[0] // self.batch_shards
+            out[k] = v[self.batch_index * n:(self.batch_index + 1) * n].to(self.mesh.device)
+        return out
+
+    @property
+    def process_index(self) -> int:
+        return self.mesh.rank
+
+    # -- parameters -----------------------------------------------------------
+
+    def is_table_leaf(self, leaf, local: bool = False) -> bool:
+        """rectpu's ``_param_spec`` rule: a 2-D leaf of ``table_rows`` rows
+        (``local``: of this rank's V/M rows) is row-sharded under EP."""
+        if not (self.ep and self.table_rows is not None):
+            return False
+        rows = self.table_rows // self.mesh.num_model if local else self.table_rows
+        return getattr(leaf, "ndim", 0) == 2 and leaf.shape[0] == rows
+
+    def shard_params(self, tree):
+        """This rank's view of a global tree (params or optimizer state)."""
+        mi, v_shard = self.mesh.model.index, (self.table_rows or 0) // self.mesh.num_model
+
+        def place(leaf):
+            if self.is_table_leaf(leaf):
+                return leaf[mi * v_shard:(mi + 1) * v_shard]
+            return leaf
+
+        return _map_tree(tree, place)
+
+    def gather_params(self, tree):
+        """The global tree from this rank's view: every table shard
+        all_gathered over 'model' (a collective: every rank calls it) on the
+        rank's device, and returned where the shard was (host copies stay
+        host copies)."""
+
+        def gather(leaf):
+            if isinstance(leaf, torch.Tensor) and self.is_table_leaf(leaf, local=True):
+                full = raw_all_gather(leaf.detach().to(self.mesh.device).contiguous(),
+                                      self.mesh.model)
+                return full.to(leaf.device)
+            return leaf
+
+        return _map_tree(tree, gather)
+
+    def local_rows(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a replicated [V] leaf, differentiable (see
+        ``_LocalRows``)."""
+        v_shard = w.shape[0] // self.mesh.num_model
+        return _LocalRows.apply(w, self.mesh.model.index, v_shard, self.mesh.model,
+                                not self.batch_2d)
+
+    # -- reductions ---------------------------------------------------------------
+
+    def local_loss(self, losses: torch.Tensor, reduction: str = "mean") -> torch.Tensor:
+        """This rank's share of the global batch's loss: summed over the
+        ranks of ``batch_axis``, the shares give the single-process loss."""
+        if reduction == "sum":
+            return losses.sum()
+        return losses.sum() / (losses.shape[0] * self.batch_shards)
+
+    def global_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of a per-rank value (a loss share, a metric count) over the batch ranks."""
+        return raw_psum(x, self.batch_axis)
+
+    def reduce_grads(self, grads: dict, table_grad_dtype=None) -> dict:
+        """Sum the gradients in place: table shards over 'data', replicated
+        leaves over the batch axes (one flat buffer a dtype). Under EP a
+        table shard's gradient is then rounded to ``table_grad_dtype`` and
+        back, as the single-process lookup rounds its dense cotangent."""
+        rep: dict = {}
+        for key, g in grads.items():
+            if self.is_table_leaf(g, local=True):
+                g.copy_(raw_psum(g, self.mesh.data))
+                if table_grad_dtype is not None:
+                    g.copy_(g.to(table_grad_dtype).to(g.dtype))
+            else:
+                rep.setdefault(g.dtype, []).append(g)
+        if self.batch_shards > 1:
+            for gs in rep.values():
+                summed = raw_psum(torch.cat([g.reshape(-1) for g in gs]), self.batch_axis)
+                offset = 0
+                for g in gs:
+                    g.copy_(summed[offset:offset + g.numel()].view_as(g))
+                    offset += g.numel()
+        return grads
+
+    def reduce_metric_state(self, state: dict) -> dict:
+        """Metric accumulators summed over the batch ranks."""
+        return {k: self.global_value(v) for k, v in state.items()}
+
+    def gather_batch_values(self, x: torch.Tensor) -> torch.Tensor:
+        """Every batch rank's [n] values, concatenated (n equal on every rank)."""
+        return raw_all_gather(x.contiguous(), self.batch_axis)
+
+    def agree(self, flag: bool) -> bool:
+        """Rank 0's decision, on every rank (the wall-clock checkpoint cadence)."""
+        if self.mesh.world.size == 1:
+            return flag
+        mine = float(flag) if self.mesh.rank == 0 else 0.0
+        return bool(raw_psum(torch.tensor([mine], device=self.mesh.device),
+                             self.mesh.world).item() > 0)
+
+    def barrier(self) -> None:
+        if self.mesh.world.size > 1:
+            dist.barrier()

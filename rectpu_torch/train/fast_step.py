@@ -27,8 +27,15 @@ int32}`` with each rest subtree flat, keyed by parameter path
 state in place and returns the loss. Each step's dropout seed is the
 caller's (``Trainer`` passes ``models.base.step_seed32(seed, step)``).
 
-The expert-parallel branch (a ``plan`` with EP) is not ported yet
-(ROADMAP.md queue A12).
+Sharded (``plan``, a ``parallel.ParallelPlan``; rectpu's ``fast_step.py:
+55-240``): each rank runs the step on its batch slice. Under EP the rows come
+through the plan's exchange (``plan.lookup_fn``) from the rank's [V/M, W]
+shard, and the touched rows' lazy-Adam step runs through
+``parallel/sparse_ep.make_sparse_rows_ep`` (its exchange of deduplicated
+rows and the row sets into the shard); without EP (data parallelism alone)
+the same update gathers every rank's rows over 'data'. The small params'
+gradients are summed over the batch ranks (``plan.reduce_grads``), and the
+returned loss is the rank's share of the global batch's loss.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
         raise ValueError(
             "sparse fast step requires fuse_linear_lookup=True or packed_linear=True")
     ep = plan is not None and getattr(plan, "ep", False)
-    if ep and use_linear and not packed:
+    if plan is not None and use_linear and not packed:
         raise ValueError(
             "sparse EP fast step with a linear tower needs packed_linear=True "
             "(one sharded [V, K+1] leaf; per-step concat of a sharded emb with "
@@ -100,9 +107,15 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
         raise ValueError(f"slot_dtype must be float32|bfloat16_sr, got {slot_dtype!r}")
     if slot_dtype == "bfloat16_sr" and ep:
         raise ValueError("bf16 slots are not wired into the EP exchange yet")
-    if ep:
-        raise NotImplementedError("the sparse fast step over the EP exchange is not ported "
-                                  "to rectpu_torch yet (ROADMAP.md queue A12)")
+    sharded_update = None
+    if plan is not None:
+        from rectpu_torch.parallel.sparse_ep import make_sparse_rows_ep
+
+        if slot_dtype == "bfloat16_sr":
+            raise ValueError("bf16 slots are not wired into the sharded row update yet")
+        sharded_update = make_sparse_rows_ep(plan.mesh, batch_2d=plan.batch_2d, beta1=beta1,
+                                             beta2=beta2, epsilon=epsilon,
+                                             field_sizes=field_sizes)
     mv_dtype = torch.bfloat16 if slot_dtype == "bfloat16_sr" else None
     unpacked_linear = use_linear and not packed
 
@@ -134,7 +147,7 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
                 table = torch.cat([params["emb"], params[_LINEAR_W][:, None]], dim=1)
             else:
                 table = params[table_key].detach()
-            looked = gather_rows(table, ids)
+            looked = plan.lookup_fn(table, ids) if ep else gather_rows(table, ids)
         looked.requires_grad_(True)
         rest = rest_of(params)
         lp = looked.to(dtype) if dtype is not None else looked
@@ -142,13 +155,21 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
         losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
         if "weights" in batch:
             w = batch["weights"]
-            loss = torch.sum(losses * w) / torch.clamp(torch.sum(w), min=1.0)
+            w_sum = torch.sum(w) if plan is None else plan.global_value(torch.sum(w))
+            loss = torch.sum(losses * w) / torch.clamp(w_sum, min=1.0)
+        elif plan is not None:
+            loss = plan.local_loss(losses, loss_reduction)
         elif loss_reduction == "sum":
             loss = losses.sum()
         else:
             loss = losses.mean()
         grads = torch.autograd.grad(loss, [looked, *rest.values()], allow_unused=True)
         dlooked = grads[0]
+        if plan is not None:
+            rest_grads = {key: torch.zeros_like(p) if g is None else g
+                          for (key, p), g in zip(rest.items(), grads[1:])}
+            plan.reduce_grads(rest_grads)
+            grads = (dlooked, *rest_grads.values())
 
         t = int(opt_state["t"]) + 1
         lr_t = adam_lr_t(learning_rate, t, beta1, beta2)
@@ -165,6 +186,10 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
 
             # lazy Adam on exactly the touched table rows (m|v packed per leaf)
             mv = opt_state["mv_sparse"]
+            if sharded_update is not None:
+                sharded_update(params[table_key].detach(), mv[table_key], ids, dlooked, lr_t)
+                opt_state["t"] = torch.tensor(t, dtype=torch.int32)
+                return loss.detach()
             cols = dlooked.shape[-1]
             cap = unique_capacity(field_sizes, ids.shape[0], ids.shape[0] * ids.shape[1])
             rows, row_grads = dedupe_rows(ids.reshape(-1),

@@ -19,6 +19,22 @@ What differs from rectpu, and why:
     ships only each batch's row indices; both placements consume the same
     index stream, so training is the same either way.
 
+Sharded (``plan``, a ``parallel.ParallelPlan``; rectpu's ``loop.py:528-552,
+595-630``): every rank runs this loop on its own process. The model's EP hooks
+are set from the plan (``lookup_fn``, and ``row_offset``, the first global
+row of the rank's batch slice, so hash dropout masks the global batch's
+rows). Each rank takes its block of every global batch from the loader
+(``cfg.batch_size`` stays the global batch), holds its table rows, and after
+backward sums the gradients through ``plan.reduce_grads``; each step's loss
+is the global batch's (the ranks' shares summed once per loop). The eval
+walks a rank's rows ``[i::n]`` and sums the metric state over the batch
+ranks. A save all_gathers the table shards to every rank (a collective:
+every rank saves at the same steps; the wall-clock cadence is rank 0's),
+and rank 0 alone writes the checkpoint, the export and the event file, in
+rectpu's single-device layout. A restore reads the full checkpoint on every
+rank and keeps the rank's rows, so a checkpoint moves between sharded and
+single runs of either package.
+
 Events: the Trainer writes rectpu's TensorBoard event file into the job dir
 (``utils/events.py``, ``loop.py:124-131, 380-398, 657-692``): ``loss`` and
 ``examples_per_sec`` at each log, ``eval/<metric>`` after each eval and the
@@ -98,10 +114,23 @@ class TrainConfig:
     data_placement_max_bytes: int = 1 << 30
 
 
+class _NoEvents:
+    """The event writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    add_scalars = add_histogram = add_scalar
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, model, optimizer, train_ds, eval_ds, job_dir: str | Path,
-                 config: TrainConfig, exporter=None, device=None, fast_step=None):
+                 config: TrainConfig, exporter=None, device=None, fast_step=None, plan=None):
         self.model = model
+        self.plan = plan
         self.optimizer = optimizer
         self.fast_step = fast_step
         self.train_ds = train_ds
@@ -111,10 +140,15 @@ class Trainer:
         self.exporter = exporter
         self.events: EventWriter | None = None  # open while train_and_evaluate runs
         self.device = torch.device("cpu") if device is None else torch.device(device)
+        if plan is not None:
+            self.device = plan.mesh.device
+            model.lookup_fn = plan.lookup_fn
+            model.row_offset = plan.batch_index * (config.batch_size // plan.batch_shards)
         self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
                                  async_write=config.async_checkpoint)
         self.warm_start_from: str | None = None
         self.warm_start_vars: list | None = None
+        self.owns_process_group = False  # the CLI started the plan's process group
         self.profile_dir: str | None = None  # set to trace the second logging window
         self.step_losses: list[float] = []  # every step's loss, read back once per loop
         self.opt_state: dict | None = None
@@ -126,11 +160,13 @@ class Trainer:
         seed32 = step_seed32(self.config.seed, step) if train else None
         logits = self.model(batch["cat_ids"], batch["num_vals"], train=train, seed32=seed32)
         losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
+        if self.plan is not None:
+            return self.plan.local_loss(losses, self.config.loss_reduction)
         return losses.sum() if self.config.loss_reduction == "sum" else losses.mean()
 
     def train_step(self, batch: dict, step: int) -> torch.Tensor:
         """Forward, backward and the optimizer update of step ``step``; returns
-        the loss (a device scalar, not waited for)."""
+        the loss (a device scalar, not waited for; sharded, this rank's share)."""
         params = flat_params(self.model)
         if self.fast_step is not None:
             return self.fast_step[1](params, self.opt_state, batch,
@@ -141,6 +177,8 @@ class Trainer:
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if self.plan is not None:
+            self.plan.reduce_grads(grads, self.model.cfg.torch_table_grad_dtype)
         self.optimizer.update(grads, self.opt_state, params)
         return loss.detach()
 
@@ -166,16 +204,28 @@ class Trainer:
         return self._to_device({"cat_ids": ds.cat_ids, "num_vals": ds.num_vals,
                                 "labels": ds.labels})
 
+    def _shards(self) -> tuple[int, int]:
+        """(batch shards, this rank's index among them): (1, 0) unsharded."""
+        if self.plan is None:
+            return 1, 0
+        return self.plan.batch_shards, self.plan.batch_index
+
     def _batches(self, data_state):
         cfg = self.config
         resident = self._resident()
+        n, pos = self._shards()
+        if cfg.batch_size % n:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by {n} batch "
+                             "shards")
+        shard = {"shard_id": pos, "num_shards": n} if n > 1 else {}
         if resident is None:
-            for batch, st in self.train_ds.train_batches(cfg.batch_size, state=data_state,
-                                                         seed=cfg.seed):
+            for batch, st in self.train_ds.train_batches(cfg.batch_size // n, state=data_state,
+                                                         seed=cfg.seed, **shard):
                 yield self._to_device(batch), st
             return
-        for rows, st in self.train_ds.train_index_batches(cfg.batch_size, state=data_state,
-                                                          seed=cfg.seed):
+        for rows, st in self.train_ds.train_index_batches(cfg.batch_size // n,
+                                                          state=data_state, seed=cfg.seed,
+                                                          **shard):
             idx = torch.from_numpy(rows)
             if self.device.type == "cuda":  # a pinned copy does not wait for the card
                 idx = idx.pin_memory().to(self.device, non_blocking=True)
@@ -187,9 +237,12 @@ class Trainer:
     def evaluate(self) -> dict:
         """One full pass over the eval set -> metric dict (floats)."""
         cfg = self.config
+        n, pos = self._shards()
         if self._eval_cache is None:
             eval_bs = cfg.eval_batch_size or max(cfg.batch_size, 512)
-            self._eval_cache = [self._to_device(b) for b in self.eval_ds.eval_batches(eval_bs)]
+            shard = {"shard_id": pos, "num_shards": n} if n > 1 else {}
+            self._eval_cache = [self._to_device(b) for b in
+                                self.eval_ds.eval_batches(max(eval_bs // n, 1), **shard)]
         state = metrics_lib.init_state(device=self.device)
         probs_all = []
         for batch in self._eval_cache:
@@ -199,11 +252,15 @@ class Trainer:
             state = metrics_lib.update_state(state, preds["probabilities"], batch["labels"],
                                              losses=losses, weights=batch["weights"])
             probs_all.append(preds["probabilities"])
+        if self.plan is not None:
+            state = self.plan.reduce_metric_state(state)
         result = metrics_lib.finalize(state)
         if cfg.eval_auc == "exact":
-            probs = torch.cat(probs_all).cpu().numpy()
-            labels = torch.cat([b["labels"] for b in self._eval_cache]).cpu().numpy()
-            valid = torch.cat([b["weights"] for b in self._eval_cache]).cpu().numpy() > 0
+            # the rank statistic does not depend on the order of the union
+            gather = self.plan.gather_batch_values if self.plan is not None else (lambda x: x)
+            probs = gather(torch.cat(probs_all)).cpu().numpy()
+            labels = gather(torch.cat([b["labels"] for b in self._eval_cache])).cpu().numpy()
+            valid = gather(torch.cat([b["weights"] for b in self._eval_cache])).cpu().numpy() > 0
             result["auc_streaming"] = result["auc"]
             result["auc"] = metrics_lib.exact_auc(probs[valid], labels[valid])
         return result
@@ -267,19 +324,29 @@ class Trainer:
 
     # -- the loop --------------------------------------------------------------------
 
+    @property
+    def _rank0(self) -> bool:
+        return self.plan is None or self.plan.process_index == 0
+
     def _save(self, step: int, data_state) -> dict:
-        """Checkpoint {params, opt_state} in rectpu's layout; returns the params tree."""
+        """Checkpoint {params, opt_state} in rectpu's layout; returns the
+        (global) params tree. Sharded, every rank calls it (the gather is a
+        collective) and rank 0 writes."""
         params = params_tree(self.model)
         opt_state = (sparse_state_tree(self.model, self.opt_state) if self.fast_step is not None
                      else opt_state_tree(self.opt_state))
-        self.ckpt.save(step, {"params": params, "opt_state": opt_state},
-                       extra_meta={"data_state": dataclasses.asdict(data_state)
-                                   if data_state else None,
-                                   "model": getattr(self.model, "name", "model")})
+        if self.plan is not None:
+            params = self.plan.gather_params(params)
+            opt_state = self.plan.gather_params(opt_state)
+        if self._rank0:
+            self.ckpt.save(step, {"params": params, "opt_state": opt_state},
+                           extra_meta={"data_state": dataclasses.asdict(data_state)
+                                       if data_state else None,
+                                       "model": getattr(self.model, "name", "model")})
         return params
 
     def _export(self, params: dict, step: int, metrics: dict) -> None:
-        if self.exporter is not None:
+        if self.exporter is not None and self._rank0:
             self.exporter(params, step, metrics=metrics)
 
     def _log_histograms(self, params: dict, step: int, max_elems: int = 65536) -> None:
@@ -299,7 +366,7 @@ class Trainer:
     def train_and_evaluate(self, restore: bool = True) -> dict:
         """Train, evaluate and export (the module docstring's cadence);
         returns the final eval's metrics."""
-        self.events = EventWriter(self.job_dir)
+        self.events = EventWriter(self.job_dir) if self._rank0 else _NoEvents()
         try:
             return self._train_and_evaluate(restore)
         finally:
@@ -313,6 +380,8 @@ class Trainer:
             # TF semantics: warm start seeds a fresh run; a restored
             # checkpoint (below) overwrites it
             params = self._warm_start(params)
+        if self.plan is not None:
+            params = self.plan.shard_params(params)
         load_params(self.model, params, self.device)
         if self.fast_step is not None:
             self.opt_state = self.fast_step[0](flat_params(self.model))
@@ -329,6 +398,8 @@ class Trainer:
             snapshot = self.ckpt.restore()
             if snapshot is not None:
                 tree, meta = snapshot
+                if self.plan is not None:
+                    tree = self.plan.shard_params(tree)  # this rank's rows
                 load_params(self.model, tree["params"], self.device)
                 if self.fast_step is not None:
                     self.opt_state = sparse_state_from_tree(tree["opt_state"], self.device)
@@ -338,6 +409,8 @@ class Trainer:
                 if meta.get("data_state"):
                     data_state = DataState(**meta["data_state"])
                 logger.info("restored checkpoint at step %s", step)
+        if self.plan is not None:
+            self.plan.barrier()  # every rank restores (or not) before any rank trains
         self.model.train()
 
         batches = self._batches(data_state)
@@ -348,14 +421,17 @@ class Trainer:
         windows = 0
         while step < cfg.train_steps:
             k = min(cfg.steps_per_loop, cfg.train_steps - step)
-            traced = bool(self.profile_dir) and windows == 1
+            traced = bool(self.profile_dir) and windows == 1 and self._rank0
             with (trace(self.profile_dir, cuda=self.device.type == "cuda") if traced
                   else contextlib.nullcontext()) as capture:
                 losses = []
                 for i in range(k):
                     batch, data_state = next(batches)
                     losses.append(self.train_step(batch, step + i))
-                self.step_losses.extend(torch.stack(losses).float().cpu().tolist())
+                stacked = torch.stack(losses).float()
+                if self.plan is not None:
+                    stacked = self.plan.global_value(stacked)  # the ranks' shares, summed
+                self.step_losses.extend(stacked.cpu().tolist())
             if traced:
                 logger.info("profile trace written to %s", capture.path)
                 self.profile_dir = None
@@ -375,6 +451,8 @@ class Trainer:
             due_secs = (cfg.save_checkpoints_steps is None
                         and cfg.save_checkpoints_secs is not None
                         and time.time() - last_save >= cfg.save_checkpoints_secs)
+            if self.plan is not None and cfg.save_checkpoints_steps is None:
+                due_secs = self.plan.agree(due_secs)
             if (due_steps or due_secs) and step < cfg.train_steps:
                 host_params = self._save(step, data_state)
                 last_save = time.time()
@@ -382,7 +460,8 @@ class Trainer:
                 logger.info("eval at step %d: %s", step, _fmt_metrics(last_metrics))
                 self.events.add_scalars({f"eval/{k}": v for k, v in last_metrics.items()},
                                         step)
-                self._log_histograms(host_params, step)
+                if self._rank0:
+                    self._log_histograms(host_params, step)
                 self._export(host_params, step, last_metrics)
 
         batches.close()  # a streaming dataset's prefetch thread stops here

@@ -4,8 +4,19 @@ The same flags and defaults as rectpu's parser (``common.py:20-222``), so a
 rectpu command line runs here unchanged, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
 port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
-queue instead of being ignored: sharding and EP (queue A12). The JAX
-compilation cache flag is accepted and has nothing to configure.
+queue instead of being ignored: tensor-parallel towers (``--tp-mlp``, queue
+A17). The JAX compilation cache flag is accepted and has nothing to
+configure.
+
+Sharding (``--num-data-shards``, ``--num-model-shards`` and the EP flags)
+runs one process per rank: launch the CLI under ``torchrun
+--nproc-per-node N`` with N = data x model shards (a world of another size
+raises). ``build_trainer`` starts the process group
+(``parallel/mesh.distributed_init``) and builds the ``ParallelPlan`` as
+rectpu's ``common.py:353-500`` does: the ``--packed-col-pad`` + flat guard,
+``--ep-row-placement freq`` (saved to ``<job-dir>/row_perm.npy`` by rank 0,
+with rectpu's restore guards), ``--ep-peer-capacity auto`` counted after the
+remap, and ``--fast-step`` over EP. Rank 0 clears and writes the job dir.
 ``--streaming-io`` reads both CSVs through ``io.loader.StreamingCsvDataset``
 and ``--exporter best`` exports only when ``--best-exporter-metric``
 improves (``serve.export.make_exporter``), as rectpu's
@@ -25,6 +36,7 @@ rectpu (``common.py:453-459, 530-532``).
 
 from __future__ import annotations
 
+import os
 import shutil
 from argparse import ArgumentParser
 from pathlib import Path
@@ -95,19 +107,27 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
                         help="out-of-core input pipeline: windows of CSV chunks parsed on "
                              "demand, shuffled by chunk and within a window")
     parser.add_argument("--num-data-shards", type=int, default=1,
-                        help="data-parallel mesh size (only 1 is ported)")
+                        help="data-parallel mesh size; with --num-model-shards, run "
+                             "under torchrun with data x model processes")
     parser.add_argument("--num-model-shards", type=int, default=1,
-                        help="embedding (EP) mesh size (only 1 is ported)")
+                        help="embedding (EP) mesh size: the table's rows are sharded "
+                             "over this many ranks")
     parser.add_argument("--tp-mlp", action="store_true",
                         help="tensor-parallel dense towers (not ported yet)")
     parser.add_argument("--ep-mode", default="2d", choices=["1d", "2d", "dedup"],
-                        help="EP exchange (used only with --num-model-shards > 1)")
+                        help="EP exchange (used only with --num-model-shards > 1): 1d "
+                             "masked gather + psum, 2d reduce_scatter, dedup unique-row "
+                             "all_to_all")
     parser.add_argument("--ep-peer-capacity", default=None,
-                        help="dedup EP exchange slots per peer (not ported yet)")
+                        help="dedup EP exchange slots per peer: an int, or 'auto' (from "
+                             "the training set's row frequencies); ids past it drop "
+                             "(default: the lossless min(N, V/m))")
     parser.add_argument("--ep-row-placement", default="none", choices=["none", "freq"],
-                        help="frequency-aware EP row placement (not ported yet)")
+                        help="'freq' relabels each field's rows so the hot rows spread "
+                             "over the table shards (saved to <job-dir>/row_perm.npy)")
     parser.add_argument("--ep-comm-compress", default=None, choices=["bf16", "int8"],
-                        help="EP wire format (not ported yet)")
+                        help="EP wire format: 'bf16' (any --ep-mode but 1d) or per-row "
+                             "'int8' (--ep-mode dedup; cotangents ride bf16)")
     parser.add_argument("--warm-start-from", default=None,
                         help="initialize params from a previous run's export dir, job "
                              "dir, or ckpt-N directory (either package's)")
@@ -213,12 +233,8 @@ def _not_ported(flag: str, queue: str):
 
 def check_supported(args, model) -> None:
     """Raise for every flag whose behaviour the port does not carry yet."""
-    if args.num_data_shards > 1 or args.num_model_shards > 1 or args.tp_mlp:
-        _not_ported("sharding (--num-data-shards/--num-model-shards/--tp-mlp)", "A12")
-    if (args.ep_peer_capacity is not None or args.ep_row_placement != "none"
-            or args.ep_comm_compress is not None):
-        _not_ported("EP options (--ep-peer-capacity/--ep-row-placement/--ep-comm-compress)",
-                    "A12")
+    if args.tp_mlp:
+        _not_ported("tensor-parallel towers (--tp-mlp)", "A17")
 
 
 def resolve_optimizer(args, model, optimizer):
@@ -242,15 +258,14 @@ def resolve_optimizer(args, model, optimizer):
     return optimizer
 
 
-def resolve_fast_step(args, model, optimizer):
+def resolve_fast_step(args, model, optimizer, plan=None):
     """The (init, step) pair for --fast-step, or None (rectpu's
     ``_resolve_fast_step``, ``trainers/common.py:264-338``).
 
     'auto' turns the sparse step on past the dense-sweep crossover (850M
     table elements per shard) when the run is compatible, and otherwise logs
-    and keeps the dense step; 'on' raises on an incompatibility instead. EP
-    sharding is not ported (``check_supported`` raises first), so rectpu's
-    EP-only check has no counterpart here."""
+    and keeps the dense step; 'on' raises on an incompatibility instead.
+    Under a ``plan`` the step runs sharded (``train/fast_step.py``)."""
     mode = getattr(args, "fast_step", "off") or "off"
     if mode == "off":
         return None
@@ -288,6 +303,10 @@ def resolve_fast_step(args, model, optimizer):
     if getattr(args, "table_dtype", "float32") != "float32" or \
             getattr(args, "table_store", "float32") != "float32":
         return fail("needs fp32 tables (no bf16 master/store)")
+    if plan is not None and getattr(model, "use_linear", False) \
+            and not getattr(model, "packed", False):
+        return fail("sharding with a linear tower needs the single fused table leaf; "
+                    "add --packed-linear")
     from rectpu_torch.train.fast_step import make_sparse_step
 
     fns = make_sparse_step(
@@ -296,9 +315,91 @@ def resolve_fast_step(args, model, optimizer):
         loss_reduction=getattr(args, "loss_reduction", "mean"),
         scatter_backend=getattr(args, "sparse_scatter", "auto"),
         slot_dtype=slot_dtype,
+        plan=plan,
     )
-    logger.info("fast step on: sparse lazy-Adam table updates")
+    logger.info("fast step on: sparse lazy-Adam table updates%s",
+                " over the EP exchange" if (plan is not None and plan.ep) else "")
     return fns
+
+
+def _has_checkpoint(job_dir) -> bool:
+    from rectpu_torch.train.checkpoint import Checkpointer
+
+    return Checkpointer(job_dir).latest_step() is not None
+
+
+def _write_atomic_npy(path: Path, arr) -> None:
+    tmp = path.parent / f".{path.stem}.{os.getpid()}.tmp.npy"
+    np.save(tmp, arr)
+    os.replace(tmp, path)
+
+
+def _row_placement(args, model, train_ds, eval_ds, perm_path: Path, rank0: bool):
+    """(row_perm or None, post-relabel row counts or None): rectpu's
+    ``--ep-row-placement freq`` and stored-placement branches
+    (``common.py:402-459``). Every rank derives the same map from the same
+    CSV; rank 0 writes it."""
+    from rectpu_torch.parallel.placement import count_row_frequencies, frequency_permutation
+
+    if getattr(args, "ep_row_placement", "none") == "freq":
+        if args.num_model_shards <= 1:
+            raise ValueError("--ep-row-placement freq requires --num-model-shards > 1")
+        if perm_path.exists():
+            # restored run: the relabeling must match the checkpointed table
+            row_perm, post = np.load(perm_path), None
+        else:
+            if args.restore and _has_checkpoint(args.job_dir):
+                raise ValueError(
+                    "--ep-row-placement freq with --restore, but the job dir has a "
+                    "checkpoint and no row_perm.npy: the checkpoint was trained without "
+                    "placement. Drop the flag or start fresh.")
+            if not hasattr(train_ds, "cat_ids"):
+                raise ValueError(
+                    "--ep-row-placement freq needs a resident dataset (incompatible with "
+                    "--streaming-io: counting requires a full pass; precompute "
+                    "row_perm.npy offline instead)")
+            fs = model.cfg.feature_set
+            counts = count_row_frequencies(train_ds.cat_ids, model.cfg.padded_buckets)
+            row_perm = frequency_permutation(
+                counts, (tuple(int(o) for o in fs.offsets), tuple(fs.field_sizes)),
+                args.num_model_shards, model.cfg.padded_buckets)
+            if rank0:
+                _write_atomic_npy(perm_path, row_perm)
+            post = np.zeros_like(counts)
+            post[row_perm[: counts.shape[0]]] = counts
+    elif perm_path.exists():
+        # the checkpoint or export in this job dir was trained with placement;
+        # ignoring the stored map would index the permuted table with raw ids
+        logger.info("applying stored row placement from %s", perm_path)
+        row_perm, post = np.load(perm_path), None
+    else:
+        return None, None
+    train_ds.apply_row_permutation(row_perm)
+    eval_ds.apply_row_permutation(row_perm)
+    return row_perm, post
+
+
+def _peer_capacity(args, model, train_ds, post_perm_counts):
+    """--ep-peer-capacity as an int or None; 'auto' sizes it from the row
+    frequencies after any remap (rectpu's ``common.py:461-480``)."""
+    cap = getattr(args, "ep_peer_capacity", None)
+    if cap != "auto":
+        return None if cap is None else int(cap)
+    from rectpu_torch.parallel.placement import count_row_frequencies, suggest_peer_capacity
+
+    counts = post_perm_counts
+    if counts is None:
+        if not hasattr(train_ds, "cat_ids"):
+            raise ValueError("--ep-peer-capacity auto needs a resident dataset")
+        counts = count_row_frequencies(train_ds.cat_ids, model.cfg.padded_buckets)
+    n_inst = args.num_data_shards * args.num_model_shards
+    # one lookup_fn serves the train and the eval steps: size for the larger slice
+    eval_bs = args.eval_batch_size or max(args.batch_size, 512)
+    lookups = (max(args.batch_size, eval_bs) // max(n_inst, 1)) * model.cfg.num_fields
+    cap = suggest_peer_capacity(counts, args.num_model_shards, model.cfg.padded_buckets,
+                                lookups)
+    logger.info("ep_peer_capacity auto -> %d", cap)
+    return cap
 
 
 def build_trainer(args, model, optimizer=None):
@@ -308,10 +409,24 @@ def build_trainer(args, model, optimizer=None):
     from rectpu_torch.serve.export import make_exporter
     from rectpu_torch.train.loop import TrainConfig, Trainer
 
+    import torch.distributed as dist
+
     check_supported(args, model)
+    if (getattr(args, "packed_col_pad", 0) and args.num_model_shards > 1
+            and getattr(args, "flat_layout", False)):
+        raise ValueError(
+            "--packed-col-pad + --flat-layout is not supported with --num-model-shards > 1: "
+            "the flat EP exchange variants infer K from the table width. Drop one of the "
+            "two.")
     optimizer = resolve_optimizer(args, model, optimizer)
-    fast_step = resolve_fast_step(args, model, optimizer)
     device = resolve_device(args.device)
+    sharded = args.num_data_shards * args.num_model_shards > 1
+    owns_group = False
+    if sharded or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        from rectpu_torch.parallel.mesh import distributed_init
+
+        owns_group = not dist.is_initialized() and distributed_init(device.type)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     fs = model.cfg.feature_set
     if args.autotune:
         from rectpu_torch.ops.autotune import autotune
@@ -320,21 +435,29 @@ def build_trainer(args, model, optimizer=None):
                  embedding_size=model.cfg.embedding_size, vocab_rows=model.cfg.padded_buckets,
                  field_info=(tuple(int(o) for o in fs.offsets), tuple(fs.field_sizes)),
                  device=device)
-    if not args.restore:
+    if not args.restore and rank0:
         shutil.rmtree(args.job_dir, ignore_errors=True)
     Path(args.job_dir).mkdir(parents=True, exist_ok=True)
+    if dist.is_initialized():
+        dist.barrier()  # the job dir is cleared before any rank reads it
     dataset = StreamingCsvDataset if args.streaming_io else CsvDataset
     train_ds = dataset(args.train_csv, fs)
     eval_ds = dataset(args.test_csv, fs)
-    row_perm = None
     perm_path = Path(args.job_dir) / "row_perm.npy"
-    if perm_path.exists():
-        # the checkpoint or export in this job dir was trained with placement;
-        # ignoring the stored map would index the permuted table with raw ids
-        logger.info("applying stored row placement from %s", perm_path)
-        row_perm = np.load(perm_path)
-        train_ds.apply_row_permutation(row_perm)
-        eval_ds.apply_row_permutation(row_perm)
+    row_perm, post_perm_counts = _row_placement(args, model, train_ds, eval_ds, perm_path,
+                                                rank0)
+    plan = None
+    if sharded or dist.is_initialized():  # a world unlike the mesh raises in make_mesh
+        from rectpu_torch.parallel.plan import ParallelPlan
+
+        plan = ParallelPlan.create(
+            args.num_data_shards, args.num_model_shards, device=device.type,
+            table_rows=model.cfg.padded_buckets, ep_mode=args.ep_mode,
+            ep_comm_compress=args.ep_comm_compress,
+            ep_peer_capacity=_peer_capacity(args, model, train_ds, post_perm_counts),
+            tp_mlp=args.tp_mlp, scatter_impl=getattr(args, "scatter_impl", "xla"))
+        plan.barrier()  # rank 0's row_perm.npy is on disk
+    fast_step = resolve_fast_step(args, model, optimizer, plan)
     config = TrainConfig(
         batch_size=args.batch_size,
         train_steps=args.train_steps,
@@ -351,7 +474,8 @@ def build_trainer(args, model, optimizer=None):
     exporter = make_exporter(model, args.job_dir, row_perm=row_perm, mode=args.exporter,
                              compare_metric=args.best_exporter_metric)
     trainer = Trainer(model, optimizer, train_ds, eval_ds, args.job_dir, config,
-                      exporter=exporter, device=device, fast_step=fast_step)
+                      exporter=exporter, device=device, fast_step=fast_step, plan=plan)
+    trainer.owns_process_group = owns_group
     trainer.profile_dir = args.profile_dir
     trainer.warm_start_from = args.warm_start_from
     trainer.warm_start_vars = args.warm_start_vars
@@ -366,6 +490,12 @@ def run(args, model, optimizer=None):
         # build bf16 accumulators
         raise ValueError("--table-dtype bfloat16 requires the Adam optimizer")
     trainer = build_trainer(args, model, optimizer)
-    metrics = trainer.train_and_evaluate(restore=args.restore)
+    try:
+        metrics = trainer.train_and_evaluate(restore=args.restore)
+    finally:
+        if trainer.owns_process_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     logger.info("done: %s", metrics)
     return metrics, trainer

@@ -31,9 +31,11 @@ def counter_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
     return h ^ (h >> 13)
 
 
-def flat_index(shape, device) -> torch.Tensor:
-    """``iota(uint32, n).reshape(shape)`` as int64 (mod 2**32)."""
+def flat_index(shape, device, start: int = 0) -> torch.Tensor:
+    """``iota(uint32, n).reshape(shape)`` as int64 (mod 2**32), counted from
+    ``start`` (the elements of a slice of a larger array)."""
     n = 1
     for d in shape:
         n *= int(d)
-    return (torch.arange(n, dtype=torch.int64, device=device) & MASK32).reshape(tuple(shape))
+    idx = torch.arange(n, dtype=torch.int64, device=device) + int(start)
+    return (idx & MASK32).reshape(tuple(shape))

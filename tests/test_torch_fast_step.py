@@ -288,8 +288,8 @@ def test_resolve_fast_step_modes():
 
 
 def test_make_sparse_step_checks_match_rectpu():
-    """Every check rectpu's make_sparse_step raises, with its words; EP is
-    not ported yet and names its queue."""
+    """Every check rectpu's make_sparse_step raises, with its words, the EP
+    ones included."""
     class NoHook:
         name, cfg = "no_hook", TowerConfig(feature_set=ml_100k_feature_set())
 
@@ -297,6 +297,9 @@ def test_make_sparse_step_checks_match_rectpu():
     fused_off = DeepFMModel(TowerConfig(fuse_linear_lookup=False, **cfg))
     packed = DeepFMModel(TowerConfig(packed_linear=True, **cfg))
     tight = DeepFMModel(TowerConfig(packed_linear=True, table_padding=1, **cfg))
+    unpacked = DeepFMModel(TowerConfig(**cfg))
+    padded_flat = DeepFMModel(TowerConfig(packed_linear=True, packed_col_pad=8,
+                                          flat_layout=True, **cfg))
 
     class EP:
         ep = True
@@ -310,7 +313,9 @@ def test_make_sparse_step_checks_match_rectpu():
             (packed, {"slot_dtype": "bfloat16"}, ValueError, "slot_dtype must be"),
             (packed, {"slot_dtype": "bfloat16_sr", "plan": EP()}, ValueError,
              "bf16 slots are not wired"),
-            (packed, {"plan": EP()}, NotImplementedError, "queue A12")):
+            (unpacked, {"plan": EP()}, ValueError, "linear tower needs packed_linear=True"),
+            (padded_flat, {"plan": EP()}, ValueError,
+             "packed_col_pad \\+ flat_layout is not supported under EP")):
         with pytest.raises(exc, match=match):
             make_sparse_step(model, **kw)
     init, _ = make_sparse_step(packed, scatter_backend="xla")

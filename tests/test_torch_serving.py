@@ -163,8 +163,8 @@ def test_port_imports_neither_jax_nor_rectpu():
     xDeepFM slice's, the sparse fast step's and the autotuner's, timing's
     and profiling's, the Linear, DNN and Wide&Deep families', their trainer
     CLIs', the ml-100k ETL's, int8 serving's, batch prediction's and the
-    native host library's among them), and
-    chip_smoke.py, import without pulling in jax, any module of rectpu, or
+    native host library's, and the sharding modules of ``parallel/``
+    among them), and chip_smoke.py, import without pulling in jax, any module of rectpu, or
     pandas (the machine with the card has none)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -185,7 +185,11 @@ def test_port_imports_neither_jax_nor_rectpu():
         "        'rectpu_torch.trainers.deep', 'rectpu_torch.trainers.linear_deep',\n"
         "        'rectpu_torch.data.ml_100k', 'rectpu_torch.serve.quant',\n"
         "        'rectpu_torch.serve.batch_predict', 'rectpu_torch.io.native',\n"
-        "        'rectpu_torch.io.native.build', 'rectpu_torch.io.native.csv_bridge'}\n"
+        "        'rectpu_torch.io.native.build', 'rectpu_torch.io.native.csv_bridge',\n"
+        "        'rectpu_torch.parallel', 'rectpu_torch.parallel.mesh',\n"
+        "        'rectpu_torch.parallel.collectives', 'rectpu_torch.parallel.plan',\n"
+        "        'rectpu_torch.parallel.embedding_ep', 'rectpu_torch.parallel.placement',\n"
+        "        'rectpu_torch.parallel.sparse_ep'}\n"
         "assert need <= set(mods) and len(mods) > 30, mods\n"
         "for name in mods: importlib.import_module(name)\n"
         "import chip_smoke\n"

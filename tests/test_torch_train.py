@@ -201,7 +201,7 @@ def test_trainer_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypa
 
 
 @pytest.mark.parametrize("flags,queue", [
-    (["--num-data-shards", "2"], "A12"), (["--ep-comm-compress", "bf16"], "A12"),
+    (["--tp-mlp"], "A17"), (["--tp-mlp", "--num-model-shards", "2"], "A17"),
 ])
 def test_unported_flags_raise(flags, queue, tmp_path):
     args = deep_fm_cli.build_parser().parse_args(
