@@ -204,7 +204,17 @@ failed check raises, and the script exits nonzero without the final line:
        CLI's defaults with hash dropout, batch 64, 200 steps: rectpu's
        multi-process configuration) against the CLI at 1 rank with the same
        row placement (rectpu's _assert_matches tolerances on the eval
-       metrics and the parameter digest); its export is served.
+       metrics and the parameter digest); its export is served;
+   (e) the tensor-parallel towers (--tp-mlp: each tower's kernels column-
+       and row-sharded over 'model', rectpu's _tp_spec): the flagship step as
+       in (b) on mesh 1x2 under 1d and 2d and on mesh 2x2 under 2d, and the
+       DLRM zoo step with 13 numeric columns (its top MLP and its bottom MLP
+       tensor-parallel; the interaction kernel launched) on mesh 1x2 under
+       2d, each held to (b)'s exact-mode bounds against its single-process
+       step, its sharded eval against one process's, and rank 0's checkpoint
+       read back with every parameter and optimizer-state leaf in its global
+       shape; then the DeepFM CLI of (d) with --tp-mlp at 2 torchrun ranks
+       against the same 1-rank run, its export served.
 7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (for the
@@ -264,6 +274,7 @@ from rectpu_torch.features.schema import (
     FeatureSet,
     HashFeature,
     IdentityFeature,
+    NumericFeature,
     VocabFeature,
     ml_100k_feature_set,
 )
@@ -2754,6 +2765,12 @@ SHARD_STEPS = 5
 FLAGSHIP_RUNS_1X2 = (("2d", None), ("2d", "bf16"), ("dedup", None), ("dedup", "int8"),
                      ("dedup", "int8-control"), ("1d", None))
 FLAGSHIP_RUNS_2X2 = (("2d", None),)
+# phase 8e, the tensor-parallel towers (--tp-mlp): the flagship at 1x2 under
+# 1d and 2d and at 2x2 under 2d, the DLRM zoo step (its top and bottom MLPs)
+# at 1x2 under 2d, each held to the exact modes' bounds below
+TP_RUNS_1X2 = (("1d", None), ("2d", None))
+TP_RUNS_2X2 = (("2d", None),)
+TP_RUNS_DLRM = (("2d", None),)
 # sharded vs single-process step on the card, exact wire formats. Not the
 # fp32 bound of another order of sums alone: the towers are bf16, so each
 # rank's weight gradient over its batch slice is a bf16 GEMM rounded once
@@ -2930,14 +2947,59 @@ def _flat_tree(model, plan=None) -> dict:
 
 def _shard_counters() -> tuple:
     return (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches, scatter_ops.launches,
-            scatter_ops.segment_launches, adam_ops.launches, dma_ops.launches)
+            scatter_ops.segment_launches, adam_ops.launches, dma_ops.launches,
+            int_ops.launches)
 
 
-def _flagship_data(seed: int, rows: int):
-    """A resident dataset of ``rows`` random flagship examples (20 % positives)."""
+def _flagship_data(seed: int, rows: int, numeric: int = 0):
+    """A resident dataset of ``rows`` random flagship examples (20 % positives;
+    ``numeric`` standard-normal numeric columns)."""
     rng = np.random.default_rng(seed)
-    return CsvDataset.from_arrays(random_ids(bench_feature_set(), rows, rng),
-                                  (rng.random(rows) < 0.2).astype(np.float32))
+    ids = random_ids(bench_feature_set(), rows, rng)
+    labels = (rng.random(rows) < 0.2).astype(np.float32)
+    num = rng.standard_normal((rows, numeric)).astype(np.float32) if numeric else None
+    return CsvDataset.from_arrays(ids, labels, num)
+
+
+# DLRM under --tp-mlp: the zoo configuration with Criteo's 13 numeric columns,
+# so that its bottom MLP ([13, 64], [64, 64]) runs tensor-parallel beside the
+# top MLP
+DLRM_NUMERIC = 13
+
+
+def dlrm_tp_model(dropout: float, device, gen=None, params=None) -> DLRMModel:
+    """The zoo DLRM (``zoo_model``) with DLRM_NUMERIC numeric columns and the
+    hash dropout masks, from ``params`` or a fresh seeded init."""
+    base = bench_feature_set()
+    fs = FeatureSet(categorical=base.categorical,
+                    numeric=tuple(NumericFeature(f"dense_{i}") for i in range(DLRM_NUMERIC)))
+    cfg = TowerConfig(feature_set=fs, embedding_size=K, hidden_units=(256, 128),
+                      dropout=dropout, compute_dtype="bfloat16", table_grad_dtype="bfloat16",
+                      flat_layout=True, scatter_impl="mxu", table_padding=2048,
+                      dropout_impl="hash")
+    model = DLRMModel(cfg)
+    return load_params(model, model.init(gen) if params is None else params, device)
+
+
+def dlrm_tp_trainer(model, work: Path, plan=None, train_ds=None, eval_ds=None) -> Trainer:
+    """The flagship's optimizer on DLRM's table (``emb`` on the fused kernel)."""
+    opt = adam(learning_rate=1e-3, slot_dtype={"m": torch.bfloat16, "v": BF16_SR},
+               fused_leaves=("emb",))
+    trainer = Trainer(model, opt, train_ds, eval_ds, work / "dlrm_tp",
+                      TrainConfig(batch_size=FLAGSHIP_BATCH, seed=0),
+                      device=next(model.parameters()).device, plan=plan)
+    trainer.opt_state = opt.init(flat_params(model))
+    return trainer
+
+
+# family: (model, trainer, numeric columns, the kernels its sharded step must launch)
+SHARDED_FAMILIES = {
+    "deep_fm": (flagship_model, flagship_trainer, 0,
+                ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows", "segment_sum",
+                 "fused_adam")),
+    "dlrm": (dlrm_tp_model, dlrm_tp_trainer, DLRM_NUMERIC,
+             ("embedding_lookup", "interaction", "scatter_rows", "segment_sum", "fused_adam")),
+}
 
 
 def _coarse_int8_rows(x: torch.Tensor):
@@ -2948,28 +3010,33 @@ def _coarse_int8_rows(x: torch.Tensor):
     return torch.round(xf / scale).to(torch.int8), scale
 
 
-def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str) -> dict:
+def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str,
+                     tp_mlp: bool = False, family: str = "deep_fm") -> dict:
     """The flagship step (bench.py's config, hash dropout 0.1) SHARD_STEPS
     times single-process, then under each (ep_mode, wire format) of ``runs``
     from the same params, each through the Trainer's own batches (a resident
     train set, each rank's block of every global batch, checked against the
     single run's), then the sharded eval against a single-process eval of
     the same params, and the sharded save (the table shards gathered, rank 0
-    writes) read back: per-step losses, each leaf's update in the checkpoint
-    against the single-process update, median step ms, kernel launches.
-    The wire format "int8-control" is the int8 run with a 4-bit grid planted
-    on the wire, which the int8 check must refuse."""
+    writes) read back, every leaf in its global shape: per-step losses, each
+    leaf's update in the checkpoint against the single-process update,
+    median step ms, kernel launches. The wire format "int8-control" is the
+    int8 run with a 4-bit grid planted on the wire, which the int8 check
+    must refuse. ``tp_mlp``: the plan's tensor-parallel towers (phase 8e);
+    ``family`` "dlrm": the zoo DLRM with numeric columns (``dlrm_tp_model``)
+    in place of the flagship DeepFM."""
     from rectpu_torch.parallel import embedding_ep
     from rectpu_torch.train.checkpoint import Checkpointer
 
+    make_model, make_trainer, numeric, must_launch = SHARDED_FAMILIES[family]
     dev = torch.device("cuda", 0)
     work = Path(work)
-    base = flagship_model(0.1, "cpu", gen=torch.Generator().manual_seed(seed))
+    base = make_model(0.1, "cpu", gen=torch.Generator().manual_seed(seed))
     p0 = params_tree(base)
-    train_ds = _flagship_data(seed + 1, SHARD_STEPS * FLAGSHIP_BATCH)
-    eval_ds = _flagship_data(seed + 2, SHARD_EVAL_ROWS)
-    single = flagship_model(0.1, dev, params=p0)
-    trainer = flagship_trainer(single, work, train_ds=train_ds)
+    train_ds = _flagship_data(seed + 1, SHARD_STEPS * FLAGSHIP_BATCH, numeric)
+    eval_ds = _flagship_data(seed + 2, SHARD_EVAL_ROWS, numeric)
+    single = make_model(0.1, dev, params=p0)
+    trainer = make_trainer(single, work, train_ds=train_ds)
     batches = trainer._batches(None)
     ref_losses, ref_ids = [], []
     for i in range(SHARD_STEPS):
@@ -2986,11 +3053,12 @@ def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str) 
         plan = ParallelPlan.create(num_data, num_model, device="cuda",
                                    table_rows=base.cfg.padded_buckets, ep_mode=mode,
                                    ep_comm_compress="int8" if control else cc,
-                                   scatter_impl="mxu")
-        name = f"{num_data}x{num_model} {mode}" + (f" {cc}" if cc else "")
+                                   scatter_impl="mxu", tp_mlp=tp_mlp)
+        name = (f"{num_data}x{num_model} {mode}" + (f" {cc}" if cc else "")
+                + (" tp" if tp_mlp else "") + ("" if family == "deep_fm" else f" {family}"))
         job = work / f"flagship_{name.replace(' ', '_')}"
-        model = flagship_model(0.1, dev, params=plan.shard_params(p0))
-        trainer = flagship_trainer(model, job, plan, train_ds=train_ds, eval_ds=eval_ds)
+        model = make_model(0.1, dev, params=plan.shard_params(p0))
+        trainer = make_trainer(model, job, plan, train_ds=train_ds, eval_ds=eval_ds)
         n, pos = plan.batch_shards, plan.batch_index
         rows = FLAGSHIP_BATCH // n
         batches = trainer._batches(None)
@@ -3030,12 +3098,21 @@ def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str) 
             evaluated = trainer.evaluate()  # the metric sums are collectives
             if plan.mesh.rank == 0:
                 trainer.ckpt.wait()
-                read = flatten_tree(Checkpointer(trainer.job_dir).restore()[0]["params"])
+                restored = Checkpointer(trainer.job_dir).restore()[0]
+                read = flatten_tree(restored["params"])
                 check(sorted(read) == sorted(got)
                       and all(same_bits(read[k], got[k].cpu()) for k in got),
                       f"sharded flagship {name}: the checkpoint is not the gathered params")
-                alone = flagship_model(0.1, dev, params=_host_copy(saved_tree))
-                res["eval"], res["eval_single"] = evaluated, flagship_trainer(
+                shapes = {k: tuple(v.shape) for k, v in flat0.items()}
+                state = flatten_tree(restored["opt_state"])
+                wrong = [k for k in read if tuple(read[k].shape) != shapes[k]] + [
+                    k for k in state for p in shapes
+                    if k.endswith("/" + p) and tuple(state[k].shape) != shapes[p]]
+                check(not wrong, f"sharded flagship {name}: checkpoint leaves {wrong} are not "
+                                 "in the global shapes")
+                res["checkpoint_global_shapes"] = True
+                alone = make_model(0.1, dev, params=_host_copy(saved_tree))
+                res["eval"], res["eval_single"] = evaluated, make_trainer(
                     alone, job / "alone", eval_ds=eval_ds).evaluate()
                 del alone
         rel = _update_rel_l2(got, ref, flat0)
@@ -3062,8 +3139,7 @@ def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str) 
                     check(abs(ev[key] - ev1[key]) <= eval_bound * abs(ev1[key]),
                           f"sharded flagship {name}: eval {key} {ev[key]} vs one process "
                           f"{ev1[key]}")
-        for kname in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows",
-                      "segment_sum", "fused_adam"):
+        for kname in must_launch:
             check(launches[kname] > 0, f"sharded flagship {name}: {kname} was not launched")
         out[name] = res
         del model, trainer
@@ -3194,32 +3270,9 @@ def _digest(job: Path) -> float:
     return float(sum(v.double().abs().sum() for k, v in flat.items() if k.startswith("params/")))
 
 
-def sharded_cli(work: Path, seed: int) -> dict:
-    """The DeepFM CLI under torchrun at 2 ranks (dedup, freq placement, auto
-    capacity) against the same CLI at 1 rank with the same placement, then
-    its export served for a few requests."""
-    data_dir = work / "data"
-    if not (data_dir / "train.csv").exists():
-        write_synthetic_dataset(data_dir, train_rows=100_000, test_rows=10_000, seed=seed)
-    multi_job, single_job = work / "shard_cli_2", work / "shard_cli_1"
-    multi, multi_s, log = _run_cli(2, _cli_argv(data_dir, multi_job) + [
-        "--num-model-shards", "2", "--ep-mode", "dedup", "--ep-row-placement", "freq",
-        "--ep-peer-capacity", "auto"])
-    cap = re.findall(r"ep_peer_capacity auto -> (\d+)", log)
-    single_job.mkdir()
-    shutil.copy(multi_job / "row_perm.npy", single_job / "row_perm.npy")
-    single, single_s, _ = _run_cli(1, _cli_argv(data_dir, single_job) + ["--restore"])
-    for key in ("auc", "average_loss", "accuracy"):
-        check(bool(np.isclose(single[key], multi[key], rtol=CLI_METRIC_RTOL,
-                              atol=CLI_METRIC_ATOL)),
-              f"sharded CLI: {key} {multi[key]} vs one rank {single[key]}")
-    check(multi["count"] == single["count"], f"sharded CLI: eval count {multi['count']}")
-    d_multi, d_single = _digest(multi_job), _digest(single_job)
-    check(bool(np.isclose(d_multi, d_single, rtol=CLI_DIGEST_RTOL)),
-          f"sharded CLI: param digest {d_multi} vs one rank {d_single}")
-    export_dir = latest_export(multi_job)
-    check(export_dir is not None and (export_dir / "row_perm.npy").exists(),
-          "sharded CLI: no export with its row placement")
+def _serve_export(export_dir: Path, seed: int, label: str) -> int:
+    """Serve an export on the card for a few /predict requests, checked
+    against a CPU model of it; the number of predictions."""
     httpd, served = make_server(export_dir=str(export_dir), port=0, device="cuda",
                                 batch_window_ms=1.0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -3235,40 +3288,87 @@ def sharded_cli(work: Path, seed: int) -> dict:
         httpd.server_close()
         served.close()
         thread.join(timeout=30)
-    check(not thread.is_alive(), "sharded CLI export server thread did not stop")
+    check(not thread.is_alive(), f"{label} export server thread did not stop")
     ref = load_model(export_dir, device="cpu")
-    check_predictions(preds, instances, ref, "sharded CLI export", FP32_LOGIT_ATOL, 1e-4)
+    check_predictions(preds, instances, ref, f"{label} export", FP32_LOGIT_ATOL, 1e-4)
     check(abs(one[0]["logits"] - preds[0]["logits"]) <= FP32_LOGIT_ATOL,
-          "sharded CLI export: one instance alone vs in a batch")
-    return {"metrics_2": multi, "metrics_1": single, "digest_2": d_multi, "digest_1": d_single,
-            "seconds_2": multi_s, "seconds_1": single_s, "peer_capacity": cap,
-            "served": len(preds) + len(one)}
+          f"{label} export: one instance alone vs in a batch")
+    return len(preds) + len(one)
+
+
+def sharded_cli(work: Path, seed: int) -> dict:
+    """The DeepFM CLI under torchrun at 2 ranks (dedup, freq placement, auto
+    capacity), and the same with --tp-mlp (phase 8e), against the same CLI
+    at 1 rank with the same placement, then each 2-rank export served for a
+    few requests."""
+    data_dir = work / "data"
+    if not (data_dir / "train.csv").exists():
+        write_synthetic_dataset(data_dir, train_rows=100_000, test_rows=10_000, seed=seed)
+    multi_job, single_job, tp_job = work / "shard_cli_2", work / "shard_cli_1", work / "tp_cli_2"
+    ep_flags = ["--num-model-shards", "2", "--ep-mode", "dedup", "--ep-row-placement", "freq",
+                "--ep-peer-capacity", "auto"]
+    multi, multi_s, log = _run_cli(2, _cli_argv(data_dir, multi_job) + ep_flags)
+    cap = re.findall(r"ep_peer_capacity auto -> (\d+)", log)
+    tp, tp_s, _ = _run_cli(2, _cli_argv(data_dir, tp_job) + ep_flags + ["--tp-mlp"])
+    check(bool(np.array_equal(np.load(tp_job / "row_perm.npy"),
+                              np.load(multi_job / "row_perm.npy"))),
+          "sharded CLI: the --tp-mlp run placed its rows elsewhere")
+    single_job.mkdir()
+    shutil.copy(multi_job / "row_perm.npy", single_job / "row_perm.npy")
+    single, single_s, _ = _run_cli(1, _cli_argv(data_dir, single_job) + ["--restore"])
+    d_single = _digest(single_job)
+    out = {"metrics_1": single, "digest_1": d_single, "seconds_1": single_s,
+           "peer_capacity": cap}
+    for tag, metrics, seconds, job in (("2", multi, multi_s, multi_job),
+                                       ("tp_2", tp, tp_s, tp_job)):
+        label = "sharded CLI" + (" --tp-mlp" if tag == "tp_2" else "")
+        for key in ("auc", "average_loss", "accuracy"):
+            check(bool(np.isclose(single[key], metrics[key], rtol=CLI_METRIC_RTOL,
+                                  atol=CLI_METRIC_ATOL)),
+                  f"{label}: {key} {metrics[key]} vs one rank {single[key]}")
+        check(metrics["count"] == single["count"], f"{label}: eval count {metrics['count']}")
+        digest = _digest(job)
+        check(bool(np.isclose(digest, d_single, rtol=CLI_DIGEST_RTOL)),
+              f"{label}: param digest {digest} vs one rank {d_single}")
+        export_dir = latest_export(job)
+        check(export_dir is not None and (export_dir / "row_perm.npy").exists(),
+              f"{label}: no export with its row placement")
+        out.update({f"metrics_{tag}": metrics, f"digest_{tag}": digest,
+                    f"seconds_{tag}": seconds,
+                    f"served_{tag}": _serve_export(export_dir, seed, label)})
+    return out
 
 
 def sharded_phases(work: Path, seed: int) -> dict:
-    """Phases 8a-8d (see the module docstring)."""
+    """Phases 8a-8e (see the module docstring)."""
     # the ranks allocate on this process's card: give back what earlier phases cached
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
     res["nccl"] = run_ranks(1, work, [("nccl_world1", {})], backend="nccl")[0][0]
+    common = {"seed": seed, "work": str(work)}
     flag_jobs = [("sharded_collectives", {}),
                  ("sharded_flagship", {"num_data": 1, "num_model": 2,
-                                       "runs": FLAGSHIP_RUNS_1X2, "seed": seed,
-                                       "work": str(work)})]
+                                       "runs": FLAGSHIP_RUNS_1X2, **common}),
+                 ("sharded_flagship", {"num_data": 1, "num_model": 2, "runs": TP_RUNS_1X2,
+                                       "tp_mlp": True, **common}),
+                 ("sharded_flagship", {"num_data": 1, "num_model": 2, "runs": TP_RUNS_DLRM,
+                                       "tp_mlp": True, "family": "dlrm", **common})]
     got = run_ranks(2, work, flag_jobs)
     res["collectives"] = got[0][0]
-    res["flagship"] = dict(got[0][1])
     got4 = run_ranks(4, work, [("sharded_flagship", {"num_data": 2, "num_model": 2,
-                                                     "runs": FLAGSHIP_RUNS_2X2, "seed": seed,
-                                                     "work": str(work)})])
-    res["flagship"].update(got4[0][0])
-    for name in res["flagship"]:
-        ranks = got if name.startswith("1x2") else got4
-        idx = 1 if name.startswith("1x2") else 0
-        res["flagship"][name]["launches"] = {
-            k: sum(r[idx][name]["launches"][k] for r in ranks)
-            for k in res["flagship"][name]["launches"]}
+                                                     "runs": FLAGSHIP_RUNS_2X2, **common}),
+                               ("sharded_flagship", {"num_data": 2, "num_model": 2,
+                                                     "runs": TP_RUNS_2X2, "tp_mlp": True,
+                                                     **common})])
+    res["flagship"] = {}
+    for ranks, first in ((got, 1), (got4, 0)):
+        for j in range(first, len(ranks[0])):
+            for name, r in ranks[0][j].items():
+                # the kernels every rank launched
+                r["launches"] = {k: sum(rank[j][name]["launches"][k] for rank in ranks)
+                                 for k in r["launches"]}
+                res["flagship"][name] = r
     fast = run_ranks(2, work, [("sharded_fast_step", {"num_data": 1, "num_model": 2,
                                                       "mode": "dedup", "seed": seed,
                                                       "work": str(work)})])
@@ -3631,13 +3731,20 @@ def main(argv=None) -> int:
             ev = (f"; eval {r['eval']} vs one process {r['eval_single']} (rtol "
                   f"{INT8_LOSS_RTOL if 'int8' in name else SHARD_EVAL_RTOL}), the checkpoint "
                   f"read back" if "eval" in r else "")
-            print(f"sharded (b) flagship step mesh {name} ({r['backend']}, every rank on "
-                  f"cuda:0, the Trainer's batches): median {r['step_ms']:.4f} ms a step beside "
-                  f"the single-process step's {flag['step_ms']:.4f} ms (phase 6); per-step "
+            tp = " tp" in name
+            beside = ("" if name.endswith("dlrm") else f" beside the single-process step's "
+                      f"{flag['step_ms']:.4f} ms (phase 6)")
+            print(f"sharded ({'e' if tp else 'b'}) "
+                  + ("tensor-parallel towers (--tp-mlp), " if tp else "")
+                  + f"{'DLRM zoo' if name.endswith('dlrm') else 'flagship'} step mesh {name} "
+                  f"({r['backend']}, every rank on cuda:0, the Trainer's batches): median "
+                  f"{r['step_ms']:.4f} ms a step{beside}; per-step "
                   f"loss max relative error {r['loss_rel_err']:.3g} (bound {loss_bound}); each "
                   f"leaf's {SHARD_STEPS}-step update vs the single process, relative L2 (bound "
                   f"{update_bound}) { {k: float(f'{v:.3g}') for k, v in r['update_rel_l2'].items()} }"
                   + (" -- a control: the check refused it" if control else ev)
+                  + ("; checkpoint leaves in the global shapes"
+                     if r.get("checkpoint_global_shapes") else "")
                   + f"; launches on all ranks {r['launches']} [{gpu}]")
         fs_ = sh["fast_step"]
         print(f"sharded (c) fast step mesh 1x2 {fs_['mode']} ({fs_['backend']}, every rank on "
@@ -3655,7 +3762,11 @@ def main(argv=None) -> int:
               f"({cli['seconds_1']:.1f} s): eval {cli['metrics_2']} vs {cli['metrics_1']}; "
               f"param digest {cli['digest_2']:.6f} vs {cli['digest_1']:.6f} (rtol "
               f"{CLI_METRIC_RTOL}, atol {CLI_METRIC_ATOL}; digest rtol {CLI_DIGEST_RTOL}); its "
-              f"export answered {cli['served']} predictions [{gpu}]")
+              f"export answered {cli['served_2']} predictions [{gpu}]")
+        print(f"sharded (e) DeepFM CLI under torchrun, 2 ranks, the same flags and --tp-mlp, "
+              f"{cli['seconds_tp_2']:.1f} s: eval {cli['metrics_tp_2']} vs one rank's; param "
+              f"digest {cli['digest_tp_2']:.6f} vs {cli['digest_1']:.6f} (the same bounds); "
+              f"its export answered {cli['served_tp_2']} predictions [{gpu}]")
         print(f"sharded: these times are 2 or 4 processes on one card over Gloo and say "
               f"nothing of NCCL across cards [{gpu}]")
     finally:
@@ -3718,12 +3829,12 @@ def main(argv=None) -> int:
     runs = [*main_path["family_clis"].values(), *main_path["zoo2_clis"].values()]
     for name in ("embedding_lookup", "scatter_rows", "scatter_rows_dma", "segment_sum"):
         launches[name] += sum(r["launches"].get(name, 0) for r in runs)
-    # the sharded phases' ranks (phase 8b and 8c; not 8b's planted-fault control)
+    # the sharded phases' ranks (phases 8b, 8c and 8e; not 8b's planted-fault control)
     sharded_runs = [*(r for name, r in main_path["sharded"]["flagship"].items()
                       if not name.endswith("control")),
                     main_path["sharded"]["fast_step"]]
     for name in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows", "segment_sum",
-                 "fused_adam", "scatter_rows_dma"):
+                 "fused_adam", "scatter_rows_dma", "interaction"):
         launches[name] += sum(r["launches"].get(name, 0) for r in sharded_runs)
     # the int8 gather: the int8 serving runs and the int8 batch prediction
     launches["embedding_lookup_int8"] = sum(

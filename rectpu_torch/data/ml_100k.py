@@ -26,7 +26,7 @@ calls do, so that both packages write the same bytes:
 
 ``local --synthetic`` writes the schema-identical synthetic data instead of
 downloading (``rectpu_torch.data.synthetic``, byte-identical to rectpu's).
-The ``gcp`` subcommand (BigQuery) is not ported yet (ROADMAP.md queue A16).
+The ``gcp`` subcommand runs the BigQuery pipeline (``data/bigquery.py``).
 
     python -m rectpu_torch.data.ml_100k local --synthetic [--dest data]
 """
@@ -306,8 +306,9 @@ def local_main(args) -> None:
 
 
 def gcp_main(args) -> None:
-    raise NotImplementedError("the gcp subcommand (BigQuery) is not ported to rectpu_torch "
-                              "yet (ROADMAP.md queue A16)")
+    from rectpu_torch.data.bigquery import run_gcp_pipeline
+
+    run_gcp_pipeline(args)
 
 
 def build_parser() -> ArgumentParser:
@@ -330,12 +331,18 @@ def build_parser() -> ArgumentParser:
                               help="synthetic train rows (default: %(default)s)")
     local_parser.set_defaults(main=local_main)
 
-    gcp_parser = subparsers.add_parser("gcp", help="BigQuery pipeline (not ported yet)")
+    gcp_parser = subparsers.add_parser("gcp", help="BigQuery pipeline")
     gcp_parser.add_argument("--url", default=DEFAULT_URL)
     gcp_parser.add_argument("--dest", default="data")
-    gcp_parser.add_argument("--dataset", default="ml_100k")
-    gcp_parser.add_argument("--gcs-bucket", default="recommender-tensorflow")
-    gcp_parser.add_argument("--credentials", default="credentials.json")
+    gcp_parser.add_argument("--dataset", default="ml_100k",
+                            help="BigQuery dataset that receives the raw + "
+                                 "enriched tables")
+    gcp_parser.add_argument("--gcs-bucket", default="recommender-tensorflow",
+                            help="GCS bucket the processed CSV extracts are "
+                                 "written to")
+    gcp_parser.add_argument("--credentials", default="credentials.json",
+                            help="service-account key file used to build the "
+                                 "BigQuery client")
     gcp_parser.add_argument("--log-path", default="main.log")
     gcp_parser.set_defaults(main=gcp_main)
     return parser

@@ -146,9 +146,30 @@ def _dot(x: torch.Tensor, kernel: torch.Tensor, out_dtype: torch.dtype) -> torch
     return torch.matmul(x.float(), kernel.float()).to(out_dtype)
 
 
+def _dropout(x: torch.Tensor, dropout: float, salt: int, dropout_impl: str, row_offset: int,
+             columns=None) -> torch.Tensor:
+    """x / (1 - rate) where the keep mask keeps, else 0, in x's dtype.
+    ``columns`` (first, width): x holds those columns of the global
+    activation; the mask of all of its columns is drawn and those kept, so a
+    column shard's mask is the global mask's columns."""
+    shape = tuple(x.shape)
+    if columns is not None:
+        shape = shape[:-1] + (columns[1],)
+    if dropout_impl == "hash":
+        keep = hash_dropout_mask(salt, shape, dropout, device=x.device, row_offset=row_offset)
+    else:
+        gen = torch.Generator(device=x.device).manual_seed(
+            (salt + 0x9E3779B9 * row_offset) & MASK32)
+        keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - dropout
+    if columns is not None:
+        keep = keep[..., columns[0]:columns[0] + x.shape[-1]]
+    scale = torch.full((), 1.0 - dropout, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
               dropout: float = 0.0, train: bool = False, seed32: int | None = None,
-              dropout_impl: str = "threefry", row_offset: int = 0) -> torch.Tensor:
+              dropout_impl: str = "threefry", row_offset: int = 0, tp=None) -> torch.Tensor:
     """Forward through the hidden layers (activation, then dropout in train
     mode), then the linear logit.
 
@@ -163,8 +184,12 @@ def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
     "threefry" through a ``torch.Generator`` seeded with the same salted
     value. ``row_offset`` is the first global batch row of ``x`` (a rank's
     slice under a ParallelPlan): the hash mask keys on global rows, and the
-    threefry stream is salted with it (0 leaves it as it is). Returns [B,
-    out] fp32."""
+    threefry stream is salted with it (0 leaves it as it is). ``tp`` (a
+    ``parallel.plan.TowerParallel``) runs the tower tensor-parallel
+    (``_apply_mlp_tp``). Returns [B, out] fp32."""
+    if tp is not None:
+        return _apply_mlp_tp(layers, x, activation, compute_dtype, dropout, train, seed32,
+                             dropout_impl, row_offset, tp)
     act = get_activation(activation)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -177,20 +202,87 @@ def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
             bias = bias.to(compute_dtype)
         x = act(_dot(x, kernel, x.dtype) + bias)
         if drop:
-            salt = _layer_seed(seed32, i)
-            if dropout_impl == "hash":
-                keep = hash_dropout_mask(salt, x.shape, dropout, device=x.device,
-                                         row_offset=row_offset)
-            else:
-                gen = torch.Generator(device=x.device).manual_seed(
-                    (salt + 0x9E3779B9 * row_offset) & MASK32)
-                keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
-            scale = torch.full((), 1.0 - dropout, dtype=x.dtype, device=x.device)
-            x = torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+            x = _dropout(x, dropout, _layer_seed(seed32, i), dropout_impl, row_offset)
     kernel, bias = layers[-1]
     if compute_dtype is not None:
         kernel = kernel.to(compute_dtype)
     return (_dot(x, kernel, torch.float32) + bias.float()).float()
+
+
+def _apply_mlp_tp(layers, x, activation, compute_dtype, dropout, train, seed32, dropout_impl,
+                  row_offset, tp) -> torch.Tensor:
+    """``apply_mlp`` with its kernels sharded over 'model' by rectpu's
+    ``_tp_spec`` (``tp.kernel_dims``), the collectives that GSPMD places in
+    rectpu placed here (Megatron's pairs):
+
+      - a column-parallel layer (kernel [in, out/M], bias [out/M]) takes the
+        input every model rank holds through ``pvary`` and gives this rank's
+        columns;
+      - a row-parallel layer (kernel [in/M, out], bias whole) takes this
+        rank's columns (``local_columns`` converts a value every rank holds),
+        sums its fp32 partial products over 'model' (``psum``), rounds once
+        to the layer's type and adds the bias after the sum, as ``_dot``
+        rounds the unsharded product;
+      - a replicated layer (a dim 'model' does not divide) runs as unsharded;
+      - a column-parallel last layer's output is all_gathered on its columns.
+
+    The tower runs on the rows of the rank's 'data' group. Under the 2d and
+    dedup exchanges the model ranks of a group hold different rows (rank r
+    at (r // M, r % M), so the group's rows are contiguous): the input is
+    all_gathered over 'model' first, the mask rows start at the group's
+    first row, and the rank keeps its own rows of the output through
+    ``own_rows``, whose transpose all_gathers the row cotangents, so each
+    weight gradient sees every row of the group. When the first layer is
+    column-parallel its input cotangents are the ranks' shares, and the
+    gather's transpose (``psum_scatter``) sums them, in place of ``pvary``.
+    A column-sharded hidden layer's dropout mask is the global mask's
+    columns."""
+    from rectpu_torch.parallel import collectives as coll
+
+    act = get_activation(activation)
+    axis = tp.axis
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    drop = dropout > 0 and train
+    if drop and seed32 is None:
+        raise ValueError("dropout requires a seed32 in train mode")
+    first_col = tp.kernel_dims[0] == 1
+    if tp.gather_rows:
+        row_offset -= axis.index * x.shape[0]
+        x = coll.all_gather(x, axis) if first_col else coll.gather_rows(x, axis)
+    sharded = False  # x holds this rank's columns (else every rank holds it whole)
+    last = len(layers) - 1
+    for i, ((kernel, bias), dim) in enumerate(zip(layers, tp.kernel_dims)):
+        if compute_dtype is not None:
+            kernel = kernel.to(compute_dtype)
+            if i < last:
+                bias = bias.to(compute_dtype)
+        out_dtype = torch.float32 if i == last else x.dtype
+        if dim == 0:
+            if not sharded:
+                x = coll.local_columns(x, axis)
+            part = torch.matmul(x.float(), kernel.float())
+            y = coll.psum(part, axis).to(out_dtype)
+            sharded = False
+        else:
+            if sharded:
+                raise AssertionError("a column shard feeds a layer that is not row-parallel")
+            if dim == 1 and not (i == 0 and tp.gather_rows):
+                x = coll.pvary(x, axis)
+            y = _dot(x, kernel, out_dtype)
+            sharded = dim == 1
+        if i == last:
+            x = y + bias.float()
+            break
+        x = act(y + bias)
+        if drop:
+            cols = (axis.index * x.shape[-1], x.shape[-1] * axis.size) if sharded else None
+            x = _dropout(x, dropout, _layer_seed(seed32, i), dropout_impl, row_offset, cols)
+    if sharded:  # a last layer wider than 1 (DLRM's bottom MLP) may be column-parallel
+        x = coll.gather_columns(x, axis)
+    if tp.gather_rows:
+        x = coll.own_rows(x, axis)
+    return x.float()
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
@@ -281,15 +373,23 @@ def is_quantized(table) -> bool:
 
 
 class RecModel(nn.Module):
-    """Base of the model zoo: the two hooks a ``parallel.ParallelPlan`` sets.
+    """Base of the model zoo: the hooks a ``parallel.ParallelPlan`` sets.
 
     ``lookup_fn`` (None: the local gather) replaces the table gather with the
     plan's EP exchange, as rectpu's ``apply(..., lookup_fn=...)``; its
     ``flat_variant`` serves the flat layout. ``row_offset`` is the first
-    global batch row of this rank's slice, which the dropout masks key on."""
+    global batch row of this rank's slice, which the dropout masks key on.
+    ``tp_plan`` (a plan with ``tp_mlp``) runs the towers tensor-parallel
+    (``tower_tp``)."""
 
     lookup_fn = None
     row_offset = 0
+    tp_plan = None
+
+    def tower_tp(self, tower: str):
+        """The tensor-parallel form of tower ``tower`` (``mlp``, ``top`` or
+        ``bot``) under a plan with ``tp_mlp``, else None."""
+        return None if self.tp_plan is None else self.tp_plan.tower_parallel(tower)
 
     def ep_table(self, emb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """[V, K+1] = [emb | w] (``pack_fused_table``), assembled per call;

@@ -100,7 +100,8 @@ class DCNModel(RecModel):
         layers = [(layer["kernel"], layer["bias"]) for layer in self.top]
         return apply_mlp(layers, x, cfg.activation, compute_dtype=cfg.torch_compute_dtype,
                          dropout=cfg.dropout, train=train, seed32=seed32,
-                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset,
+                         tp=self.tower_tp("top"))[:, 0]
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,
                      train: bool = False, seed32: int | None = None) -> torch.Tensor:

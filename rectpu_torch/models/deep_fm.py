@@ -160,7 +160,7 @@ class DeepFMModel(RecModel):
         return apply_mlp(self._mlp_layers(), flat, cfg.activation,
                          compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
                          train=train, seed32=seed32, dropout_impl=cfg.dropout_impl,
-                         row_offset=self.row_offset)[:, 0]
+                         row_offset=self.row_offset, tp=self.tower_tp("mlp"))[:, 0]
 
     def apply_looked(self, looked: torch.Tensor, num_vals: torch.Tensor | None, *,
                      train: bool = False, seed32: int | None = None) -> torch.Tensor:

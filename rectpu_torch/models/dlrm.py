@@ -92,7 +92,8 @@ class DLRMModel(RecModel):
         """The bottom MLP's activated output d0 [B, K] fp32 (no dropout)."""
         cfg = self.cfg
         d0 = apply_mlp(self._layers(self.bot), num_vals, cfg.activation,
-                       compute_dtype=cfg.torch_compute_dtype)
+                       compute_dtype=cfg.torch_compute_dtype, row_offset=self.row_offset,
+                       tp=self.tower_tp("bot"))
         return get_activation(cfg.activation)(d0)
 
     def _top_logit(self, top_in: torch.Tensor, train: bool, seed32) -> torch.Tensor:
@@ -100,7 +101,8 @@ class DLRMModel(RecModel):
         return apply_mlp(self._layers(self.top), top_in, cfg.activation,
                          compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
                          train=train, seed32=tower_seed32(seed32, 2),
-                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset,
+                         tp=self.tower_tp("top"))[:, 0]
 
     def forward(self, cat_ids: torch.Tensor, num_vals: torch.Tensor | None = None, *,
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:

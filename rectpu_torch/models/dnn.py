@@ -49,7 +49,7 @@ def deep_tower_logit(model, emb: torch.Tensor, num_vals: torch.Tensor | None, tr
     return apply_mlp(layers, emb.reshape(emb.shape[0], -1), cfg.activation,
                      compute_dtype=cfg.torch_compute_dtype, dropout=cfg.dropout,
                      train=train, seed32=seed32, dropout_impl=cfg.dropout_impl,
-                     row_offset=model.row_offset)[:, 0]
+                     row_offset=model.row_offset, tp=model.tower_tp("mlp"))[:, 0]
 
 
 def init_dnn(generator: torch.Generator, cfg: TowerConfig) -> dict:

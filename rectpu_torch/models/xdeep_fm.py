@@ -149,7 +149,8 @@ class XDeepFMModel(RecModel):
         layers = [(layer["kernel"], layer["bias"]) for layer in self.mlp]
         return apply_mlp(layers, flat, cfg.activation, compute_dtype=cfg.torch_compute_dtype,
                          dropout=cfg.dropout, train=train, seed32=seed32,
-                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset)[:, 0]
+                         dropout_impl=cfg.dropout_impl, row_offset=self.row_offset,
+                         tp=self.tower_tp("mlp"))[:, 0]
 
     def forward(self, cat_ids: torch.Tensor, num_vals: torch.Tensor | None = None, *,
                 train: bool = False, seed32: int | None = None) -> torch.Tensor:

@@ -14,7 +14,30 @@ named after the ``lax`` call it replaces, with the transpose JAX uses:
     its transpose is ``pvary``, the identity on each rank. Every rank of the
     axis then holds the whole cotangent, because the ranks of the axis
     compute the same function of the same summed value (rectpu's ``1d``
-    exchange, whose towers are replicated over 'model').
+    exchange, whose towers are replicated over 'model');
+  - ``pvary`` (Megatron's *f*): the identity on a value that every rank of
+    the axis holds, whose transpose is ``psum``: each rank's cotangent is
+    the share of the ranks' computations it fed, and their sum is the
+    whole. With ``psum`` (Megatron's *g*) it brackets the tensor-parallel
+    towers (``models/base.apply_mlp``).
+
+The towers under tensor parallelism also convert between layouts. A value
+that every rank of 'model' holds alike has its whole cotangent on every
+rank, so:
+
+  - ``local_columns`` (this rank's block of the last dim) transposes to the
+    zero-padded cotangent summed over the axis;
+  - ``gather_columns`` (``all_gather`` of the ranks' column blocks along the
+    last dim, into a value every rank holds) transposes to this rank's
+    columns of the whole cotangent;
+  - ``own_rows`` (this rank's block of dim 0 of a value that every rank
+    holds) transposes to ``all_gather`` of the row cotangents: every rank
+    then holds the cotangent of every row, as the towers' weight gradients
+    need;
+  - ``gather_rows`` (``all_gather`` of the ranks' rows into a value that
+    every rank then holds) transposes to this rank's rows of the whole
+    cotangent. ``all_gather`` itself (transpose ``psum_scatter``) takes its
+    place where the cotangents that reach it are the ranks' shares.
 
 The CPU tests hold each against rectpu's gradients. ``raw_*`` are the same
 collectives outside autograd (ids, metrics, gradient reductions). A failed
@@ -123,6 +146,70 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_psum(g, ctx.axis), None
+
+
+class _LocalColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.meta = (axis, x.shape[-1])
+        w = x.shape[-1] // axis.size
+        return x[..., axis.index * w:(axis.index + 1) * w].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, width = ctx.meta
+        full = g.new_zeros((*g.shape[:-1], width))
+        w = width // axis.size
+        full[..., axis.index * w:(axis.index + 1) * w] = g
+        return raw_psum(full, axis), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        full = raw_all_gather(x.movedim(-1, 0).contiguous(), axis)
+        return full.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        w = g.shape[-1] // ctx.axis.size
+        return g[..., ctx.axis.index * w:(ctx.axis.index + 1) * w].contiguous(), None
+
+
+class _OwnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        n = x.shape[0] // axis.size
+        return x[axis.index * n:(axis.index + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return raw_all_gather(g.contiguous(), ctx.axis), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return raw_all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[0] // ctx.axis.size
+        return g[ctx.axis.index * n:(ctx.axis.index + 1) * n].contiguous(), None
+
+
 def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``lax.all_gather(x, axis, axis=0, tiled=True)``, differentiable."""
     return _AllGather.apply(x, axis)
@@ -141,3 +228,32 @@ def all_to_all(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 def psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``lax.psum(x, axis)`` of a value that varies over the axis, differentiable."""
     return _Psum.apply(x, axis)
+
+
+def pvary(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The identity on a value every rank of the axis holds; its transpose
+    sums the ranks' cotangents (JAX's ``pvary``, Megatron's *f*)."""
+    return _Pvary.apply(x, axis) if axis.size > 1 else x
+
+
+def local_columns(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This rank's block of the last dim of a value every rank holds."""
+    return _LocalColumns.apply(x, axis) if axis.size > 1 else x
+
+
+def gather_columns(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Every rank's block of the last dim, concatenated in axis order, into a
+    value every rank holds."""
+    return _GatherColumns.apply(x, axis) if axis.size > 1 else x
+
+
+def own_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """This rank's block of dim 0 of a value every rank holds; the transpose
+    all_gathers the row cotangents."""
+    return _OwnRows.apply(x, axis) if axis.size > 1 else x
+
+
+def gather_rows(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Every rank's rows, concatenated in axis order, into a value every rank
+    holds; the transpose keeps this rank's rows of the whole cotangent."""
+    return _GatherRows.apply(x, axis) if axis.size > 1 else x

@@ -21,13 +21,28 @@ is its share of the global batch's loss (``local_loss``: its sum over the
 global batch size under the mean reduction), so the summed gradient is the
 single-process gradient of the global batch, not an average of means.
 
-``tp_mlp`` (rectpu's Megatron towers, ``plan.py:140-176``) is not ported
-(ROADMAP.md queue A17).
+``tp_mlp``: rectpu's Megatron towers (``plan.py:140-184``). ``tp_spec`` is
+rectpu's ``_tp_spec`` rule for the ``<tower>[i].{kernel,bias}`` leaves of
+the ``mlp``, ``top`` and ``bot`` towers (and their optimizer-state twins,
+matched by path suffix): even layers column-shard the kernel and the bias,
+odd layers and the width-1 logit row-shard the kernel and replicate the
+bias, a dim that 'model' does not divide stays replicated. It takes
+precedence over the table rule, as in rectpu. ``shard_params`` records each
+tower leaf's sharded dim, by path suffix, from the global tree it cuts;
+``gather_params``, ``reduce_grads`` and the towers' forward
+(``tower_parallel``, read by ``models/base.apply_mlp``) read that record.
+rectpu leaves the towers' collectives to GSPMD; ``apply_mlp`` places them
+explicitly. The towers run on the rows of a 'data' group: under 2d/dedup
+each rank all_gathers the tower input over 'model' and keeps its own rows
+of the output. So a tower leaf's gradient (a shard's, and a replicated
+tower leaf's, which every model rank computes alike from the same rows) is
+summed over 'data' alone; every other replicated leaf's over the batch
+ranks.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -37,7 +52,7 @@ from rectpu_torch.parallel.collectives import raw_all_gather, raw_psum
 from rectpu_torch.parallel.embedding_ep import (make_ep_lookup, make_ep_lookup_2d,
                                                 make_ep_lookup_2d_flat, make_ep_lookup_dedup,
                                                 make_ep_lookup_dedup_flat, make_ep_lookup_flat)
-from rectpu_torch.parallel.mesh import Axis, Mesh, make_mesh
+from rectpu_torch.parallel.mesh import MODEL_AXIS, Axis, Mesh, make_mesh
 
 SCATTER_IMPLS = ("xla", "mxu", "auto")
 
@@ -64,12 +79,81 @@ class _LocalRows(torch.autograd.Function):
         return full, None, None, None, None
 
 
-def _map_tree(tree, fn):
+def _map_tree(tree, fn, path=()):
+    """``fn(path, leaf)`` over a dict/list tree; ``path`` holds the dict keys
+    and the list indices (ints) from the root, as JAX's key paths do."""
     if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
+        return {k: _map_tree(v, fn, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(v, fn) for v in tree)
-    return fn(tree)
+        return type(tree)(_map_tree(v, fn, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+TP_TOWER_KEYS = frozenset({"mlp", "top", "bot"})
+
+
+def key_path(key: str) -> tuple:
+    """A ``/``-joined key path (``mlp/0/kernel``) as path keys, indices as ints."""
+    return tuple(int(p) if p.isdigit() else p for p in key.split("/") if p)
+
+
+def tower_suffix(path) -> tuple | None:
+    """(tower, layer, "kernel" | "bias") of a ``<tower>[i].{kernel,bias}``
+    leaf path (its last tower key followed by an index, rectpu's match), else
+    None."""
+    keys = list(path)
+    if not keys or keys[-1] not in ("kernel", "bias"):
+        return None
+    found = None
+    for j in range(len(keys) - 1):
+        if keys[j] in TP_TOWER_KEYS and isinstance(keys[j + 1], int):
+            found = (keys[j], keys[j + 1], keys[-1])
+    return found
+
+
+def tp_spec(path, leaf, num_model: int) -> tuple | None:
+    """rectpu's ``ParallelPlan._tp_spec`` (``plan.py:140-176``) over
+    ``num_model`` model shards, as the entries of its PartitionSpec:
+    ``(None, "model")`` column-sharded, ``("model", None)`` row-sharded,
+    ``("model",)`` a sharded bias, ``()`` replicated; None for a leaf that
+    is not a tower kernel or bias."""
+    suffix = tower_suffix(path)
+    if suffix is None:
+        return None
+    _, layer, kind = suffix
+    ndim = getattr(leaf, "ndim", 0)
+
+    def fits(dim):
+        return dim % num_model == 0
+
+    if kind == "kernel" and ndim == 2:
+        col = layer % 2 == 0 and leaf.shape[1] > 1
+        if col and fits(leaf.shape[1]):
+            return (None, MODEL_AXIS)
+        if not col and fits(leaf.shape[0]):
+            return (MODEL_AXIS, None)
+        return ()
+    if kind == "bias" and ndim == 1:
+        if layer % 2 == 0 and leaf.shape[0] > 1 and fits(leaf.shape[0]):
+            return (MODEL_AXIS,)
+        return ()
+    return None
+
+
+def _sharded_dim(spec: tuple) -> int | None:
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+@dataclass(frozen=True)
+class TowerParallel:
+    """A tower's tensor-parallel form for ``models/base.apply_mlp``: the
+    'model' axis, whether its rows are gathered over 'model' first (the
+    2d/dedup batch), and each layer's kernel dim sharded over 'model' (1
+    column-parallel, 0 row-parallel, None replicated)."""
+
+    axis: Axis
+    gather_rows: bool
+    kernel_dims: tuple
 
 
 @dataclass
@@ -83,6 +167,8 @@ class ParallelPlan:
     ep_peer_capacity: int | None = None
     tp_mlp: bool = False
     scatter_impl: str = "xla"
+    # {(tower, layer, kind): the leaf's dim sharded over 'model', or None}
+    tower_dims: dict = field(default_factory=dict)
 
     @classmethod
     def create(cls, num_data_shards: int, num_model_shards: int = 1, device="cpu",
@@ -92,9 +178,6 @@ class ParallelPlan:
         """rectpu's arguments, defaults and checks (``plan.py:64-112``);
         ``device`` ("cpu" or "cuda") and ``mesh`` (default ``make_mesh``
         over the process group) replace rectpu's ``devices``."""
-        if tp_mlp:
-            raise NotImplementedError("tensor-parallel towers (--tp-mlp) are not ported to "
-                                      "rectpu_torch yet (ROADMAP.md queue A17)")
         if scatter_impl not in SCATTER_IMPLS:
             raise ValueError(f"scatter_impl must be one of {SCATTER_IMPLS}")
         if scatter_impl == "auto":
@@ -128,6 +211,8 @@ class ParallelPlan:
                 raise ValueError("ep_comm_compress requires ep_mode '2d' or 'dedup'")
             lookup_fn = make_ep_lookup(mesh)
             lookup_fn.flat_variant = make_ep_lookup_flat(mesh, scatter_impl=scatter_impl)
+        if tp_mlp and num_model_shards <= 1:
+            raise ValueError("tp_mlp requires num_model_shards > 1")
         plan = cls(mesh=mesh, ep=ep, lookup_fn=lookup_fn, table_rows=table_rows,
                    ep_mode=ep_mode, ep_comm_compress=ep_comm_compress,
                    ep_peer_capacity=ep_peer_capacity, tp_mlp=tp_mlp,
@@ -180,11 +265,44 @@ class ParallelPlan:
         rows = self.table_rows // self.mesh.num_model if local else self.table_rows
         return getattr(leaf, "ndim", 0) == 2 and leaf.shape[0] == rows
 
-    def shard_params(self, tree):
-        """This rank's view of a global tree (params or optimizer state)."""
-        mi, v_shard = self.mesh.model.index, (self.table_rows or 0) // self.mesh.num_model
+    def _tower_dim(self, path) -> tuple[bool, int | None]:
+        """(is a tower leaf under ``tp_mlp``, its sharded dim) from the
+        record ``shard_params`` made of the global tree."""
+        suffix = tower_suffix(path) if self.tp_mlp else None
+        if suffix is None:
+            return False, None
+        if suffix not in self.tower_dims:
+            raise KeyError(f"tower leaf {'/'.join(map(str, path))} was never cut by "
+                           "shard_params, so its global layout is unknown")
+        return True, self.tower_dims[suffix]
 
-        def place(leaf):
+    def tower_parallel(self, tower: str) -> TowerParallel | None:
+        """The tensor-parallel form of ``tower``'s layers (None without
+        ``tp_mlp``)."""
+        if not self.tp_mlp:
+            return None
+        n = 1 + max((layer for (t, layer, _) in self.tower_dims if t == tower), default=-1)
+        if n == 0:
+            raise KeyError(f"tower {tower!r} was never cut by shard_params")
+        return TowerParallel(self.mesh.model, self.batch_2d,
+                             tuple(self.tower_dims[(tower, i, "kernel")] for i in range(n)))
+
+    def shard_params(self, tree):
+        """This rank's view of a global tree (params or optimizer state):
+        tower leaves cut by ``tp_spec`` (recorded for the gather), the
+        table's rows by the table rule, everything else as it is."""
+        mi, mn = self.mesh.model.index, self.mesh.num_model
+        v_shard = (self.table_rows or 0) // mn
+
+        def place(path, leaf):
+            spec = tp_spec(path, leaf, mn) if self.tp_mlp else None
+            if spec is not None:
+                dim = _sharded_dim(spec)
+                self.tower_dims[tower_suffix(path)] = dim
+                if dim is None:
+                    return leaf
+                w = leaf.shape[dim] // mn
+                return leaf[mi * w:(mi + 1) * w] if dim == 0 else leaf[:, mi * w:(mi + 1) * w]
             if self.is_table_leaf(leaf):
                 return leaf[mi * v_shard:(mi + 1) * v_shard]
             return leaf
@@ -192,17 +310,25 @@ class ParallelPlan:
         return _map_tree(tree, place)
 
     def gather_params(self, tree):
-        """The global tree from this rank's view: every table shard
-        all_gathered over 'model' (a collective: every rank calls it) on the
-        rank's device, and returned where the shard was (host copies stay
-        host copies)."""
+        """The global tree from this rank's view: every table shard and
+        tower shard all_gathered over 'model' (a collective: every rank
+        calls it) on the rank's device, and returned where the shard was
+        (host copies stay host copies)."""
 
-        def gather(leaf):
-            if isinstance(leaf, torch.Tensor) and self.is_table_leaf(leaf, local=True):
-                full = raw_all_gather(leaf.detach().to(self.mesh.device).contiguous(),
-                                      self.mesh.model)
-                return full.to(leaf.device)
-            return leaf
+        def gather(path, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            tower, dim = self._tower_dim(path)
+            if tower and dim is None:
+                return leaf
+            if not tower and not self.is_table_leaf(leaf, local=True):
+                return leaf
+            x = leaf.detach().to(self.mesh.device)
+            if dim == 1:
+                full = raw_all_gather(x.t().contiguous(), self.mesh.model).t().contiguous()
+            else:
+                full = raw_all_gather(x.contiguous(), self.mesh.model)
+            return full.to(leaf.device)
 
         return _map_tree(tree, gather)
 
@@ -227,25 +353,30 @@ class ParallelPlan:
         return raw_psum(x, self.batch_axis)
 
     def reduce_grads(self, grads: dict, table_grad_dtype=None) -> dict:
-        """Sum the gradients in place: table shards over 'data', replicated
-        leaves over the batch axes (one flat buffer a dtype). Under EP a
-        table shard's gradient is then rounded to ``table_grad_dtype`` and
-        back, as the single-process lookup rounds its dense cotangent."""
-        rep: dict = {}
+        """Sum the gradients ({key path: tensor}) in place: table shards over
+        'data', tower leaves under ``tp_mlp`` over 'data' (each is computed
+        from its data group's rows), other leaves over the batch axes (one
+        flat buffer a dtype and axis). Under EP a table shard's gradient is
+        then rounded to ``table_grad_dtype`` and back, as the single-process
+        lookup rounds its dense cotangent."""
+        groups: dict = {}
         for key, g in grads.items():
-            if self.is_table_leaf(g, local=True):
+            if self._tower_dim(key_path(key))[0]:
+                groups.setdefault((self.mesh.data, g.dtype), []).append(g)
+            elif self.is_table_leaf(g, local=True):
                 g.copy_(raw_psum(g, self.mesh.data))
                 if table_grad_dtype is not None:
                     g.copy_(g.to(table_grad_dtype).to(g.dtype))
             else:
-                rep.setdefault(g.dtype, []).append(g)
-        if self.batch_shards > 1:
-            for gs in rep.values():
-                summed = raw_psum(torch.cat([g.reshape(-1) for g in gs]), self.batch_axis)
-                offset = 0
-                for g in gs:
-                    g.copy_(summed[offset:offset + g.numel()].view_as(g))
-                    offset += g.numel()
+                groups.setdefault((self.batch_axis, g.dtype), []).append(g)
+        for (axis, _), gs in groups.items():
+            if axis.size == 1:
+                continue
+            summed = raw_psum(torch.cat([g.reshape(-1) for g in gs]), axis)
+            offset = 0
+            for g in gs:
+                g.copy_(summed[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
         return grads
 
     def reduce_metric_state(self, state: dict) -> dict:

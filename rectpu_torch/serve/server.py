@@ -385,6 +385,9 @@ if __name__ == "__main__":
     ap.add_argument("--serialized", action="store_true",
                     help="run the export's serialized program (apply.pt2) instead of the "
                          "model's Python code")
+    ap.add_argument("--compilation-cache-dir", default="/tmp/jax_cache",
+                    help="rectpu's persistent XLA cache; the port compiles nothing "
+                         "per shape and ignores it")
     ap.add_argument("--batch-window-ms", type=float, default=2.0,
                     help="coalesce concurrent requests into one device call, "
                          "waiting up to this long to fill a batch (0 disables)")

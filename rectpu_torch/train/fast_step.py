@@ -34,8 +34,12 @@ shard, and the touched rows' lazy-Adam step runs through
 ``parallel/sparse_ep.make_sparse_rows_ep`` (its exchange of deduplicated
 rows and the row sets into the shard); without EP (data parallelism alone)
 the same update gathers every rank's rows over 'data'. The small params'
-gradients are summed over the batch ranks (``plan.reduce_grads``), and the
-returned loss is the rank's share of the global batch's loss.
+gradients are summed by ``plan.reduce_grads`` (over the batch ranks; the
+towers' over 'data' under ``tp_mlp``), and the returned loss is the rank's
+share of the global batch's loss. Under ``tp_mlp`` the table keeps this
+sparse path and ``apply_looked`` takes the towers tensor-parallel (the
+model's ``tp_plan``, which the Trainer sets), as rectpu's fast step does
+under a TP plan.
 """
 
 from __future__ import annotations

@@ -20,15 +20,18 @@ What differs from rectpu, and why:
     index stream, so training is the same either way.
 
 Sharded (``plan``, a ``parallel.ParallelPlan``; rectpu's ``loop.py:528-552,
-595-630``): every rank runs this loop on its own process. The model's EP hooks
-are set from the plan (``lookup_fn``, and ``row_offset``, the first global
-row of the rank's batch slice, so hash dropout masks the global batch's
-rows). Each rank takes its block of every global batch from the loader
-(``cfg.batch_size`` stays the global batch), holds its table rows, and after
+595-630``): every rank runs this loop on its own process. The model's hooks
+are set from the plan (``lookup_fn``; ``row_offset``, the first global row
+of the rank's batch slice, so hash dropout masks the global batch's rows;
+``tp_plan`` under ``tp_mlp``, the tensor-parallel towers). Each rank takes
+its block of every global batch from the loader (``cfg.batch_size`` stays
+the global batch), holds its table rows, and after
 backward sums the gradients through ``plan.reduce_grads``; each step's loss
 is the global batch's (the ranks' shares summed once per loop). The eval
 walks a rank's rows ``[i::n]`` and sums the metric state over the batch
-ranks. A save all_gathers the table shards to every rank (a collective:
+ranks. Under ``tp_mlp`` the towers and their optimizer state are cut by the
+plan after init and after a restore, like the table. A save all_gathers the
+table and tower shards to every rank (a collective:
 every rank saves at the same steps; the wall-clock cadence is rank 0's),
 and rank 0 alone writes the checkpoint, the export and the event file, in
 rectpu's single-device layout. A restore reads the full checkpoint on every
@@ -144,6 +147,7 @@ class Trainer:
             self.device = plan.mesh.device
             model.lookup_fn = plan.lookup_fn
             model.row_offset = plan.batch_index * (config.batch_size // plan.batch_shards)
+            model.tp_plan = plan if plan.tp_mlp else None
         self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
                                  async_write=config.async_checkpoint)
         self.warm_start_from: str | None = None

@@ -2,11 +2,8 @@
 
 The same flags and defaults as rectpu's parser (``common.py:20-222``), so a
 rectpu command line runs here unchanged, plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). A flag this
-port does not carry yet raises ``NotImplementedError`` naming its ROADMAP.md
-queue instead of being ignored: tensor-parallel towers (``--tp-mlp``, queue
-A17). The JAX compilation cache flag is accepted and has nothing to
-configure.
+``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels). The JAX
+compilation cache flag is accepted and has nothing to configure.
 
 Sharding (``--num-data-shards``, ``--num-model-shards`` and the EP flags)
 runs one process per rank: launch the CLI under ``torchrun
@@ -16,7 +13,9 @@ raises). ``build_trainer`` starts the process group
 rectpu's ``common.py:353-500`` does: the ``--packed-col-pad`` + flat guard,
 ``--ep-row-placement freq`` (saved to ``<job-dir>/row_perm.npy`` by rank 0,
 with rectpu's restore guards), ``--ep-peer-capacity auto`` counted after the
-remap, and ``--fast-step`` over EP. Rank 0 clears and writes the job dir.
+remap, ``--fast-step`` over EP, and ``--tp-mlp`` (the tensor-parallel
+towers; without a plan, a run of one process, it changes nothing, as in
+rectpu). Rank 0 clears and writes the job dir.
 ``--streaming-io`` reads both CSVs through ``io.loader.StreamingCsvDataset``
 and ``--exporter best`` exports only when ``--best-exporter-metric``
 improves (``serve.export.make_exporter``), as rectpu's
@@ -113,7 +112,9 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
                         help="embedding (EP) mesh size: the table's rows are sharded "
                              "over this many ranks")
     parser.add_argument("--tp-mlp", action="store_true",
-                        help="tensor-parallel dense towers (not ported yet)")
+                        help="tensor-parallel dense towers: MLP kernels alternate "
+                             "column and row sharding over the 'model' axis (Megatron "
+                             "style); needs --num-model-shards > 1")
     parser.add_argument("--ep-mode", default="2d", choices=["1d", "2d", "dedup"],
                         help="EP exchange (used only with --num-model-shards > 1): 1d "
                              "masked gather + psum, 2d reduce_scatter, dedup unique-row "
@@ -224,17 +225,6 @@ def apply_preset(args):
     args._preset_applied = tuple(applied)
     logger.info("preset scaled: %s", ", ".join(f"{k}={getattr(args, k)}" for k in applied))
     return args
-
-
-def _not_ported(flag: str, queue: str):
-    raise NotImplementedError(f"{flag} is not ported to rectpu_torch yet "
-                              f"(ROADMAP.md queue {queue})")
-
-
-def check_supported(args, model) -> None:
-    """Raise for every flag whose behaviour the port does not carry yet."""
-    if args.tp_mlp:
-        _not_ported("tensor-parallel towers (--tp-mlp)", "A17")
 
 
 def resolve_optimizer(args, model, optimizer):
@@ -411,7 +401,6 @@ def build_trainer(args, model, optimizer=None):
 
     import torch.distributed as dist
 
-    check_supported(args, model)
     if (getattr(args, "packed_col_pad", 0) and args.num_model_shards > 1
             and getattr(args, "flat_layout", False)):
         raise ValueError(

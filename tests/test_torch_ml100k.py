@@ -105,15 +105,32 @@ def test_etl_writes_rectpus_bytes(raw, tmp_path):
         "zipcode1", "zipcode2", "zipcode3"]
 
 
-def test_local_synthetic_cli_writes_rectpus_bytes(tmp_path):
+def test_local_synthetic_cli_writes_rectpus_bytes(tmp_path, monkeypatch):
+    """``local --synthetic`` writes rectpu's bytes; ``gcp`` (which raised
+    until the BigQuery variant was ported) runs its pipeline against a stub
+    client, the download replaced by the fabricated raw files."""
+    from test_torch_bigquery import install_stub
+
     for name, mod in (("jax", jax_etl), ("port", etl)):
         mod.main(["local", "--synthetic", "--synthetic-rows", "1500", "--dest",
                   str(tmp_path / name), "--log-path", str(tmp_path / f"{name}.log")])
     for split in ("train", "test", "all"):
         want = (tmp_path / "jax" / "ml-100k" / f"{split}.csv").read_bytes()
         assert (tmp_path / "port" / "ml-100k" / f"{split}.csv").read_bytes() == want, split
-    with pytest.raises(NotImplementedError, match="queue A16"):
-        etl.main(["gcp", "--log-path", str(tmp_path / "gcp.log")])
+    stub = install_stub(monkeypatch)
+
+    def download(url, dest):
+        (tmp_path / "gcp" / "ml-100k").mkdir(parents=True)
+        for name, data in RAW_SETS["test_etl"].items():
+            (tmp_path / "gcp" / "ml-100k" / name).write_bytes(data)
+
+    monkeypatch.setattr(etl, "download_data", download)
+    etl.main(["gcp", "--dest", str(tmp_path / "gcp"), "--credentials",
+              str(tmp_path / "none.json"), "--log-path", str(tmp_path / "gcp.log")])
+    (client,) = stub.clients
+    assert [c[:3] for c in client.calls if c[0] == "load"] == [
+        ("load", "ml_100k", name) for name in etl.RAW_TABLES]
+    assert sum(c[0] == "extract" for c in client.calls) == 5
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,8 @@ checkpoint within rectpu's ``_assert_matches`` tolerances
 (``tests/test_multiprocess.py:76``: metrics rtol 1e-4, atol 1e-5; digest
 rtol 1e-5). Dropout is on, from the hash masks, which key on global rows and
 so do not depend on the rank count. Also: a world that does not match the
-mesh raises, and ``--tp-mlp`` raises naming ROADMAP.md queue A17.
+mesh raises, also with ``--tp-mlp`` (``tests/test_torch_tp_cli.py`` runs
+the tensor-parallel towers at 2 ranks).
 """
 
 import shutil
@@ -73,7 +74,8 @@ def test_world_unlike_the_mesh_raises(data, tmp_path):
 
 @pytest.mark.parametrize("extra, error, match", [
     (["--num-model-shards", "2"], ValueError, "needs 2 processes, but no process group is up"),
-    (["--tp-mlp"], NotImplementedError, "queue A17"),
+    (["--tp-mlp", "--num-model-shards", "2"], ValueError,
+     "needs 2 processes, but no process group is up"),
 ])
 def test_rejections_in_one_process(data, tmp_path, monkeypatch, extra, error, match):
     from rectpu_torch.trainers import deep_fm

@@ -32,11 +32,11 @@ from jax.sharding import PartitionSpec as P
 import rectpu.parallel.placement as jax_placement
 from rectpu.parallel import make_mesh as jax_make_mesh
 from rectpu_torch.parallel import placement
-from rectpu_torch.parallel.mesh import Axis, Mesh
 from rectpu_torch.parallel.plan import ParallelPlan
 from torch_ep_checks import (GRAD_ATOL, GRAD_RTOL, assemble, check_against_rectpu,
                              check_compressed, unsharded)
 from torch_mp_worker import LOOKUP_CASES, run_ranks
+from torch_mp_worker import fake_mesh as _fake_mesh
 
 MESHES = [(1, 2), (2, 2)]
 EXACT = [c[0] for c in LOOKUP_CASES if c[5] is None and c[6] is None]
@@ -135,17 +135,10 @@ def test_world_size_must_match_the_mesh(collective_ranks):
 # -- the plan ----------------------------------------------------------------------------
 
 
-def _fake_mesh(d, m, rank=0):
-    """A mesh view with no process group (the plan's checks run no collective)."""
-    world = Axis("world", None, d * m, rank, tuple(range(d * m)))
-    data = Axis("data", None, d, rank // m, tuple(range(rank % m, d * m, m)))
-    model = Axis("model", None, m, rank % m, tuple(range((rank // m) * m, (rank // m + 1) * m)))
-    return Mesh(d, m, rank, torch.device("cpu"), None, data, model, world)
-
-
 def test_plan_validation():
-    """rectpu's checks (``plan.py:64-112``, ``tests/test_comm_compress.py:120``)
-    and the A17 refusal of tensor-parallel towers."""
+    """rectpu's checks (``plan.py:64-112``, ``tests/test_comm_compress.py:120``),
+    the tensor-parallel towers' among them: a plan with ``tp_mlp`` is built
+    over model shards and refused without them."""
     mesh = _fake_mesh(2, 4)
     with pytest.raises(ValueError):
         ParallelPlan.create(2, 4, table_rows=64, ep_mode="2d", ep_comm_compress="int8",
@@ -155,8 +148,9 @@ def test_plan_validation():
                             mesh=mesh)
     with pytest.raises(ValueError, match="ep_peer_capacity"):
         ParallelPlan.create(2, 4, table_rows=64, ep_mode="2d", ep_peer_capacity=8, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A17"):
-        ParallelPlan.create(2, 4, table_rows=64, tp_mlp=True, mesh=mesh)
+    assert ParallelPlan.create(2, 4, table_rows=64, tp_mlp=True, mesh=mesh).tp_mlp
+    with pytest.raises(ValueError, match="tp_mlp requires num_model_shards > 1"):
+        ParallelPlan.create(2, 1, table_rows=64, tp_mlp=True, mesh=_fake_mesh(2, 1))
     with pytest.raises(ValueError, match="needs 8 processes"):
         ParallelPlan.create(2, 4, table_rows=64)  # no process group is up
     plan = ParallelPlan.create(2, 4, table_rows=64, ep_mode="dedup", ep_comm_compress="int8",

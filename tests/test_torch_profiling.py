@@ -5,7 +5,6 @@ card)."""
 
 import json
 import logging
-import time
 
 import pytest
 import torch
@@ -122,13 +121,16 @@ class _FakeCard:
 def test_event_ms_sleeps_while_the_host_queues_every_call(host_s, monkeypatch):
     """The sleep ahead of the timed calls lasts at least twice the host time
     of queueing them (a slow call on a loaded host), and never less than
-    SLEEP_MIN_S."""
+    SLEEP_MIN_S. The host clock is a fake one that only the calls advance,
+    by ``host_s`` each, so the reading does not depend on the host's load."""
     card = _FakeCard(monkeypatch)
     calls = []
+    clock = [0.0]
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: clock[0])
 
     def fn():
         calls.append(1)
-        time.sleep(host_s)
+        clock[0] += host_s
 
     assert timing.event_ms(fn, iters=20) == 0.25
     assert len(calls) == 3 + 20 and len(card.sleeps) == 1

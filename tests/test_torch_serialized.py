@@ -128,7 +128,9 @@ def test_server_serialized_over_http(tmp_path):
 @pytest.mark.parametrize("flags", [["--serialized"], ["--table-quant", "int8"]])
 def test_server_cli_flags(flags, tmp_path):
     """``python -m rectpu_torch.serve.server --device cpu`` with each flag
-    answers a request as the same model in this process does."""
+    answers a request as the same model in this process does; the command
+    line also carries rectpu's ``--compilation-cache-dir``, which the port's
+    server accepts and ignores."""
     import os
     import subprocess
     import sys
@@ -141,7 +143,8 @@ def test_server_cli_flags(flags, tmp_path):
     env = {**os.environ, "PYTHONPATH": str(repo)}
     proc = subprocess.Popen(
         [sys.executable, "-m", "rectpu_torch.serve.server", "--export-dir", str(d),
-         "--device", "cpu", "--port", "0", "--batch-window-ms", "0", *flags],
+         "--device", "cpu", "--port", "0", "--batch-window-ms", "0",
+         "--compilation-cache-dir", "", *flags],
         cwd=repo, env=env, stderr=subprocess.PIPE, text=True)
     try:
         port = None

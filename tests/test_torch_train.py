@@ -204,10 +204,38 @@ def test_trainer_raises_without_cuda_unless_asked_for_the_cpu(tmp_path, monkeypa
     (["--tp-mlp"], "A17"), (["--tp-mlp", "--num-model-shards", "2"], "A17"),
 ])
 def test_unported_flags_raise(flags, queue, tmp_path):
-    args = deep_fm_cli.build_parser().parse_args(
-        ["--device", "cpu", "--job-dir", str(tmp_path / "job"), *flags])
-    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-        deep_fm_cli.train_and_evaluate(args)
+    """(Named when ``--tp-mlp`` raised, naming ROADMAP.md queue ``queue``.)
+    The flag trains now. In one process there is no plan, so it changes
+    nothing, as in rectpu: the checkpoint equals the run's without it, bit
+    for bit. With --num-model-shards 2 the CLI at 2 torchrun ranks trains the
+    tensor-parallel towers, and rank 0's checkpoint holds the towers and
+    their Adam state in rectpu's global shapes."""
+    from torch_mp_worker import checkpoint_params, run_cli
+
+    data = write_synthetic_dataset(tmp_path / "data", train_rows=300, test_rows=100, seed=1)
+    argv = ["--device", "cpu", "--train-csv", data["train"], "--test-csv", data["test"],
+            "--train-steps", "4", "--batch-size", "32", "--steps-per-loop", "2",
+            "--save-checkpoints-steps", "2"]
+    if "--num-model-shards" not in flags:
+        runs = {}
+        for tag, extra in (("tp", flags), ("plain", [])):
+            args = deep_fm_cli.build_parser().parse_args(
+                [*argv, "--job-dir", str(tmp_path / tag), *extra])
+            metrics, trainer = deep_fm_cli.train_and_evaluate(args)
+            assert trainer.plan is None and np.isfinite(trainer.step_losses).all()
+            runs[tag] = checkpoint_params(tmp_path / tag)
+        assert sorted(runs["tp"]) == sorted(runs["plain"])
+        for k, v in runs["plain"].items():
+            np.testing.assert_array_equal(runs["tp"][k], v, err_msg=k)
+        return
+    metrics, params = run_cli(2, *argv[2:], "--job-dir", str(tmp_path / "job"), *flags)
+    assert metrics["count"] == 100 and 0.0 <= metrics["auc"] <= 1.0
+    assert params["params/mlp/0/kernel"].shape == (104, 16)
+    assert params["params/mlp/1/kernel"].shape == (16, 16)
+    assert params["params/mlp/0/bias"].shape == (16,)
+    tree, _ = JaxCheckpointer(tmp_path / "job").restore()
+    assert np.asarray(tree["opt_state"]["m"]["mlp"][0]["kernel"]).shape == (104, 16)
+    assert np.asarray(tree["opt_state"]["v"]["mlp"][1]["kernel"]).shape == (16, 16)
 
 
 @pytest.mark.parametrize("flags,opt_name", [

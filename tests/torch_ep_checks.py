@@ -136,23 +136,23 @@ def check_compressed(ranks, name, against_rectpu):
 
 # -- composed sharded steps against rectpu's -------------------------------------------
 
-def _rectpu_model(family, cfg_kw, model_kw):
+def _rectpu_model(family, cfg_kw, model_kw, numeric=()):
     from rectpu import models as jm
     from rectpu.features.schema import ml_100k_feature_set
 
     classes = {"deep_fm": jm.DeepFMModel, "dlrm": jm.DLRMModel, "xdeep_fm": jm.XDeepFMModel,
                "linear_deep": jm.WideDeepModel, "deep": jm.DNNModel, "dcn": jm.DCNModel,
                "autoint": jm.AutoIntModel}
-    cfg = jm.TowerConfig(feature_set=ml_100k_feature_set(), embedding_size=4,
+    cfg = jm.TowerConfig(feature_set=ml_100k_feature_set(numeric), embedding_size=4,
                          hidden_units=(16, 16), table_padding=128, **cfg_kw)
     return classes[family](cfg, **(model_kw or {}))
 
 
-def port_init(family, cfg_kw, model_kw):
+def port_init(family, cfg_kw, model_kw, numeric=()):
     """The port's seeded init of ``build_model``, as a jnp tree in rectpu's layout."""
     from torch_mp_worker import build_model
 
-    _, params = build_model(family, cfg_kw, model_kw)
+    _, params = build_model(family, cfg_kw, model_kw, numeric)
     return jax.tree.map(lambda t: jnp.asarray(t.float().numpy()), params)
 
 
@@ -270,3 +270,83 @@ def check_dense_against_rectpu(mesh, got, case):
     for k, want in params.items():
         np.testing.assert_allclose(mine["params"][k], want, rtol=0, atol=DENSE_PARAM_ATOL,
                                    err_msg=k)
+
+
+# -- tensor-parallel towers --------------------------------------------------------------
+
+def rectpu_step_seeds(steps: int = None) -> list:
+    """The dropout seed32 of rectpu's Trainer step i (``jax.random.bits`` of
+    ``fold_in(PRNGKey(0), i)``, ``rectpu/models/base.py:150``), which the
+    port's ranks take in place of ``step_seed32``."""
+    from torch_mp_worker import STEP_STEPS
+
+    return [int(jax.random.bits(jax.random.fold_in(jax.random.PRNGKey(0), i), dtype=jnp.uint32))
+            for i in range(steps or STEP_STEPS)]
+
+
+def rectpu_tp_steps(name, mesh):
+    """rectpu's sharded step of ``TP_CASES[name]`` under ``tp_mlp=True`` on
+    ``mesh``, STEP_STEPS times from the port's init: the Trainer's
+    ``_train_one`` (dropout seeded from ``PRNGKey(0)``), or for a fast case
+    ``make_sparse_step`` jitted -> (losses, flat global params)."""
+    import tempfile
+
+    from rectpu.parallel import ParallelPlan
+    from rectpu.train.fast_step import make_sparse_step
+    from rectpu.train.loop import TrainConfig, Trainer
+    from rectpu.train.optimizers import adam
+    from torch_mp_worker import STEP_B, TP_CASES, step_inputs
+
+    _, family, cfg_kw, model_kw, mode, numeric, fast = TP_CASES[name]
+    model = _rectpu_model(family, cfg_kw, model_kw, numeric)
+    params = port_init(family, cfg_kw, model_kw, numeric)
+    plan = ParallelPlan.create(*mesh, table_rows=model.cfg.padded_buckets, ep_mode=mode,
+                               scatter_impl=model.cfg.scatter_impl, tp_mlp=True)
+    if fast:
+        init, step = make_sparse_step(model, learning_rate=0.01, plan=plan)
+        state = init(params)
+        jstep = jax.jit(step)
+    else:
+        opt = adam(0.01)
+        state = opt.init(params)
+        trainer = Trainer(model, opt, None, None, tempfile.mkdtemp(),
+                          TrainConfig(batch_size=STEP_B, seed=11), plan=plan)
+    params, state = plan.shard_params(params), plan.shard_params(state)
+    losses = []
+    for i, b in enumerate(step_inputs(numeric=len(numeric))):
+        b = plan.shard_batch(b)
+        if fast:
+            params, state, loss = jstep(params, state, b, jax.random.PRNGKey(0), jnp.asarray(i))
+        else:
+            params, state, loss = trainer._train_one(params, state, jax.random.PRNGKey(0),
+                                                     jnp.asarray(i), b)
+        losses.append(float(loss))
+    return np.asarray(losses), flat_numpy(params)
+
+
+def tp_ranks(mesh, tmp, names):
+    """The port's ranks of the TP cases ``names`` on ``mesh`` (dropout seeded
+    with rectpu's step seeds) -> rank 0's results, after checking that every
+    rank gathered the same global params."""
+    from torch_mp_worker import run_ranks
+
+    d, m = mesh
+    got = run_ranks("tp_cases", d * m, tmp, num_data=d, num_model=m, names=names,
+                    seeds=rectpu_step_seeds())
+    for r in got[1:]:
+        for name in r:
+            for k, v in r[name]["params"].items():
+                np.testing.assert_array_equal(v, got[0][name]["params"][k])
+    return got[0]
+
+
+def check_tp_against_rectpu(mesh, got, name, loss_rtol=DENSE_LOSS_RTOL,
+                            param_atol=DENSE_PARAM_ATOL):
+    """The port's TP steps of ``name`` equal rectpu's on the same mesh."""
+    losses, params = rectpu_tp_steps(name, mesh)
+    mine = got[name]
+    np.testing.assert_allclose(mine["losses"], losses, rtol=loss_rtol)
+    assert sorted(mine["params"]) == sorted(params)
+    for k, want in params.items():
+        np.testing.assert_allclose(mine["params"][k], want, rtol=0, atol=param_atol, err_msg=k)
+    return losses, params

@@ -113,6 +113,19 @@ LOOKUP_CASES = (
 )
 
 
+def fake_mesh(d, m, rank=0):
+    """A mesh view of rank ``rank`` with no process group (for the plan's
+    checks and cuts, which run no collective)."""
+    import torch
+
+    from rectpu_torch.parallel.mesh import Axis, Mesh
+
+    world = Axis("world", None, d * m, rank, tuple(range(d * m)))
+    data = Axis("data", None, d, rank // m, tuple(range(rank % m, d * m, m)))
+    model = Axis("model", None, m, rank % m, tuple(range((rank // m) * m, (rank // m + 1) * m)))
+    return Mesh(d, m, rank, torch.device("cpu"), None, data, model, world)
+
+
 def _plan(num_data, num_model, **kw):
     from rectpu_torch.parallel.plan import ParallelPlan
 
@@ -215,22 +228,28 @@ def step_configs():
     }
 
 
-def step_inputs(steps: int = STEP_STEPS, seed: int = 5):
-    """[steps] global batches {cat_ids, num_vals, labels} of the ml-100k schema."""
+def step_inputs(steps: int = STEP_STEPS, seed: int = 5, numeric: int = 0):
+    """[steps] global batches {cat_ids, num_vals, labels} of the ml-100k schema;
+    ``numeric`` columns of num_vals drawn from their own stream (so the ids
+    and labels do not depend on it)."""
     from rectpu_torch.features.schema import ml_100k_feature_set
 
     fs = ml_100k_feature_set()
     rng = np.random.default_rng(seed)
+    num_rng = np.random.default_rng(seed + 100)
     out = []
     for _ in range(steps):
         ids = np.stack([fs.offsets[f] + rng.integers(0, fs.field_sizes[f], size=STEP_B)
                         for f in range(fs.num_fields)], 1).astype(np.int32)
-        out.append({"cat_ids": ids, "num_vals": np.zeros((STEP_B, 0), np.float32),
+        out.append({"cat_ids": ids,
+                    "num_vals": num_rng.normal(size=(STEP_B, numeric)).astype(np.float32),
                     "labels": rng.integers(0, 2, size=STEP_B).astype(np.float32)})
     return out
 
 
-def build_model(family: str, cfg_kw: dict, model_kw=None):
+def build_model(family: str, cfg_kw: dict, model_kw=None, numeric=()):
+    """The family at the test widths (K=4, [16, 16]) on the ml-100k schema with
+    ``numeric`` columns, and its init from a seeded generator."""
     import torch
 
     from rectpu_torch.features.schema import ml_100k_feature_set
@@ -240,7 +259,7 @@ def build_model(family: str, cfg_kw: dict, model_kw=None):
     families = {"deep_fm": DeepFMModel, "dlrm": DLRMModel, "xdeep_fm": XDeepFMModel,
                 "linear_deep": WideDeepModel, "deep": DNNModel, "dcn": DCNModel,
                 "autoint": AutoIntModel}
-    cfg = TowerConfig(feature_set=ml_100k_feature_set(), embedding_size=4,
+    cfg = TowerConfig(feature_set=ml_100k_feature_set(numeric), embedding_size=4,
                       hidden_units=(16, 16), table_padding=128, **cfg_kw)
     model = families[family](cfg, **(model_kw or {}))
     return model, model.init(torch.Generator().manual_seed(3))
@@ -317,6 +336,103 @@ def dense_case_results(num_data: int, num_model: int, cases, single: bool = Fals
             model, params = build_model(family, cfg_kw, model_kw)
             losses, got = _run_dense(model, params, batches, None, bf16_slots=bf16_slots)
             res[name].update(single_losses=losses, single=got)
+    return res
+
+
+# -- tensor-parallel towers ---------------------------------------------------------------
+
+# (name, family, TowerConfig kwargs, model kwargs, ep_mode, numeric columns, fast step)
+TP_HASH = {"dropout": 0.1, "dropout_impl": "hash"}
+TP_FLAT = {"flat_layout": True, "packed_linear": True, "scatter_impl": "xla"}
+TP_CASES = {c[0]: c for c in (
+    ("deepfm_1d", "deep_fm", TP_HASH, {}, "1d", (), False),
+    ("deepfm_2d", "deep_fm", {}, {}, "2d", (), False),
+    ("deepfm_flat_1d", "deep_fm", TP_FLAT, {}, "1d", (), False),
+    ("deepfm_flat_2d", "deep_fm", {**TP_FLAT, **TP_HASH}, {}, "2d", (), False),
+    # bot (5, 8) over 2 numeric columns at M=2: row-parallel, replicated (5 is
+    # odd), then a column-parallel last layer of K=4; top (16, 16)
+    ("dlrm_2d", "dlrm", {}, {"interaction_impl": "xla", "bot_hidden_units": (5, 8)}, "2d",
+     ("age", "action"), False),
+    ("dcn_2d", "dcn", {}, {"num_cross_layers": 2}, "2d", (), False),
+    ("deepfm_fast_dedup", "deep_fm", {"packed_linear": True}, {}, "dedup", (), True),
+    ("deepfm_2d_bf16", "deep_fm", {"compute_dtype": "bfloat16"}, {}, "2d", (), False),
+)}
+
+
+def tp_case_results(num_data: int, num_model: int, names, seeds=None) -> dict:
+    """The TP_CASES ``names`` on this mesh under ``tp_mlp``: STEP_STEPS Adam
+    steps at lr 0.01 through the Trainer's step (the fast step's own
+    ``make_sparse_step`` for a fast case) -> losses and the gathered global
+    params; ``seeds`` (each step's dropout seed32) replaces
+    ``step_seed32``."""
+    import torch
+
+    import rectpu_torch.train.loop as loop_mod
+    from rectpu_torch.convert import flat_params, load_params
+    from rectpu_torch.train.fast_step import make_sparse_step
+
+    if seeds is not None:
+        loop_mod.step_seed32 = lambda seed, step: int(seeds[step])
+    res = {}
+    for name in names:
+        _, family, cfg_kw, model_kw, mode, numeric, fast = TP_CASES[name]
+        batches = step_inputs(numeric=len(numeric))
+        model, params = build_model(family, cfg_kw, model_kw, numeric)
+        plan = _plan(num_data, num_model, table_rows=model.cfg.padded_buckets, ep_mode=mode,
+                     scatter_impl=model.cfg.scatter_impl, tp_mlp=True)
+        if not fast:
+            losses, got = _run_dense(model, params, batches, plan)
+        else:
+            init, step = make_sparse_step(model, learning_rate=0.01, plan=plan)
+            model.lookup_fn, model.tp_plan = plan.lookup_fn, plan
+            load_params(model, plan.shard_params(params))
+            opt = init(flat_params(model))
+            n, pos = plan.batch_shards, plan.batch_index
+            losses = []
+            for b in batches:
+                local = {k: torch.from_numpy(v[pos * (STEP_B // n):(pos + 1) * (STEP_B // n)])
+                         for k, v in b.items()}
+                losses.append(float(plan.global_value(step(flat_params(model), opt, local,
+                                                           None))))
+            losses, got = np.asarray(losses), _global_params(model, plan)
+        res[name] = {"losses": losses, "params": got}
+    return res
+
+
+def tp_roundtrip_results(meshes, trees) -> dict:
+    """On each (num_data, num_model) of ``meshes`` with ``tp_mlp``: each
+    (family, model kwargs, numeric) of ``trees``, its init params and an Adam
+    state of seeded values, cut by ``shard_params`` and all_gathered back by
+    ``gather_params`` -> whether the gather gave the tree back bit for bit,
+    and the rank's shard shapes by key path."""
+    import torch
+
+    from rectpu_torch.convert import flat_params, flatten_tree, load_params, opt_state_tree
+    from rectpu_torch.train.optimizers import adam
+
+    res = {}
+    for mesh in meshes:
+        for family, model_kw, numeric in trees:
+            model, params = build_model(family, {}, model_kw, numeric)
+            plan = _plan(*mesh, table_rows=model.cfg.padded_buckets, tp_mlp=True)
+            state = opt_state_tree(adam(0.01).init(flat_params(load_params(model, params))))
+            gen = torch.Generator().manual_seed(1)
+
+            def seeded(node):
+                if isinstance(node, dict):
+                    return {k: seeded(v) for k, v in node.items()}
+                if isinstance(node, list):
+                    return [seeded(v) for v in node]
+                return torch.randn(node.shape, generator=gen) if node.is_floating_point() else node
+
+            state = seeded(state)
+            whole = {"params": params, "opt_state": state}
+            cut = plan.shard_params(whole)
+            back = flatten_tree(plan.gather_params(cut))
+            res[(mesh, family)] = {
+                "equal": sorted(back) == sorted(flatten_tree(whole)) and all(
+                    torch.equal(back[k], v) for k, v in flatten_tree(whole).items()),
+                "shapes": {k: tuple(v.shape) for k, v in flatten_tree(cut).items()}}
     return res
 
 
@@ -402,6 +518,8 @@ CASES = {
     "dense_cases": dense_case_results,
     "sparse_rows": sparse_rows_results,
     "sparse_steps": sparse_step_results,
+    "tp_cases": tp_case_results,
+    "tp_roundtrip": tp_roundtrip_results,
 }
 
 
