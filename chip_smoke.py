@@ -133,6 +133,27 @@ failed check raises, and the script exits nonzero without the final line:
    each export is served over HTTP and held against a device="cpu"
    ServingModel. Then AutoInt's three attention forms ("broadcast", "bf16",
    "grouped"; the zoo model below) on the card against a CPU copy at B=64.
+5f. The dispatch modes (TrainConfig.dispatch_mode): "scan", each step a
+   replay of a CUDA graph of the step captured after 3 eager warm-up steps,
+   against "pipelined", each from the same weights and data, bit for bit in
+   every step's loss, every parameter and optimizer-state leaf (and the
+   CLIs' eval metrics): the parity config (the reference defaults, K=4
+   [16, 16], dropout 0.1, batch 32) through the DeepFM CLI, 120 steps in
+   loops of 50, 50 and 20 (a checkpoint, eval and export after each of the
+   first two), hash and threefry dropout, the scan run with
+   --profile-dir (its trace must name the lookup, FM and scatter kernels);
+   the same config (loops of 50, 50 and 20), the flagship step (phase 6's:
+   fused Adam on the table, bf16 m, bf16-SR v) and the full-width fast step
+   (phase 6c's, threefry dropout; both 40 steps in loops of 10, 10 and 20),
+   driven loop by loop through the Trainer's loop runner: the first loop
+   warms up (and captures), the wall ms a step of the middle loop, the last
+   loop profiled (the device's busy ms and the host's aten ops a step,
+   at most SCAN_HOST_OPS_MAX under scan); the same launches of every kernel
+   both ways (a replay's launches counted as its capture's); then the DLRM,
+   xDeepFM, Linear (also with --streaming-io: batches staged from the
+   host), DNN and Wide&Deep CLIs at batch 512, 20 steps, their default
+   optimizers. Under a plan on the card "auto" must pipeline and
+   "scan" raise before any step.
 5d. Check (3)(b), with --check3 on only (it takes longer than the rest of
    the script, 138 s on an H100): the DeepFM trainer CLI at the reference
    defaults (K=4, [16, 16], dropout 0.1, batch 32, 20,000 steps) at --seed
@@ -259,6 +280,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from pathlib import Path
 
@@ -317,10 +339,12 @@ from rectpu_torch.serve.export import (
 from rectpu_torch.serve.quant import quantize_serving
 from rectpu_torch.serve.server import instances_to_columns, make_server, parse_request_columns
 from rectpu_torch.train import sparse as sparse_ops
+from rectpu_torch.train.dispatch import WARMUP_STEPS
 from rectpu_torch.train.fast_step import make_sparse_step
 from rectpu_torch.train.loop import TrainConfig, Trainer
 from rectpu_torch.train.optimizers import BF16_SR, adam
 from rectpu_torch.trainers import autoint as autoint_cli
+from rectpu_torch.trainers import common as trainers_common
 from rectpu_torch.trainers import dcn as dcn_cli
 from rectpu_torch.trainers import deep as deep_cli
 from rectpu_torch.trainers import deep_fm as deep_fm_cli
@@ -755,15 +779,22 @@ def check_train_kernels(dev, gen) -> dict:
             v = (torch.rand(v_rows, WIDTH, generator=gen) * 0.01).to(st[v_dt]).to(dev)
             g = torch.randn(v_rows, WIDTH, generator=gen).to(g_dtype).to(dev)
             kw = dict(lr=1e-3, m_sr=m_dt == BF16_SR, v_sr=v_dt == BF16_SR)
-            for t in (1, 7, 12345):
+            for t in (1, 7, 12345, 2**31 - 1):
                 want = adam_ops.fused_adam_plain(p, m, v, g, t, **kw)
+                # the third launch reads t and lr_t from device memory, as a
+                # step replayed from a CUDA graph does (scan dispatch)
+                lr_t = torch.tensor(float(adam_ops.adam_lr_t(t, 1e-3, 0.9, 0.999)),
+                                    dtype=torch.float32, device=dev)
+                t_dev = torch.tensor(t, dtype=torch.int64, device=dev)
                 runs = []
-                for _ in range(2):
+                for t_arg, extra in ((t, {}), (t, {}), (t_dev, {"lr_t": lr_t})):
                     pc, mc, vc = p.clone(), m.clone(), v.clone()
-                    runs.append(adam_ops.fused_adam_cuda(pc, mc, vc, g, t, **kw))
+                    runs.append(adam_ops.fused_adam_cuda(pc, mc, vc, g, t_arg, **kw, **extra))
                 torch.cuda.synchronize()
-                for name, a, b2, w in zip("pmv", runs[0], runs[1], want):
+                for name, a, b2, b3, w in zip("pmv", runs[0], runs[1], runs[2], want):
                     check(same_bits(a, b2), f"fused_adam {name} t={t}: two launches differ")
+                    check(same_bits(a, b3), f"fused_adam {name} t={t}: t and lr_t read from "
+                                            "device memory differ from the launch arguments")
                     check(a.dtype == w.dtype, f"fused_adam {name} dtype")
                     d = ulp_distance(a, w)
                     check(d <= 1, f"fused_adam {name} p={p_dtype} m={m_dt} v={v_dt} t={t} "
@@ -771,7 +802,8 @@ def check_train_kernels(dev, gen) -> dict:
                     errs["fused_adam"] = max(errs["fused_adam"],
                                              (a.double() - w.double()).abs().max().item())
         print(f"check: fused_adam [{v_rows}, {WIDTH}] fp32/bf16 masters, fp32 and bf16-SR "
-              "slots, t=1,7,12345: within 1 ulp of plain, bitwise equal across launches "
+              "slots, t=1,7,12345,2^31-1: within 1 ulp of plain, bitwise equal across "
+              "launches and with t and lr_t read from device memory "
               f"(max abs err {errs['fused_adam']:.3g})")
     return errs
 
@@ -1522,7 +1554,7 @@ def train_cli(work: Path, seed: int, cli=deep_fm_cli, label: str = "deep_fm",
     metrics, trainer = cli.train_and_evaluate(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {c.name: c.value for c in counters}
+    launches = {c.name: c.total for c in counters}
     losses = trainer.step_losses
     check(len(losses) == steps, f"{label} trainer CLI recorded {len(losses)} step losses")
     check(all(np.isfinite(losses)), f"{label} trainer CLI: a non-finite loss in {losses}")
@@ -1733,6 +1765,286 @@ def check3_default_run(work: Path, seed: int = 42) -> dict:
     return {"auc": auc, "pin": CHECK3_PIN_AUC, "gap": auc - CHECK3_PIN_AUC,
             "within_gate": abs(auc - CHECK3_PIN_AUC) <= CHECK3_GATE, "seconds": seconds,
             "steps": args.train_steps, "seed": seed, "metrics": metrics}
+
+
+# --- phase 5f: the dispatch modes, scan (a CUDA graph of the step) against pipelined ---
+
+PARITY_STEPS, PARITY_LOOP = 120, 50  # loops of 50, 50 and a ragged 20
+# the flagship and the fast step: 40 steps, the warm-up loop (with the
+# capture), one timed loop, one profiled loop
+DISPATCH_LOOPS = (10, 10, 20)
+FAMILY_DISPATCH_BATCH, FAMILY_DISPATCH_STEPS = 512, 20
+# aten ops a step that the host issues in a scan loop: the copies into the
+# fixed buffers, once a loop (the replays issue none)
+SCAN_HOST_OPS_MAX = 10
+# (label, CLI, model flags) of the families' scan-against-pipelined runs
+# (the streaming run stages its batches from the host: scan's stacked copies)
+FAMILY_DISPATCH = (("dlrm", dlrm_cli, SCALED_ARGS), ("xdeep_fm", xdeep_fm_cli, SCALED_ARGS),
+                   ("linear", linear_cli, ()), ("deep", deep_cli, SCALED_ARGS),
+                   ("linear_deep", linear_deep_cli, SCALED_ARGS),
+                   ("linear_streaming", linear_cli, ("--streaming-io",)))
+
+
+def _tensor_leaves(tree, prefix: str = ""):
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensor_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensor_leaves(v, f"{prefix}/{i}")
+
+
+def check_same_training(runs: dict, label: str) -> int:
+    """Scan against pipelined, bit for bit: every step's loss, every
+    parameter and every optimizer-state leaf. ``runs``: mode -> (losses,
+    trainer). Returns the number of leaves compared."""
+    (la, a), (lb, b) = runs["scan"], runs["pipelined"]
+    check(len(la) == len(lb) and la == lb,
+          f"{label}: scan's losses differ from pipelined's at steps "
+          f"{[i for i, (x, y) in enumerate(zip(la, lb)) if x != y][:5]}")
+    pa, pb = flat_params(a.model), flat_params(b.model)
+    sa, sb = dict(_tensor_leaves(a.opt_state)), dict(_tensor_leaves(b.opt_state))
+    check(pa.keys() == pb.keys() and sa.keys() == sb.keys(), f"{label}: different trees")
+    bad = [k for k in pa if not torch.equal(pa[k].detach(), pb[k].detach())]
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    check(not bad, f"{label}: scan differs from pipelined in {bad[:6]}")
+    return len(pa) + len(sa)
+
+
+def drive_loops(trainer: Trainer, loops, counters) -> dict:
+    """The trainer's train loop in its dispatch mode (``loop_runner``) over
+    loops of ``loops`` steps from step 0, on its resident train set: the
+    first loop warms up (under scan: eager steps, then the capture), the
+    middle ones are timed on the host clock to the losses on the host, the
+    last one is profiled. Returns the losses, the wall ms a step, the device's
+    busy ms a step, the host's aten ops a step, the top kernels and the
+    launches that ran (``LaunchCount.total``: replays included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    resident = trainer._resident()
+    batches = trainer._host_batches(None, resident)
+    run = trainer.loop_runner(resident)
+    for c in counters:
+        c.reset()
+    step, losses, timed_s, timed_steps = 0, [], 0.0, 0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for i, k in enumerate(loops):
+        last = i == len(loops) - 1
+        torch.cuda.synchronize()
+        if last:
+            prof.start()
+        t0 = time.perf_counter()
+        out, _ = run(batches, step, k)
+        vals = out.cpu().tolist()
+        seconds = time.perf_counter() - t0
+        if last:
+            torch.cuda.synchronize()
+            prof.stop()
+        elif i > 0:
+            timed_s, timed_steps = timed_s + seconds, timed_steps + k
+        losses += vals
+        step += k
+    batches.close()
+    torch.cuda.synchronize()
+    k = loops[-1]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    graph = trainer.step_graph
+    return {"losses": losses, "wall_ms": 1e3 * timed_s / timed_steps,
+            "busy_ms": (sum(e.self_device_time_total for e in events) / k / 1e3
+                        if events else None),
+            "device_launches": sum(e.count for e in events) / k,
+            "host_aten_ops": sum(e.count for e in ops) / k,
+            "top_kernels_ms": [(e.key[:48], round(e.self_device_time_total / k / 1e3, 4))
+                               for e in top],
+            "top_host_ops": [(e.key, round(e.count / k, 2))
+                             for e in sorted(ops, key=lambda e: e.count, reverse=True)[:6]],
+            "launches": {c.name: c.total for c in counters},
+            "replays": graph.replays if graph is not None else 0,
+            "per_replay": ({c.name: n for c, n in graph.per_replay}
+                           if graph is not None else {})}
+
+
+def dispatch_pair(label: str, make_trainer, loops, counters) -> dict:
+    """``make_trainer(mode)`` (a Trainer with its weights and optimizer state
+    set, the same each call) driven by ``drive_loops`` in pipelined then scan
+    dispatch: bitwise equal, the same launches of every kernel, the scan
+    step a CUDA graph replayed every step after the warm-up."""
+    runs, out = {}, {}
+    for mode in ("pipelined", "scan"):
+        trainer = make_trainer(mode)
+        check(trainer.dispatch == mode, f"{label}: the trainer dispatches {trainer.dispatch}")
+        res = drive_loops(trainer, loops, counters)
+        runs[mode] = (res.pop("losses"), trainer)
+        out[mode] = res
+    check(all(np.isfinite(runs["scan"][0])), f"{label}: a non-finite loss")
+    out["leaves_compared"] = check_same_training(runs, label)
+    scan, pipe = out["scan"], out["pipelined"]
+    check(scan["replays"] == sum(loops) - WARMUP_STEPS,
+          f"{label}: {scan['replays']} graph replays for {sum(loops)} steps")
+    check(scan["launches"] == pipe["launches"] and all(n > 0 for n in scan["launches"].values()),
+          f"{label}: launches under scan {scan['launches']} vs pipelined {pipe['launches']}")
+    check(scan["host_aten_ops"] <= SCAN_HOST_OPS_MAX,
+          f"{label}: {scan['host_aten_ops']} host aten ops a step under scan")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_in_mode(cli, args, mode: str):
+    """``cli.train_and_evaluate(args)`` with the Trainer's dispatch set to
+    ``mode`` (the CLIs take no dispatch flag, as rectpu's: "auto")."""
+    build = trainers_common.build_trainer
+
+    def build_in_mode(*a, **kw):
+        trainer = build(*a, **kw)
+        trainer.config.dispatch_mode = mode
+        return trainer
+
+    trainers_common.build_trainer = build_in_mode
+    try:
+        return cli.train_and_evaluate(args)
+    finally:
+        trainers_common.build_trainer = build
+
+
+def cli_pair(cli, work: Path, label: str, argv, profile_dir: Path | None = None) -> dict:
+    """One trainer CLI run (``train_and_evaluate``) in each mode, the same
+    flags and seed: bitwise equal in every loss, leaf and eval metric; the
+    scan run optionally with ``--profile-dir``."""
+    runs, out = {}, {}
+    for mode in ("pipelined", "scan"):
+        args = cli.build_parser().parse_args(
+            ["--train-csv", str(work / "data" / "train.csv"),
+             "--test-csv", str(work / "data" / "test.csv"), "--job-dir",
+             str(work / f"dispatch_{label}_{mode}"), "--device", "cuda",
+             "--save-checkpoints-steps", "1000000", *map(str, argv)])
+        if mode == "scan" and profile_dir is not None:
+            args.profile_dir = str(profile_dir)
+        metrics, trainer = cli_in_mode(cli, args, mode)
+        check(trainer.dispatch == mode, f"{label}: the CLI dispatched {trainer.dispatch}")
+        runs[mode] = (trainer.step_losses, trainer)
+        out[f"metrics_{mode}"] = metrics
+    out["leaves_compared"] = check_same_training(runs, label)
+    check(out["metrics_scan"] == out["metrics_pipelined"],
+          f"{label}: eval {out['metrics_scan']} vs {out['metrics_pipelined']}")
+    graph = runs["scan"][1].step_graph
+    out["replays"], out["per_replay"] = graph.replays, {c.name: n for c, n in graph.per_replay}
+    check(graph.graph is not None and graph.replays == len(runs["scan"][0]) - WARMUP_STEPS,
+          f"{label}: {graph.replays} replays")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_phase(work: Path, seed: int) -> dict:
+    """Phase 5f (module docstring): scan against pipelined on the card."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    # the parity config (the reference defaults: K=4 [16, 16], dropout 0.1,
+    # batch 32, Adam 1e-3) through the DeepFM CLI, both dropout impls, 120
+    # steps in loops of 50, 50 and 20 with a checkpoint, eval and export
+    # after each of the first two; the scan run traces its second loop
+    argv = ("--train-steps", PARITY_STEPS, "--steps-per-loop", PARITY_LOOP, "--seed", seed,
+            "--save-checkpoints-steps", PARITY_LOOP)
+    for impl in ("hash", "threefry"):
+        prof_dir = work / f"dispatch_profile_{impl}"
+        res = out[f"parity_cli_{impl}"] = cli_pair(deep_fm_cli, work, f"parity_{impl}",
+                                                   (*argv, "--dropout-impl", impl), prof_dir)
+        traces = sorted(prof_dir.glob("*.pt.trace.json"))
+        check(len(traces) == 1, f"parity {impl}: --profile-dir under scan wrote {len(traces)}")
+        text = traces[0].read_text()
+        res["trace_kernels"] = [n for n in ("lookup_", "fm_fwd", "fm_bwd", "scatter")
+                                if n in text]
+        check(len(res["trace_kernels"]) == 4,
+              f"parity {impl}: the scan window's trace names {res['trace_kernels']}")
+    # the same config driven loop by loop for its times
+    fs = ml_100k_feature_set()
+    data = CsvDataset(str(work / "data" / "train.csv"), fs)
+
+    def parity(mode):
+        model = DeepFMModel(TowerConfig(feature_set=fs, embedding_size=4, hidden_units=(16, 16),
+                                        dropout=0.1, dropout_impl="hash"))
+        load_params(model, model.init(torch.Generator().manual_seed(seed)), dev)
+        trainer = Trainer(model, adam(1e-3), data, None, work / f"dispatch_parity_{mode}",
+                          TrainConfig(batch_size=32, steps_per_loop=PARITY_LOOP, seed=seed,
+                                      dispatch_mode=mode), device=dev)
+        trainer.opt_state = trainer.optimizer.init(flat_params(model))
+        return trainer
+
+    out["parity"] = dispatch_pair("parity", parity, (PARITY_LOOP, PARITY_LOOP, 20),
+                                  (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+                                   scatter_ops.launches))
+    # the flagship step (bench.py's: fused Adam on the table, bf16 m, bf16-SR v)
+    gen = torch.Generator().manual_seed(seed)
+    p0 = params_tree(flagship_model(0.1, dev, gen=gen))  # host copies
+    rng = np.random.default_rng(seed + 5)
+    rows = sum(DISPATCH_LOOPS) * FLAGSHIP_BATCH
+    data = CsvDataset.from_arrays(random_ids(bench_feature_set(), rows, rng),
+                                  (rng.random(rows) < 0.2).astype(np.float32))
+
+    def flagship(mode):
+        trainer = flagship_trainer(flagship_model(0.1, dev, params=p0), work, train_ds=data)
+        trainer.config.dispatch_mode = mode
+        return trainer
+
+    out["flagship"] = dispatch_pair("flagship", flagship, DISPATCH_LOOPS,
+                                    (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+                                     scatter_ops.launches, adam_ops.launches))
+    del p0, data
+    # the full-width fast step (threefry dropout: the graph's generators)
+    fs = big_feature_set()
+    p0 = params_tree(fast_model(fs, 0.1, dev, seed))
+    rows = sum(DISPATCH_LOOPS) * BIG_BATCH
+    data = CsvDataset.from_arrays(random_ids(fs, rows, rng),
+                                  (rng.random(rows) < 0.2).astype(np.float32))
+
+    def fast(mode):
+        model = fast_model(fs, 0.1, dev, params=p0)
+        step = make_sparse_step(model, learning_rate=1e-3, scatter_backend="dma")
+        trainer = Trainer(model, adam(1e-3), data, None, work / f"dispatch_fast_{mode}",
+                          TrainConfig(batch_size=BIG_BATCH, seed=0, dispatch_mode=mode,
+                                      steps_per_loop=max(DISPATCH_LOOPS)),
+                          device=dev, fast_step=step)
+        trainer.opt_state = step[0](flat_params(model))
+        return trainer
+
+    out["fast_step"] = dispatch_pair("fast_step", fast, DISPATCH_LOOPS,
+                                     (emb_ops.launches, fm_ops.launches, fm_ops.bwd_launches,
+                                      scatter_ops.segment_launches, dma_ops.launches))
+    del p0, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the families through their CLIs at batch 512, default optimizers
+    for label, cli, model_args in FAMILY_DISPATCH:
+        out[f"family_{label}"] = cli_pair(
+            cli, work, label, (*model_args, "--batch-size", FAMILY_DISPATCH_BATCH,
+                               "--train-steps", FAMILY_DISPATCH_STEPS, "--steps-per-loop", 10,
+                               "--seed", seed))
+    # under a plan on the card: "auto" pipelines and "scan" raises, before any step
+    plan = types.SimpleNamespace(mesh=types.SimpleNamespace(device=dev), lookup_fn=None,
+                                 batch_index=0, batch_shards=1, tp_mlp=False)
+    model = DeepFMModel(TowerConfig(feature_set=ml_100k_feature_set()))
+    auto = Trainer(model, adam(1e-3), None, None, work / "dispatch_plan",
+                   TrainConfig(batch_size=32), plan=plan)
+    check(auto.dispatch == "pipelined", f"auto under a plan on the card: {auto.dispatch}")
+    try:
+        Trainer(model, adam(1e-3), None, None, work / "dispatch_plan",
+                TrainConfig(batch_size=32, dispatch_mode="scan"), plan=plan)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and "Gloo" in raised, "scan under a plan on the card did not raise")
+    out["plan_scan_raises"] = raised
+    return out
 
 
 # --- phase 5b: --autotune and --profile-dir through the trainer CLI --------
@@ -3581,6 +3893,33 @@ def main(argv=None) -> int:
         print(f"check: autoint attention forms card vs CPU (zoo model, bf16, B="
               f"{AUTOINT_FORMS_ROWS}): max |logit difference| {forms}")
 
+        # 5f. the dispatch modes: scan (a CUDA graph of the step) against pipelined
+        disp = main_path["dispatch"] = dispatch_phase(work, args.seed)
+        for label in ("parity_cli_hash", "parity_cli_threefry", *(
+                f"family_{f}" for f, _, _ in FAMILY_DISPATCH)):
+            r = disp[label]
+            print(f"dispatch {label} (trainer CLI): scan equal to pipelined bit for bit in "
+                  f"the losses, {r['leaves_compared']} leaves and the eval "
+                  f"{r['metrics_scan']}; {r['replays']} graph replays of "
+                  f"{sum(r['per_replay'].values())} launches of the port's kernels each "
+                  f"{r['per_replay']}"
+                  + (f"; --profile-dir's trace names {r['trace_kernels']}"
+                     if "trace_kernels" in r else "") + f" [{gpu}]")
+        for label in ("parity", "flagship", "fast_step"):
+            r = disp[label]
+            sc, pi = r["scan"], r["pipelined"]
+            print(f"dispatch {label}: wall ms a step scan {sc['wall_ms']:.4f} vs pipelined "
+                  f"{pi['wall_ms']:.4f}; device busy ms a step scan {sc['busy_ms']} vs "
+                  f"pipelined {pi['busy_ms']} in {sc['device_launches']:.1f} vs "
+                  f"{pi['device_launches']:.1f} device launches; host aten ops a step scan "
+                  f"{sc['host_aten_ops']:.2f} vs pipelined {pi['host_aten_ops']:.2f}; "
+                  f"{sc['replays']} replays, launches {sc['launches']} both ways, bitwise "
+                  f"equal over {r['leaves_compared']} leaves; top kernels under scan "
+                  f"{sc['top_kernels_ms']}; host ops a step under scan {sc['top_host_ops']} "
+                  f"[{gpu}]")
+        print(f"dispatch: under a plan on the card auto pipelines and scan raises: "
+              f"{disp['plan_scan_raises'][:60]}...")
+
         # 5d. check (3)(b): the reference-default DeepFM run
         if args.check3 == "on":
             c3 = main_path["check3"] = check3_default_run(work)
@@ -3836,6 +4175,11 @@ def main(argv=None) -> int:
     for name in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows", "segment_sum",
                  "fused_adam", "scatter_rows_dma", "interaction"):
         launches[name] += sum(r["launches"].get(name, 0) for r in sharded_runs)
+    # phase 5f's drives, both modes (a graph replay's launches counted as its capture's)
+    for case in ("parity", "flagship", "fast_step"):
+        for mode in ("scan", "pipelined"):
+            for name, n in main_path["dispatch"][case][mode]["launches"].items():
+                launches[name] += n
     # the int8 gather: the int8 serving runs and the int8 batch prediction
     launches["embedding_lookup_int8"] = sum(
         r["launches"]["embedding_lookup_int8"]

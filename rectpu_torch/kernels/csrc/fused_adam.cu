@@ -2,7 +2,8 @@
 //   m' = b1*m + (1-b1)*g            stored first (bf16 by stochastic rounding,
 //   v' = b2*v + (1-b2)*g*g           by round to nearest, or fp32)
 //   p' = p - lr_t * m'' / (sqrt(v'') + eps)   from the STORED slots m'', v''
-// with lr_t = lr*sqrt(1-b2^t)/(1-b1^t) computed by the caller, eps outside
+// with lr_t = lr*sqrt(1-b2^t)/(1-b1^t) computed by the caller (passed by
+// value, or in device memory for a step replayed from a CUDA graph), eps outside
 // the square root (TF's Adam), and a bf16 p rounded stochastically.
 //
 // Replaces rectpu/ops/fused_adam.py::_adam_tile_kernel (:51), run by
@@ -86,10 +87,16 @@ __device__ __forceinline__ float store(void* base, int kind, int64_t i, float x,
   return __uint_as_float(hi << 16);
 }
 
+// lr_t_dev / t_dev, when not null, hold lr_t and t in device memory (a step
+// captured in a CUDA graph reads them there; the values passed are then unused)
 __global__ void adam_kernel(void* __restrict__ p, void* __restrict__ m, void* __restrict__ v,
-                            const void* __restrict__ g, int64_t n, float lr_t, float beta1,
-                            float omb1, float beta2, float omb2, float eps, uint32_t t,
-                            int p_kind, int m_kind, int v_kind, int g_bf16) {
+                            const void* __restrict__ g, int64_t n, float lr_t_arg, float beta1,
+                            float omb1, float beta2, float omb2, float eps, uint32_t t_arg,
+                            const float* __restrict__ lr_t_dev,
+                            const long long* __restrict__ t_dev, int p_kind, int m_kind,
+                            int v_kind, int g_bf16) {
+  const float lr_t = lr_t_dev != nullptr ? *lr_t_dev : lr_t_arg;
+  const uint32_t t = t_dev != nullptr ? static_cast<uint32_t>(*t_dev) : t_arg;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -113,10 +120,13 @@ __global__ void adam_kernel(void* __restrict__ p, void* __restrict__ m, void* __
 // p, m, v, g: n contiguous elements each on one device, updated in place (p,
 // m, v). *_kind: 0 fp32, 1 bf16 rounded to nearest, 2 bf16 rounded
 // stochastically (a bf16 p is always 2). g_bf16: g is bf16, else fp32. t: the
-// step counter after its increment. Returns a cudaError_t as int (0 = ok).
+// step counter after its increment. lr_t_dev / t_dev: null, or one fp32 /
+// int64 in device memory that replaces lr_t / t. Returns a cudaError_t as int
+// (0 = ok).
 extern "C" int rectpu_fused_adam(void* p, void* m, void* v, const void* g, long long n,
                                  float lr_t, float beta1, float omb1, float beta2, float omb2,
-                                 float eps, unsigned int t, int p_kind, int m_kind, int v_kind,
+                                 float eps, unsigned int t, const float* lr_t_dev,
+                                 const long long* t_dev, int p_kind, int m_kind, int v_kind,
                                  int g_bf16, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
   if (p_kind < kF32 || p_kind > kBf16Sr || m_kind < kF32 || m_kind > kBf16Sr ||
@@ -126,6 +136,7 @@ extern "C" int rectpu_fused_adam(void* p, void* m, void* v, const void* g, long 
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   adam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, m, v, g, n, lr_t, beta1, omb1, beta2, omb2, eps, t, p_kind, m_kind, v_kind, g_bf16);
+      p, m, v, g, n, lr_t, beta1, omb1, beta2, omb2, eps, t, lr_t_dev, t_dev, p_kind, m_kind,
+      v_kind, g_bf16);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,8 +66,9 @@ ATT_IMPLS = ("broadcast", "bf16", "grouped")
 
 
 def _sqrt(dh: int, device) -> torch.Tensor:
-    """sqrt(dh) in fp32, as rectpu's ``jnp.sqrt(jnp.float32(dh))``."""
-    return torch.sqrt(torch.tensor(float(dh), device=device))
+    """sqrt(dh) in fp32, as rectpu's ``jnp.sqrt(jnp.float32(dh))``. (A fill,
+    not a host-to-device copy, so a CUDA graph can capture it.)"""
+    return torch.sqrt(torch.full((), float(dh), dtype=torch.float32, device=device))
 
 
 def grouped_field_attention(q, k, v, g: int) -> torch.Tensor:
@@ -81,7 +82,7 @@ def grouped_field_attention(q, k, v, g: int) -> torch.Tensor:
     blk = torch.arange(gm, device=q.device) // m
     mask = blk[:, None] == blk[None, :]
     logits = torch.where(mask, logits / _sqrt(dh, q.device),
-                         torch.tensor(float("-inf"), device=q.device))
+                         torch.full((), float("-inf"), device=q.device))
     att = torch.softmax(logits, dim=3).to(q.dtype)
     out = torch.einsum("bhij,bjhd->bihd", att.float(), vg).to(q.dtype)
     return out.reshape(b, m, nh, dh)

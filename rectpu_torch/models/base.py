@@ -23,7 +23,7 @@ from torch import nn
 
 from rectpu_torch.features.schema import FeatureSet
 from rectpu_torch.ops.embedding import dequant_gather, lookup
-from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index, mul32
+from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index, mul32, mul_u32
 
 
 def truncated_normal(generator: torch.Generator, shape, stddev: float) -> torch.Tensor:
@@ -68,7 +68,7 @@ def init_mlp(generator: torch.Generator, in_dim: int, hidden_units, out_dim: int
     ]
 
 
-def hash_dropout_mask(seed32: int, shape, rate: float, device=None,
+def hash_dropout_mask(seed32, shape, rate: float, device=None,
                       row_offset: int = 0) -> torch.Tensor:
     """Counter-hash Bernoulli(1 - rate) keep mask, bit for bit rectpu's
     (``rectpu/models/base.py:72-135``): for an even last width one hash per
@@ -80,7 +80,11 @@ def hash_dropout_mask(seed32: int, shape, rate: float, device=None,
     ``row_offset``: ``shape`` is rows [row_offset, row_offset + shape[0]) of
     the global batch, and the hashes key on the global element index, so a
     rank's slice gets the rows of the global mask (rectpu masks the global
-    array under GSPMD)."""
+    array under GSPMD).
+
+    ``seed32`` is a Python int or a 0-d int64 tensor on ``device`` holding
+    the same uint32 value (a step that reads its scalars on the device);
+    both give the same bits."""
     shape = tuple(int(d) for d in shape)
     if rate <= 0.0:
         return torch.ones(shape, dtype=torch.bool, device=device)
@@ -115,24 +119,82 @@ def step_seed32(seed: int, step: int) -> int:
     return h ^ (h >> 16)
 
 
-def tower_seed32(seed32: int | None, salt: int) -> int | None:
+def tower_seed32(seed32, salt: int):
     """The dropout seed of one tower of a model with several (DLRM's top
     MLP): rectpu folds a salt into the step's key (``fold_in(rng, 2)``,
     ``rectpu/models/dlrm.py:164``); the port mixes the salt into the step's
-    seed32 with the murmur3 finalizer. None stays None (no dropout seed)."""
+    seed32 with the murmur3 finalizer. None stays None (no dropout seed); a
+    ``DeviceSeed`` gives a ``DeviceSeed``."""
     if seed32 is None:
         return None
+    if isinstance(seed32, DeviceSeed):
+        return seed32.map(lambda s: tower_seed32(s, salt))
     h = (seed32 ^ ((salt * 0x9E3779B9) & MASK32)) & MASK32
     h ^= h >> 16
-    h = (h * 0x85EBCA6B) & MASK32
+    h = mul_u32(h, 0x85EBCA6B)
     h ^= h >> 13
-    h = (h * 0xC2B2AE35) & MASK32
+    h = mul_u32(h, 0xC2B2AE35)
     return h ^ (h >> 16)
 
 
-def _layer_seed(seed32: int, i: int) -> int:
+def _layer_seed(seed32, i: int):
     """rectpu's per-layer salt: seed32 + 0x7FEB352D * (i + 1) in uint32 (base.py:164-165)."""
+    if isinstance(seed32, DeviceSeed):
+        return seed32.map(lambda s: _layer_seed(s, i))
     return (seed32 + 0x7FEB352D * (i + 1)) & MASK32
+
+
+class ThreefrySites:
+    """The threefry dropout generators of a step whose seed lives on the
+    device (``DeviceSeed``): one ``torch.Generator`` per dropout call of the
+    step, in call order, kept across steps. ``begin(seed32)`` reseeds each
+    with its call's seed for the step's host seed32, which is what a fresh
+    ``Generator(...).manual_seed(seed)`` per call (the host path) draws
+    from; a CUDA graph that registered the generators replays its draws from
+    the seeds set this way. A call first seen is seeded when it is made, and
+    none may appear once ``frozen`` (a graph holds the sites)."""
+
+    def __init__(self):
+        self.sites: list = []  # (generator, host function of the step's seed32)
+        self.frozen = False
+        self._seed32 = 0
+        self._next = 0
+
+    def begin(self, seed32: int) -> None:
+        self._seed32, self._next = seed32, 0
+        for gen, host in self.sites:
+            gen.manual_seed(host(seed32))
+
+    def reseed(self) -> None:
+        """Seed the generators again for the current step."""
+        self.begin(self._seed32)
+
+    def generator(self, device, host) -> torch.Generator:
+        i = self._next
+        self._next += 1
+        if i == len(self.sites):
+            if self.frozen:
+                raise RuntimeError("a threefry dropout call appeared after the step's CUDA "
+                                   "graph was captured")
+            gen = torch.Generator(device=device)
+            gen.manual_seed(host(self._seed32))
+            self.sites.append((gen, host))
+        return self.sites[i][0]
+
+
+class DeviceSeed:
+    """A step's dropout seed read on the device: ``value``, the 0-d int64
+    tensor holding the uint32 seed that the hash masks take, and ``host``,
+    the same value as a function of the step's host seed32, from which a
+    threefry call's generator (``sites``) is seeded. ``map`` applies a seed
+    function (``_layer_seed``, ``tower_seed32``) to both."""
+
+    def __init__(self, value: torch.Tensor, host, sites: ThreefrySites):
+        self.value, self.host, self.sites = value, host, sites
+
+    def map(self, fn) -> DeviceSeed:
+        host = self.host
+        return DeviceSeed(fn(self.value), lambda s: fn(host(s)), self.sites)
 
 
 def _dot(x: torch.Tensor, kernel: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -156,10 +218,16 @@ def _dropout(x: torch.Tensor, dropout: float, salt: int, dropout_impl: str, row_
     if columns is not None:
         shape = shape[:-1] + (columns[1],)
     if dropout_impl == "hash":
-        keep = hash_dropout_mask(salt, shape, dropout, device=x.device, row_offset=row_offset)
+        seed = salt.value if isinstance(salt, DeviceSeed) else salt
+        keep = hash_dropout_mask(seed, shape, dropout, device=x.device, row_offset=row_offset)
     else:
-        gen = torch.Generator(device=x.device).manual_seed(
-            (salt + 0x9E3779B9 * row_offset) & MASK32)
+        if isinstance(salt, DeviceSeed):
+            host = salt.host
+            gen = salt.sites.generator(
+                x.device, lambda s: (host(s) + 0x9E3779B9 * row_offset) & MASK32)
+        else:
+            gen = torch.Generator(device=x.device).manual_seed(
+                (salt + 0x9E3779B9 * row_offset) & MASK32)
         keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - dropout
     if columns is not None:
         keep = keep[..., columns[0]:columns[0] + x.shape[-1]]
@@ -182,11 +250,13 @@ def apply_mlp(layers, x: torch.Tensor, activation, compute_dtype=None, *,
     as JAX's weak type). ``seed32`` (``step_seed32``) seeds both dropout
     impls: "hash" through ``hash_dropout_mask`` with rectpu's per-layer salt,
     "threefry" through a ``torch.Generator`` seeded with the same salted
-    value. ``row_offset`` is the first global batch row of ``x`` (a rank's
-    slice under a ParallelPlan): the hash mask keys on global rows, and the
-    threefry stream is salted with it (0 leaves it as it is). ``tp`` (a
-    ``parallel.plan.TowerParallel``) runs the tower tensor-parallel
-    (``_apply_mlp_tp``). Returns [B, out] fp32."""
+    value. A ``DeviceSeed`` (a step that reads its scalars on the device)
+    gives the same masks: the hash takes its tensor, threefry the
+    generators of its ``ThreefrySites``. ``row_offset`` is the first global
+    batch row of ``x`` (a rank's slice under a ParallelPlan): the hash mask
+    keys on global rows, and the threefry stream is salted with it (0 leaves
+    it as it is). ``tp`` (a ``parallel.plan.TowerParallel``) runs the tower
+    tensor-parallel (``_apply_mlp_tp``). Returns [B, out] fp32."""
     if tp is not None:
         return _apply_mlp_tp(layers, x, activation, compute_dtype, dropout, train, seed32,
                              dropout_impl, row_offset, tp)

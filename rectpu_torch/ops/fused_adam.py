@@ -7,6 +7,11 @@ slots stored first and the parameter step taken from the stored (down-cast)
 slots, stochastic rounding keyed on the flat index ``row*W + col`` and
 seeded with ``t`` (a bf16 parameter with ``t + 2**30``).
 
+``t`` and ``lr_t`` (default: ``adam_lr_t`` of ``t``) are host numbers or 0-d
+tensors on the parameters' device (int64 ``t``, fp32 ``lr_t``): a step
+captured in a CUDA graph reads them from device memory, and both forms give
+the same bits.
+
   - On CUDA tensors: the hand-written kernel ``kernels/csrc/fused_adam.cu``
     (the port of ``_adam_tile_kernel``, ``rectpu/ops/fused_adam.py:51``),
     which updates p, m and v IN PLACE (rectpu aliases them too,
@@ -21,6 +26,7 @@ the plain version's elementwise ops do (see the note in the source).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,19 +40,20 @@ _SIGNATURES = {
     "rectpu_fused_adam": (
         [ctypes.c_void_p] * 4
         + [ctypes.c_longlong] + [ctypes.c_float] * 6
-        + [ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p],
+        + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def stochastic_round_bf16(x: torch.Tensor, seed: int) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, seed) -> torch.Tensor:
     """Unbiased fp32 -> bf16 downcast, bit for bit rectpu's
     (``optimizers.stochastic_round_bf16``, :47, and ``_sr_bits`` here, :37):
     the low 16 bits of the counter hash of (flat element index, seed mod
-    2**32) are added to the fp32 bit pattern, which is then truncated."""
+    2**32) are added to the fp32 bit pattern, which is then truncated.
+    ``seed``: a Python int or a 0-d int64 tensor on x's device."""
     if x.dtype != torch.float32:
         raise ValueError(f"stochastic rounding takes float32, got {x.dtype}")
     xi = x.contiguous().view(torch.int32).to(torch.int64) & MASK32
@@ -64,17 +71,49 @@ def adam_lr_t(t: int, lr: float, beta1: float, beta2: float) -> torch.Tensor:
     return lr * torch.sqrt(1.0 - beta2 ** tf_) / (1.0 - beta1 ** tf_)
 
 
+LR_T_CHUNK = 15  # below twice any CPU vector width of fp32 (8 or 16 lanes)
+
+
+def adam_lr_t_values(ts, lr: float, beta1: float, beta2: float) -> list:
+    """``adam_lr_t`` of every t of ``ts`` as Python floats, bit for bit, in
+    a few tensor ops: the values go through the same ops in vectors of at
+    most LR_T_CHUNK, which PyTorch's CPU elementwise kernels run on their
+    scalar path (the one a 0-d tensor takes) below twice the vector width;
+    a longer vector would take the vector ``pow``, whose last bit differs."""
+    b1, b2, one = _fp32_constants(beta1, beta2, 1.0)
+    out = []
+    for i in range(0, len(ts), LR_T_CHUNK):
+        tf_ = torch.tensor([float(t) for t in ts[i:i + LR_T_CHUNK]], dtype=torch.float32)
+        out += (lr * torch.sqrt(one - b2 ** tf_) / (one - b1 ** tf_)).tolist()
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _fp32_constants(*values: float) -> tuple:
+    """0-d fp32 tensors of ``values``: the operands ``adam_lr_t``'s Python
+    floats become, made once (fewer host ops a loop)."""
+    return tuple(torch.tensor(v, dtype=torch.float32) for v in values)
+
+
 def _store(x: torch.Tensor, dtype: torch.dtype, sr: bool, seed: int) -> torch.Tensor:
     if sr:
         return stochastic_round_bf16(x, seed)
     return x.to(dtype)
 
 
-def fused_adam_plain(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
+def _lr_t(t, lr_t, lr: float, beta1: float, beta2: float):
+    if lr_t is not None:
+        return lr_t
+    if isinstance(t, torch.Tensor):
+        raise ValueError("a tensor t needs its lr_t (adam_lr_t on the host)")
+    return float(adam_lr_t(t, lr, beta1, beta2))  # exactly its fp32 value
+
+
+def fused_adam_plain(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
-                     v_sr: bool = False):
+                     v_sr: bool = False, lr_t=None):
     """Plain version: returns new (p', m', v') in p's, m's and v's dtypes."""
-    lr_t = float(adam_lr_t(t, lr, beta1, beta2))  # exactly its fp32 value
+    lr_t = _lr_t(t, lr_t, lr, beta1, beta2)
     g32 = g.float()
     m_new = _store(beta1 * m.float() + (1.0 - beta1) * g32, m.dtype, m_sr, t)
     v_new = _store(beta2 * v.float() + (1.0 - beta2) * g32 * g32, v.dtype, v_sr, t)
@@ -83,11 +122,23 @@ def fused_adam_plain(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
     return p_new, m_new, v_new
 
 
-def fused_adam_cuda(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
+def _device_scalar(x, dtype: torch.dtype, device, name: str) -> int:
+    """The address of a 0-d ``dtype`` tensor on ``device`` (0 for a host number)."""
+    if not isinstance(x, torch.Tensor):
+        return 0
+    if x.dim() != 0 or x.dtype != dtype or x.device != device:
+        raise ValueError(f"{name} must be a 0-d {dtype} tensor on {device}, got "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    return x.data_ptr()
+
+
+def fused_adam_cuda(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
                     beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
-                    v_sr: bool = False):
+                    v_sr: bool = False, lr_t=None):
     """Launch the fused Adam kernel, updating p, m and v in place: [V, W]
-    tensors, contiguous, fp32 or bf16, on one card. Returns (p, m, v)."""
+    tensors, contiguous, fp32 or bf16, on one card. ``t`` / ``lr_t``: host
+    numbers, or 0-d int64 / fp32 tensors on the card that the kernel reads.
+    Returns (p, m, v)."""
     tensors = (p, m, v, g)
     if not all(x.is_cuda and x.device == p.device for x in tensors):
         raise ValueError("fused_adam_cuda needs p, m, v and g on one CUDA device")
@@ -98,7 +149,9 @@ def fused_adam_cuda(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
         raise ValueError("fused_adam_cuda needs contiguous p, m, v and g of one shape")
     if (m_sr and m.dtype != torch.bfloat16) or (v_sr and v.dtype != torch.bfloat16):
         raise ValueError("stochastic rounding stores a bfloat16 slot")
-    lr_t = float(adam_lr_t(t, lr, beta1, beta2))
+    lr_t = _lr_t(t, lr_t, lr, beta1, beta2)
+    t_dev = _device_scalar(t, torch.int64, p.device, "t")
+    lr_dev = _device_scalar(lr_t, torch.float32, p.device, "lr_t")
 
     def kind(x, sr):
         return _F32 if x.dtype == torch.float32 else (_BF16_SR if sr else _BF16)
@@ -108,7 +161,8 @@ def fused_adam_cuda(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.rectpu_fused_adam(
             p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), p.numel(),
-            lr_t, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps, t & MASK32,
+            0.0 if lr_dev else lr_t, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+            0 if t_dev else t & MASK32, lr_dev or None, t_dev or None,
             kind(p, True), kind(m, m_sr), kind(v, v_sr), int(g.dtype == torch.bfloat16),
             stream)
     if err != 0:
@@ -117,10 +171,10 @@ def fused_adam_cuda(p, m, v, g, t: int, *, lr: float, beta1: float = 0.9,
     return p, m, v
 
 
-def fused_adam_table(p, m, v, g, t: int, **kwargs):
+def fused_adam_table(p, m, v, g, t, **kwargs):
     """Adam step for a [V, W] table; ``t`` is the step counter after its
-    increment. CPU tensors take the plain version (new tensors), CUDA
-    tensors the kernel (in place)."""
+    increment (and ``lr_t``, when given, its rate). CPU tensors take the
+    plain version (new tensors), CUDA tensors the kernel (in place)."""
     if all(x.device.type == "cpu" for x in (p, m, v, g)):
         return fused_adam_plain(p, m, v, g, t, **kwargs)
     return fused_adam_cuda(p, m, v, g, t, **kwargs)

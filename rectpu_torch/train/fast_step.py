@@ -23,9 +23,12 @@ lazy Adam (untouched rows keep stale m/v and take no step), matching
 "v": {"rest": ...}, "mv_sparse": {"table" | "emb" [, "w"]: slab}, "t":
 int32}`` with each rest subtree flat, keyed by parameter path
 (``convert.sparse_state_tree`` nests it as rectpu does);
-``step(params, opt_state, batch, seed32)`` updates the parameters and the
-state in place and returns the loss. Each step's dropout seed is the
-caller's (``Trainer`` passes ``models.base.step_seed32(seed, step)``).
+``step(params, opt_state, batch, scalars)`` updates the parameters and the
+state in place and returns the loss. ``scalars`` are the step's
+(``train/dispatch``: the dropout seed, ``t`` and ``lr_t``, host numbers or
+the device tensors a CUDA graph of the step reads), as the Trainer's dense
+step takes them; a dropout seed32 or None in their place takes the step
+after the state's counter on the host, with that seed.
 
 Sharded (``plan``, a ``parallel.ParallelPlan``; rectpu's ``fast_step.py:
 55-240``): each rank runs the step on its batch slice. Under EP the rows come
@@ -48,8 +51,8 @@ import torch
 
 from rectpu_torch.ops.embedding import gather_rows
 from rectpu_torch.train import metrics as metrics_lib
-from rectpu_torch.train.sparse import (adam_lr_t, dedupe_rows, sparse_adam_rows_packed,
-                                       unique_capacity)
+from rectpu_torch.train.dispatch import StepScalars
+from rectpu_torch.train.sparse import dedupe_rows, sparse_adam_rows_packed, unique_capacity
 
 _LINEAR_W = "linear/w"
 
@@ -143,7 +146,9 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
                               for name, key in sparse_keys.items()},
                 "t": torch.zeros((), dtype=torch.int32)}
 
-    def step(params: dict, opt_state: dict, batch: dict, seed32: int | None) -> torch.Tensor:
+    def step(params: dict, opt_state: dict, batch: dict, scalars) -> torch.Tensor:
+        if scalars is None or isinstance(scalars, int):  # a dropout seed32, or none
+            scalars = StepScalars.after(opt_state, scalars)
         ids = batch["cat_ids"]
         dtype = cfg.torch_compute_dtype
         with torch.no_grad():
@@ -155,7 +160,8 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
         looked.requires_grad_(True)
         rest = rest_of(params)
         lp = looked.to(dtype) if dtype is not None else looked
-        logits = model.apply_looked(lp, batch.get("num_vals"), train=True, seed32=seed32)
+        logits = model.apply_looked(lp, batch.get("num_vals"), train=True,
+                                    seed32=scalars.seed32)
         losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
         if "weights" in batch:
             w = batch["weights"]
@@ -175,8 +181,8 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
             plan.reduce_grads(rest_grads)
             grads = (dlooked, *rest_grads.values())
 
-        t = int(opt_state["t"]) + 1
-        lr_t = adam_lr_t(learning_rate, t, beta1, beta2)
+        t = scalars.t
+        lr_t = scalars.lr_t(learning_rate, beta1, beta2)
         with torch.no_grad():
             # dense Adam on the small params
             for (key, p), g in zip(rest.items(), grads[1:]):
@@ -192,7 +198,7 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
             mv = opt_state["mv_sparse"]
             if sharded_update is not None:
                 sharded_update(params[table_key].detach(), mv[table_key], ids, dlooked, lr_t)
-                opt_state["t"] = torch.tensor(t, dtype=torch.int32)
+                scalars.commit(opt_state)
                 return loss.detach()
             cols = dlooked.shape[-1]
             cap = unique_capacity(field_sizes, ids.shape[0], ids.shape[0] * ids.shape[1])
@@ -210,7 +216,12 @@ def make_sparse_step(model, learning_rate: float = 0.001, beta1: float = 0.9,
                                         row_grads[:, :k], lr_t, beta1, beta2, epsilon)
                 sparse_adam_rows_packed(params[_LINEAR_W].detach(), mv["w"], rows,
                                         row_grads[:, k], lr_t, beta1, beta2, epsilon)
-        opt_state["t"] = torch.tensor(t, dtype=torch.int32)
+        scalars.commit(opt_state)
         return loss.detach()
 
     return init_opt_state, step
+
+
+# rectpu's historical name (``rectpu/train/fast_step.py:327``): the step was
+# DeepFM-only before the zoo grew apply_looked
+make_sparse_deepfm_step = make_sparse_step

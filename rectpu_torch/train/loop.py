@@ -7,12 +7,20 @@ eval pass and an export of the latest model; at the end a last checkpoint,
 the final eval and the export. Checkpoints and exports are in rectpu's
 layout, so either package restores or serves the other's.
 
+Dispatch (``TrainConfig.dispatch_mode``, rectpu's ``loop.py:55-61,
+268-272``; ``train/dispatch.py``): "pipelined" dispatches each step on its
+own, with one batch staged ahead of the step (rectpu's depth-2 prefetch);
+"scan" runs a loop's ``steps_per_loop`` steps from fixed device buffers
+(the loop's batches and per-step scalars, copied in once per loop), on the
+card as replays of a CUDA graph of one step, captured after a few eager
+warm-up steps (``StepGraph``), the counterpart of rectpu's one ``lax.scan``
+dispatch; "auto" pipelines from batch 2048 up, else scans. Both modes train
+bit for bit alike. Under a plan on the card "scan" raises and "auto"
+pipelines (Gloo cannot be captured). Either way the per-step losses are read
+back from the device once per loop, with the loop's log line.
+
 What differs from rectpu, and why:
 
-  - Dispatch is per step. rectpu runs ``steps_per_loop`` steps in one
-    ``lax.scan`` dispatch; PyTorch runs eagerly and has no such program, so
-    ``steps_per_loop`` sets only the logging cadence (a log line, and the
-    per-step losses read back from the device, once per loop).
   - Each step's dropout seed is ``models.base.step_seed32(seed, step)``.
   - ``data_placement`` "device" (and "auto" when the encoded train set fits
     ``data_placement_max_bytes``) uploads the encoded train set once and
@@ -89,6 +97,8 @@ from rectpu_torch.io.loader import DataState
 from rectpu_torch.models.base import step_seed32
 from rectpu_torch.train import metrics as metrics_lib
 from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
+from rectpu_torch.train.dispatch import (BatchBlock, ScalarBlock, StepGraph, StepScalars,
+                                         opt_counter, resolve_dispatch_mode, set_opt_counter)
 from rectpu_torch.utils.events import EventWriter
 from rectpu_torch.utils.logging import get_logger
 from rectpu_torch.utils.profiling import trace
@@ -115,6 +125,10 @@ class TrainConfig:
     eval_auc: str = "streaming"  # or "exact" (rank-based; streaming kept as auc_streaming)
     data_placement: str = "auto"  # "host", "device" or "auto"
     data_placement_max_bytes: int = 1 << 30
+    # how a loop's steps reach the device: "scan" (fixed buffers; on the card
+    # a CUDA graph of the step replayed per step), "pipelined" (each step
+    # dispatched on its own) or "auto" (pipelined from batch 2048 up)
+    dispatch_mode: str = "auto"
 
 
 class _NoEvents:
@@ -148,6 +162,9 @@ class Trainer:
             model.lookup_fn = plan.lookup_fn
             model.row_offset = plan.batch_index * (config.batch_size // plan.batch_shards)
             model.tp_plan = plan if plan.tp_mlp else None
+        # a bad mode, or scan under a plan on the card, raises before any step
+        resolve_dispatch_mode(config.dispatch_mode, config.batch_size, plan, self.device)
+        self.step_graph: StepGraph | None = None  # scan mode's step, once training ran
         self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
                                  async_write=config.async_checkpoint)
         self.warm_start_from: str | None = None
@@ -158,39 +175,61 @@ class Trainer:
         self.opt_state: dict | None = None
         self._eval_cache = None
 
+    @property
+    def dispatch(self) -> str:
+        """"scan" or "pipelined": ``config.dispatch_mode`` resolved
+        (``train/dispatch.resolve_dispatch_mode``)."""
+        cfg = self.config
+        return resolve_dispatch_mode(cfg.dispatch_mode, cfg.batch_size, self.plan, self.device)
+
     # -- one step ----------------------------------------------------------------
 
-    def loss(self, batch: dict, train: bool, step: int = 0) -> torch.Tensor:
-        seed32 = step_seed32(self.config.seed, step) if train else None
-        logits = self.model(batch["cat_ids"], batch["num_vals"], train=train, seed32=seed32)
+    def loss(self, batch: dict, train: bool, step: int = 0, seed32=None) -> torch.Tensor:
+        """The batch's loss; in train mode with dropout seeded by ``seed32``
+        (default ``step_seed32`` of ``step``)."""
+        if train and seed32 is None:
+            seed32 = step_seed32(self.config.seed, step)
+        logits = self.model(batch["cat_ids"], batch["num_vals"], train=train,
+                            seed32=seed32 if train else None)
         losses = metrics_lib.sigmoid_xent(logits, batch["labels"])
         if self.plan is not None:
             return self.plan.local_loss(losses, self.config.loss_reduction)
         return losses.sum() if self.config.loss_reduction == "sum" else losses.mean()
 
-    def train_step(self, batch: dict, step: int) -> torch.Tensor:
-        """Forward, backward and the optimizer update of step ``step``; returns
-        the loss (a device scalar, not waited for; sharded, this rank's share)."""
+    def train_step(self, batch: dict, scalars) -> torch.Tensor:
+        """Forward, backward and the optimizer update of one step; returns the
+        loss (a device scalar, not waited for; sharded, this rank's share).
+        ``scalars``: the step's scalars (``train/dispatch``: host numbers, or
+        the device tensors that scan mode's steps read), or the step's index
+        (host scalars: its ``step_seed32`` and the optimizer's next ``t``).
+        The pipelined and scan loops and a CUDA graph's capture all run this
+        function."""
+        if isinstance(scalars, int):
+            scalars = StepScalars.after(self.opt_state, step_seed32(self.config.seed, scalars))
         params = flat_params(self.model)
         if self.fast_step is not None:
-            return self.fast_step[1](params, self.opt_state, batch,
-                                     step_seed32(self.config.seed, step))
+            return self.fast_step[1](params, self.opt_state, batch, scalars)
         for p in params.values():
             p.grad = None
-        loss = self.loss(batch, train=True, step=step)
+        loss = self.loss(batch, train=True, seed32=scalars.seed32)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         if self.plan is not None:
             self.plan.reduce_grads(grads, self.model.cfg.torch_table_grad_dtype)
-        self.optimizer.update(grads, self.opt_state, params)
+        self.optimizer.update(grads, self.opt_state, params, scalars)
         return loss.detach()
 
     # -- data ----------------------------------------------------------------------
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        def put(v):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":  # a pinned copy does not wait for the card
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
+
+        return {k: put(v) for k, v in batch.items()}
 
     def _resident(self):
         """The encoded train set on the device, or None for host staging."""
@@ -214,26 +253,103 @@ class Trainer:
             return 1, 0
         return self.plan.batch_shards, self.plan.batch_index
 
-    def _batches(self, data_state):
+    def _host_batches(self, data_state, resident):
+        """This rank's train batches as the loader gives them, each with the
+        DataState after it: row indices into ``resident`` (the train set on
+        the device), else {key: array}."""
         cfg = self.config
-        resident = self._resident()
         n, pos = self._shards()
         if cfg.batch_size % n:
             raise ValueError(f"batch_size {cfg.batch_size} is not divisible by {n} batch "
                              "shards")
         shard = {"shard_id": pos, "num_shards": n} if n > 1 else {}
         if resident is None:
-            for batch, st in self.train_ds.train_batches(cfg.batch_size // n, state=data_state,
-                                                         seed=cfg.seed, **shard):
-                yield self._to_device(batch), st
-            return
-        for rows, st in self.train_ds.train_index_batches(cfg.batch_size // n,
-                                                          state=data_state, seed=cfg.seed,
-                                                          **shard):
-            idx = torch.from_numpy(rows)
-            if self.device.type == "cuda":  # a pinned copy does not wait for the card
-                idx = idx.pin_memory().to(self.device, non_blocking=True)
-            yield {k: v.index_select(0, idx) for k, v in resident.items()}, st
+            return self.train_ds.train_batches(cfg.batch_size // n, state=data_state,
+                                               seed=cfg.seed, **shard)
+        return self.train_ds.train_index_batches(cfg.batch_size // n, state=data_state,
+                                                 seed=cfg.seed, **shard)
+
+    def _stage(self, item, resident) -> dict:
+        """One batch of ``_host_batches`` on the device (pipelined dispatch)."""
+        if resident is None:
+            return self._to_device(item)
+        idx = self._to_device({"idx": item})["idx"]
+        return {k: v.index_select(0, idx) for k, v in resident.items()}
+
+    def _batches(self, data_state):
+        """The train batches on the device, one by one, each with the
+        DataState after it."""
+        resident = self._resident()
+        for item, st in self._host_batches(data_state, resident):
+            yield self._stage(item, resident), st
+
+    def loop_runner(self, resident):
+        """The function that runs one loop of the train loop in this
+        Trainer's dispatch mode: ``run(batches, step, k)`` takes the next k
+        batches of ``batches`` (``_host_batches`` over ``resident``, the
+        train set on the device or None), runs steps ``step`` ...
+        ``step + k - 1`` and returns their [k] losses on the device (this
+        rank's shares) and the DataState after the last batch."""
+        logger.info("dispatch: %s", self.dispatch)
+        if self.dispatch == "scan":
+            return self._scan_runner(resident)
+        return lambda batches, step, k: self._run_pipelined(batches, resident, step, k)
+
+    def _run_pipelined(self, batches, resident, step: int, k: int):
+        """Steps ``step`` ... ``step + k - 1`` dispatched one by one, with
+        rectpu's depth-2 prefetch (``loop.py:585-620``): the batch of step
+        i + 1 is staged before step i is dispatched. Returns the [k] losses
+        on the device and the DataState after the last batch."""
+        staged, data_state = [], None
+
+        def stage():
+            nonlocal data_state
+            item, data_state = next(batches)
+            staged.append(self._stage(item, resident))
+
+        for _ in range(min(2, k)):
+            stage()
+        losses = []
+        for i in range(k):
+            losses.append(self.train_step(staged.pop(0), step + i))
+            if i + 2 < k:
+                stage()
+        return torch.stack(losses).float(), data_state
+
+    def _scan_runner(self, resident):
+        """Scan dispatch (``train/dispatch.py``): a function that runs a
+        loop's k steps from fixed buffers (the loop's batches and scalars,
+        copied in first), each as one call of ``self.step_graph``, and
+        returns the [k] losses on the device and the DataState after the
+        last batch. The only host work between two steps is the threefry
+        generators' reseed and the call (on the card a graph replay)."""
+        cfg = self.config
+        block = ScalarBlock(cfg.steps_per_loop, self.device, cfg.seed)
+        data = BatchBlock(cfg.steps_per_loop, self.device, resident)
+        losses = torch.zeros(cfg.steps_per_loop, dtype=torch.float32, device=self.device)
+
+        def one_step():
+            loss = self.train_step(data.batch(block.counter), block.view())
+            losses.index_copy_(0, block.counter, loss.reshape(1).float())
+            block.advance()
+
+        self.step_graph = StepGraph(one_step, block, self.device)
+
+        def run(batches, step: int, k: int):
+            items, data_state = [], None
+            for _ in range(k):
+                item, data_state = next(batches)
+                items.append(item)
+            data.load(items)
+            t0 = opt_counter(self.opt_state)
+            block.load(step, t0, k)
+            for seed32 in block.host_seeds():
+                block.sites.begin(seed32)
+                self.step_graph()
+            set_opt_counter(self.opt_state, t0 + k)
+            return losses[:k].clone(), data_state
+
+        return run
 
     # -- eval ------------------------------------------------------------------------
 
@@ -257,7 +373,7 @@ class Trainer:
                                              losses=losses, weights=batch["weights"])
             probs_all.append(preds["probabilities"])
         if self.plan is not None:
-            state = self.plan.reduce_metric_state(state)
+            state = metrics_lib.psum_state(state, self.plan)
         result = metrics_lib.finalize(state)
         if cfg.eval_auc == "exact":
             # the rank statistic does not depend on the order of the union
@@ -417,7 +533,9 @@ class Trainer:
             self.plan.barrier()  # every rank restores (or not) before any rank trains
         self.model.train()
 
-        batches = self._batches(data_state)
+        resident = self._resident()
+        batches = self._host_batches(data_state, resident)
+        run_loop = self.loop_runner(resident)
         last_save = time.time()
         t_loop = time.time()
         examples = 0
@@ -428,11 +546,7 @@ class Trainer:
             traced = bool(self.profile_dir) and windows == 1 and self._rank0
             with (trace(self.profile_dir, cuda=self.device.type == "cuda") if traced
                   else contextlib.nullcontext()) as capture:
-                losses = []
-                for i in range(k):
-                    batch, data_state = next(batches)
-                    losses.append(self.train_step(batch, step + i))
-                stacked = torch.stack(losses).float()
+                stacked, data_state = run_loop(batches, step, k)
                 if self.plan is not None:
                     stacked = self.plan.global_value(stacked)  # the ranks' shares, summed
                 self.step_losses.extend(stacked.cpu().tolist())

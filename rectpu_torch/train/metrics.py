@@ -5,7 +5,9 @@ trainers/model_utils.py:9-54): the sigmoid cross-entropy, the prediction
 dict, and streaming accuracy, ROC-AUC, PR-AUC (TF's 200-threshold
 confusion-bucket estimator, trapezoidal summation: tf.metrics.auc defaults)
 and average loss, as a small dict of counters that ``update_state``
-accumulates on the model's device. ``exact_auc`` is the rank-based ROC-AUC.
+accumulates on the model's device; ``merge_states`` adds two states and
+``psum_state`` sums one over a plan's batch ranks. ``exact_auc`` is the
+rank-based ROC-AUC.
 """
 
 from __future__ import annotations
@@ -55,6 +57,18 @@ def update_state(state: dict, probs: torch.Tensor, labels: torch.Tensor,
     return {"tp": state["tp"] + tp, "fp": state["fp"] + fp, "tn": state["tn"] + tn,
             "fn": state["fn"] + fn, "correct": state["correct"] + correct,
             "loss_sum": state["loss_sum"] + loss_sum, "count": state["count"] + w.sum()}
+
+
+def merge_states(a: dict, b: dict) -> dict:
+    """The state of two disjoint sets of batches (rectpu's ``merge_states``)."""
+    return {k: a[k] + b[k] for k in a}
+
+
+def psum_state(state: dict, plan) -> dict:
+    """A rank's metric state summed over its ParallelPlan's batch ranks, the
+    ranks that hold the other rows of the eval set (rectpu's ``psum_state``
+    over the batch axis)."""
+    return plan.reduce_metric_state(state)
 
 
 def _trapezoid(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,13 @@ defaults, TF's initial accumulator values included:
 Interface: ``opt.init(params)`` -> a state of nested dicts whose innermost
 dicts mirror the parameters, keyed by parameter path (Adam: ``{"m": {key:
 t}, "v": {key: t}, "t": int32 scalar}``); ``opt.update(grads, state,
-params)`` updates the parameter tensors and the state in place. ``params``
+params, scalars=None)`` updates the parameter tensors and the state in
+place. ``scalars`` (``train/dispatch``) is the step's: its ``t`` seeds the
+stochastic rounding, its ``lr_t(lr, beta1, beta2)`` is Adam's rate, and
+``commit`` stores ``t`` in the state; host numbers (``StepScalars``) or 0-d
+device tensors that a CUDA graph of the step reads (``DeviceScalars``, whose
+``commit`` leaves the counter to the loop). None takes the step after the
+state's own counter, on the host. ``params``
 and ``grads`` are flat dicts keyed by rectpu's tree paths (``"table"``,
 ``"mlp/0/kernel"``), so ``fused_leaves`` and the combinators name top-level
 leaves as rectpu's do; ``per_subtree`` hands each optimizer its subtree keyed
@@ -52,7 +58,8 @@ from typing import Callable
 
 import torch
 
-from rectpu_torch.ops.fused_adam import adam_lr_t, fused_adam_table, stochastic_round_bf16
+from rectpu_torch.ops.fused_adam import fused_adam_table, stochastic_round_bf16
+from rectpu_torch.train.dispatch import StepScalars
 
 __all__ = ["BF16_SR", "Adam", "Optimizer", "adagrad", "adam", "bf16_param_store", "ftrl",
            "get_optimizer", "packed_wide_deep", "per_subtree", "rmsprop", "sgd",
@@ -144,11 +151,13 @@ class Adam:
         return key in self.fused_leaves and p.dim() == 2
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict, params: dict) -> None:
-        t = int(state["t"]) + 1
-        # fp32 value as a Python float: it multiplies an fp32 tensor exactly as
-        # the 0-d fp32 array does in rectpu, with no copy to the card
-        lr_t = float(adam_lr_t(t, self.learning_rate, self.beta1, self.beta2))
+    def update(self, grads: dict, state: dict, params: dict, scalars=None) -> None:
+        scalars = scalars or StepScalars.after(state)
+        t = scalars.t
+        # the fp32 rate, a Python float on the host path: it multiplies an fp32
+        # tensor exactly as the 0-d fp32 array does in rectpu, with no copy to
+        # the card (a 0-d fp32 tensor in a captured step)
+        lr_t = scalars.lr_t(self.learning_rate, self.beta1, self.beta2)
         for key, p in params.items():
             g = grads[key]
             m, v = state["m"][key], state["v"][key]
@@ -156,13 +165,13 @@ class Adam:
                 out = fused_adam_table(
                     p.detach(), m, v, g.contiguous(), t, lr=self.learning_rate,
                     beta1=self.beta1, beta2=self.beta2, eps=self.epsilon,
-                    m_sr=self.m_dtype == BF16_SR, v_sr=self.v_dtype == BF16_SR)
+                    m_sr=self.m_dtype == BF16_SR, v_sr=self.v_dtype == BF16_SR, lr_t=lr_t)
             else:
                 out = self._leaf_update(p.detach(), m, v, g, t, lr_t)
             for dst, src in zip((p, m, v), out):
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
-        state["t"] = torch.tensor(t, dtype=torch.int32)
+        scalars.commit(state)
 
     def _leaf_update(self, p, m, v, g, t, lr_t):
         """One leaf of rectpu's ``_treemap_update`` (optimizers.py:192-224)."""
@@ -195,7 +204,7 @@ def sgd(learning_rate: float = 0.001) -> Optimizer:
         return {}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         for key, p in params.items():
             _assign(p, p - _scale(learning_rate, grads[key]))
 
@@ -223,10 +232,11 @@ def adagrad(learning_rate: float = 0.001, initial_accumulator_value: float = 0.1
         return a.float() if slot_dtype is not None else a
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         t = None
         if "t" in state:
-            t = int(state["t"]) + 1
+            scalars = scalars or StepScalars.after(state)
+            t = scalars.t
         for key, p in params.items():
             g, a = grads[key], state["acc"][key]
             g32 = _g32(g)
@@ -239,7 +249,7 @@ def adagrad(learning_rate: float = 0.001, initial_accumulator_value: float = 0.1
             _assign(p, p - _scale(learning_rate, g) / torch.sqrt(up(a_new)))
             _assign(a, a_new)
         if t is not None:
-            state["t"] = torch.tensor(t, dtype=torch.int32)
+            scalars.commit(state)
 
     return Optimizer("Adagrad", init, update)
 
@@ -255,7 +265,7 @@ def rmsprop(learning_rate: float = 0.001, decay: float = 0.9, momentum: float = 
                 "mom": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         for key, p in params.items():
             g, s, mo = grads[key], state["ms"][key], state["mom"][key]
             ms = _scale(decay, s) + _scale(1 - decay, g) * g
@@ -297,7 +307,7 @@ def ftrl(learning_rate: float = 0.001, learning_rate_power: float = -0.5,
                 "z": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         for key, p in params.items():
             n, z = state["n"][key], state["z"][key]
             w_new, n_new, z_new = _ftrl_step(p, grads[key], n, z, learning_rate, l1, l2)
@@ -338,10 +348,10 @@ def per_subtree(mapping: dict, default) -> Optimizer:
     def init(params):
         return {k: opt_for(k).init(sub) for k, sub in _subtrees(params).items()}
 
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         sub_g = _subtrees(grads)
         for k, sub in _subtrees(params).items():
-            opt_for(k).update(sub_g[k], state[k], sub)
+            opt_for(k).update(sub_g[k], state[k], sub, scalars)
 
     names = ",".join(f"{k}:{v.name}" for k, v in mapping.items()) + f",*:{default.name}"
     return Optimizer(f"PerSubtree({names})", init, update)
@@ -375,9 +385,9 @@ def bf16_param_store(inner, leaves: tuple = ("table", "emb"),
         return {**params, **{k: v.to(dtype) for k, v in picked(params).items()}}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         master = state["master"]
-        inner.update(grads, state["inner"], {**params, **master})
+        inner.update(grads, state["inner"], {**params, **master}, scalars)
         for k, m in master.items():
             params[k].copy_(m.to(dtype))
 
@@ -429,7 +439,7 @@ def packed_wide_deep(embedding_size: int, linear_lr: float, deep_lr: float = 0.0
                 "linear": ft.init(linear), "rest": ada.init(other)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, scalars=None):
         table, p_lin, p_other = split(params)
         g_table, g_lin, g_other = split(grads)
         # deep columns: Adagrad
@@ -450,7 +460,7 @@ def packed_wide_deep(embedding_size: int, linear_lr: float, deep_lr: float = 0.0
         _assign(state["n"], n_new)
         _assign(state["z"], z_new)
         if p_lin:
-            ft.update(g_lin, state["linear"], p_lin)
-        ada.update(g_other, state["rest"], p_other)
+            ft.update(g_lin, state["linear"], p_lin, scalars)
+        ada.update(g_other, state["rest"], p_other, scalars)
 
     return Optimizer("PackedWideDeep(Ftrl+Adagrad)", init, update)

@@ -103,7 +103,7 @@ def sparse_adam_rows_packed(params: torch.Tensor, mv: torch.Tensor, rows: torch.
                             row_grads: torch.Tensor, lr_t: float, beta1: float = 0.9,
                             beta2: float = 0.999, epsilon: float = 1e-8,
                             sorted_rows: bool = True, scatter_backend: str = "xla",
-                            v_valid: int | None = None, sr_seed: int | None = None):
+                            v_valid: int | None = None, sr_seed=None):
     """``sparse_adam_rows`` with m and v packed as one slab, in place;
     returns (params, mv).
 
@@ -111,7 +111,9 @@ def sparse_adam_rows_packed(params: torch.Tensor, mv: torch.Tensor, rows: torch.
     with m in columns [0, W) and v in [wp, wp + W) (``wp`` > W is the
     lane-padded layout, zeros in the pad). A bf16 slab does the row math in
     fp32 and stores m as plain bf16 and v stochastically rounded, seeded with
-    ``sr_seed`` (the step t) over the [rows, W] array, as rectpu does.
+    ``sr_seed`` (the step t, a host int or a 0-d int64 device tensor) over
+    the [rows, W] array, as rectpu does. ``lr_t`` likewise: a float or a 0-d
+    fp32 tensor.
 
     ``scatter_backend`` "dma" writes through ``scatter_rows_dma`` (sentinels
     at or past ``v_valid``, default V - 256, at least 8 pad rows); "xla" is
@@ -134,7 +136,7 @@ def sparse_adam_rows_packed(params: torch.Tensor, mv: torch.Tensor, rows: torch.
     p_rows = gather_rows(p2, rows) - lr_t * m_rows / (torch.sqrt(v_rows) + epsilon)
     if bf16_slots:
         m_store = m_rows.to(torch.bfloat16)
-        v_store = stochastic_round_bf16(v_rows, int(sr_seed))
+        v_store = stochastic_round_bf16(v_rows, sr_seed)
     else:
         m_store, v_store = m_rows, v_rows
     if wp == w:

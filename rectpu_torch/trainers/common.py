@@ -71,8 +71,11 @@ def add_common_args(parser: ArgumentParser, job_dir_default: str) -> None:
     parser.add_argument("--save-checkpoints-steps", type=int, default=None,
                         help="step-based checkpoint+eval cadence (overrides secs)")
     parser.add_argument("--steps-per-loop", type=int, default=100,
-                        help="steps per logging loop (default: %(default)s); the port "
-                             "dispatches every step on its own")
+                        help="steps per host loop (default: %(default)s): the log line "
+                             "and the losses' read-back come once per loop; below batch "
+                             "2048 a loop's steps run from fixed device buffers, on the "
+                             "card as replays of a CUDA graph of the step (rectpu's "
+                             "dispatch_mode 'auto')")
     parser.add_argument("--seed", type=int, default=42, help="PRNG seed")
     parser.add_argument("--loss-reduction", default="mean", choices=["mean", "sum"],
                         help="per-batch loss reduction; 'sum' = TF-1.x head semantics")

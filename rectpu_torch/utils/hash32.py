@@ -21,11 +21,21 @@ def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & MASK32
 
 
-def counter_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
+def mul_u32(x, c: int):
+    """``(x * c) mod 2**32`` for a uint32 value ``x`` held as a Python int or
+    as an int64 tensor (``mul32``), so a seed computes the same bits either
+    way."""
+    if isinstance(x, torch.Tensor):
+        return mul32(x, c)
+    return (x * c) & MASK32
+
+
+def counter_hash(idx: torch.Tensor, seed) -> torch.Tensor:
     """rectpu's murmur-style hash of (element index, seed), as int64 in
     [0, 2**32): ``h = idx*2654435761 + seed*0x9E3779B9``, then
-    ``h ^= h >> 16; h *= 0x85EBCA6B; h ^= h >> 13`` in uint32."""
-    h = (mul32(idx, 2654435761) + ((seed & MASK32) * 0x9E3779B9 & MASK32)) & MASK32
+    ``h ^= h >> 16; h *= 0x85EBCA6B; h ^= h >> 13`` in uint32. ``seed`` is a
+    Python int or a 0-d int64 tensor (a step's seed read on the device)."""
+    h = (mul32(idx, 2654435761) + mul_u32(seed & MASK32, 0x9E3779B9)) & MASK32
     h = h ^ (h >> 16)
     h = mul32(h, 0x85EBCA6B)
     return h ^ (h >> 13)

@@ -511,7 +511,67 @@ def sparse_step_results(num_data: int, num_model: int, modes=("1d", "2d", "dedup
     return res
 
 
+METRIC_B = 24  # rows of the metric state each rank accumulates
+
+
+def metric_inputs(world: int, seed: int = 13):
+    """Per rank: (probs, labels, losses, weights) of its METRIC_B rows."""
+    rng = np.random.default_rng(seed)
+    n = world * METRIC_B
+    arrays = (rng.random(n).astype(np.float32), (rng.random(n) < 0.4).astype(np.float32),
+              rng.random(n).astype(np.float32), (rng.random(n) < 0.9).astype(np.float32))
+    return [tuple(a[r * METRIC_B:(r + 1) * METRIC_B] for a in arrays) for r in range(world)]
+
+
+DISPATCH_PLANS = {"data2": (2, 1, False), "ep2_dedup_fast": (1, 2, True)}
+
+
+def dispatch_results(tmp: str) -> dict:
+    """``metrics.psum_state`` of this rank's metric rows over a 2x1 plan;
+    then, for each plan of ``DISPATCH_PLANS``, the Trainer's 10 steps
+    (loops of 4, 4, 2; hash dropout) under dispatch "scan" (eager on the
+    CPU) and "pipelined" -> losses and gathered params per mode."""
+    import torch
+
+    from rectpu_torch.data.synthetic import write_synthetic_dataset
+    from rectpu_torch.features.schema import ml_100k_feature_set
+    from rectpu_torch.io.loader import CsvDataset
+    from rectpu_torch.models import DeepFMModel, TowerConfig
+    from rectpu_torch.train import metrics as metrics_lib
+    from rectpu_torch.train.fast_step import make_sparse_step
+    from rectpu_torch.train.loop import TrainConfig, Trainer
+
+    plan = _plan(2, 1)
+    probs, labels, losses, weights = (torch.from_numpy(a) for a in
+                                      metric_inputs(2)[plan.mesh.rank])
+    state = metrics_lib.update_state(metrics_lib.init_state(), probs, labels, losses, weights)
+    res = {"psum": {k: v.numpy() for k, v in metrics_lib.psum_state(state, plan).items()}}
+    rank = plan.mesh.rank
+    data = write_synthetic_dataset(Path(tmp) / f"data_{rank}", train_rows=600, test_rows=64,
+                                   seed=4)
+    fs = ml_100k_feature_set()
+    train_ds, eval_ds = CsvDataset(data["train"], fs), CsvDataset(data["test"], fs)
+    for name, (d, m, fast) in DISPATCH_PLANS.items():
+        for mode in ("scan", "pipelined"):
+            cfg = TowerConfig(feature_set=fs, embedding_size=4, hidden_units=(16, 16),
+                              dropout=0.1, dropout_impl="hash", packed_linear=fast)
+            model = DeepFMModel(cfg)
+            plan = _plan(d, m, table_rows=cfg.padded_buckets, ep_mode="dedup")
+            step = make_sparse_step(model, learning_rate=1e-3, plan=plan) if fast else None
+            trainer = Trainer(model, model.default_optimizer(), train_ds, eval_ds,
+                              Path(tmp) / f"job_{name}_{mode}", plan=plan, fast_step=step,
+                              config=TrainConfig(batch_size=32, train_steps=10,
+                                                 steps_per_loop=4, dispatch_mode=mode,
+                                                 save_checkpoints_steps=10**6, seed=5,
+                                                 final_eval=False))
+            trainer.train_and_evaluate(restore=False)
+            res[f"{name}_{mode}"] = {"losses": np.asarray(trainer.step_losses),
+                                     "params": _global_params(model, plan)}
+    return res
+
+
 CASES = {
+    "dispatch": dispatch_results,
     "lookups": lookup_case_results,
     "collectives": collectives_results,
     "steps": step_results,
