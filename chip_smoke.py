@@ -152,8 +152,8 @@ failed check raises, and the script exits nonzero without the final line:
    both ways (a replay's launches counted as its capture's); then the DLRM,
    xDeepFM, Linear (also with --streaming-io: batches staged from the
    host), DNN and Wide&Deep CLIs at batch 512, 20 steps, their default
-   optimizers. Under a plan on the card "auto" must pipeline and
-   "scan" raise before any step.
+   optimizers. Under a plan on the card "auto" must follow rectpu's batch
+   rule (scan below batch 2048).
 5d. Check (3)(b), with --check3 on only (it takes longer than the rest of
    the script, 138 s on an H100): the DeepFM trainer CLI at the reference
    defaults (K=4, [16, 16], dropout 0.1, batch 32, 20,000 steps) at --seed
@@ -223,9 +223,10 @@ failed check raises, and the script exits nonzero without the final line:
    (d) the DeepFM CLI under torchrun at 2 ranks (--num-model-shards 2
        --ep-mode dedup --ep-row-placement freq --ep-peer-capacity auto, the
        CLI's defaults with hash dropout, batch 64, 200 steps: rectpu's
-       multi-process configuration) against the CLI at 1 rank with the same
-       row placement (rectpu's _assert_matches tolerances on the eval
-       metrics and the parameter digest); its export is served;
+       multi-process configuration; batch 64 resolves to scan) against the
+       CLI at 1 rank with the same row placement (rectpu's _assert_matches
+       tolerances on the eval metrics and the parameter digest); its export
+       is served;
    (e) the tensor-parallel towers (--tp-mlp: each tower's kernels column-
        and row-sharded over 'model', rectpu's _tp_spec): the flagship step as
        in (b) on mesh 1x2 under 1d and 2d and on mesh 2x2 under 2d, and the
@@ -235,7 +236,23 @@ failed check raises, and the script exits nonzero without the final line:
        step, its sharded eval against one process's, and rank 0's checkpoint
        read back with every parameter and optimizer-state leaf in its global
        shape; then the DeepFM CLI of (d) with --tp-mlp at 2 torchrun ranks
-       against the same 1-rank run, its export served.
+       against the same 1-rank run, its export served;
+   (f) scan dispatch under a plan (each step after WARMUP_STEPS eager ones a
+       replay of the step's graph segments, cut at its collectives, with the
+       collectives run eagerly between them) against pipelined, from the
+       same params and batches, loops of SCAN_LOOPS: the flagship at 1x2
+       under 1d, 2d, dedup, 2d with the unflattened [B, F, K+1] exchange and
+       2d with --tp-mlp, at 2x2 under 2d, and (c)'s full-width fast step at
+       1x2 under dedup, bit for bit in every loss share, each rank's
+       parameter and optimizer-state leaves and the sharded eval; every step
+       after the warm-up a replay, the same launches of every kernel both
+       ways, the host's aten ops a rank and step under scan below
+       SCAN_HOST_OPS_SHARE of pipelined's; segments and collectives a step,
+       the wall ms a step both ways. Then (d)'s 2-rank CLI again, pipelined
+       (a script that sets the built Trainer's dispatch), bit for bit the
+       scan run in the eval and every checkpoint leaf, both runs traced
+       (--profile-dir: rank 0's second logging window) for the host's aten
+       ops a step and the port's kernels by name, the same both ways.
 7. Times: CUDA-event times of every kernel at the path's shapes (inputs cold
    in device memory, and L2-warm) beside its plain version, its bound and,
    where one PyTorch call computes the same function, that call (for the
@@ -352,6 +369,7 @@ from rectpu_torch.trainers import dlrm as dlrm_cli
 from rectpu_torch.trainers import linear as linear_cli
 from rectpu_torch.trainers import linear_deep as linear_deep_cli
 from rectpu_torch.trainers import xdeep_fm as xdeep_fm_cli
+from rectpu_torch.utils.hash32 import GlobalIndex
 from rectpu_torch.utils.events import read_events
 from rectpu_torch.utils.timing import event_ms
 
@@ -702,6 +720,10 @@ def fm_bwd_in_order(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float()[:, None, None] * (s[:, None, :] - v.float())).to(v.dtype)
 
 
+# a table shard's first global row whose flat index passes 2^32 (phase 3)
+ADAM_SHARD_ROW0 = (1 << 32) // WIDTH + 12_345
+
+
 def check_train_kernels(dev, gen) -> dict:
     errs = {"scatter_rows": 0.0, "fm_cross_bwd": 0.0, "fused_adam": 0.0}
     rng = np.random.default_rng(1)
@@ -786,11 +808,21 @@ def check_train_kernels(dev, gen) -> dict:
                 lr_t = torch.tensor(float(adam_ops.adam_lr_t(t, 1e-3, 0.9, 0.999)),
                                     dtype=torch.float32, device=dev)
                 t_dev = torch.tensor(t, dtype=torch.int64, device=dev)
+                # the fourth updates rows [r0, r0 + v_rows) of a larger table, as
+                # a rank's shard does under a plan: its rounding keys on the
+                # global flat index from base r0 * W (mod 2^32: r0 * W > 2^32)
+                index = GlobalIndex(ADAM_SHARD_ROW0, 0, WIDTH)
+                want_shard = adam_ops.fused_adam_plain(p, m, v, g, t, index=index, **kw)
                 runs = []
-                for t_arg, extra in ((t, {}), (t, {}), (t_dev, {"lr_t": lr_t})):
+                for t_arg, extra in ((t, {}), (t, {}), (t_dev, {"lr_t": lr_t}),
+                                     (t, {"index": index})):
                     pc, mc, vc = p.clone(), m.clone(), v.clone()
                     runs.append(adam_ops.fused_adam_cuda(pc, mc, vc, g, t_arg, **kw, **extra))
                 torch.cuda.synchronize()
+                for name, a, sh, w in zip("pmv", runs[3], want_shard, want):
+                    check(same_bits(a, sh), f"fused_adam {name} t={t}: the row shard at base "
+                                            f"{adam_ops.index_base(p.shape, index)} is not "
+                                            "bitwise its plain version")
                 for name, a, b2, b3, w in zip("pmv", runs[0], runs[1], runs[2], want):
                     check(same_bits(a, b2), f"fused_adam {name} t={t}: two launches differ")
                     check(same_bits(a, b3), f"fused_adam {name} t={t}: t and lr_t read from "
@@ -803,8 +835,10 @@ def check_train_kernels(dev, gen) -> dict:
                                              (a.double() - w.double()).abs().max().item())
         print(f"check: fused_adam [{v_rows}, {WIDTH}] fp32/bf16 masters, fp32 and bf16-SR "
               "slots, t=1,7,12345,2^31-1: within 1 ulp of plain, bitwise equal across "
-              "launches and with t and lr_t read from device memory "
-              f"(max abs err {errs['fused_adam']:.3g})")
+              "launches and with t and lr_t read from device memory; as the row shard from "
+              f"global row {ADAM_SHARD_ROW0} (index base "
+              f"{adam_ops.index_base((v_rows, WIDTH), GlobalIndex(ADAM_SHARD_ROW0, 0, WIDTH))}) "
+              f"bitwise its plain version (max abs err {errs['fused_adam']:.3g})")
     return errs
 
 
@@ -1813,14 +1847,15 @@ def check_same_training(runs: dict, label: str) -> int:
     return len(pa) + len(sa)
 
 
-def drive_loops(trainer: Trainer, loops, counters) -> dict:
+def drive_loops(trainer: Trainer, loops, counters, device_trace: bool = True) -> dict:
     """The trainer's train loop in its dispatch mode (``loop_runner``) over
     loops of ``loops`` steps from step 0, on its resident train set: the
     first loop warms up (under scan: eager steps, then the capture), the
     middle ones are timed on the host clock to the losses on the host, the
-    last one is profiled. Returns the losses, the wall ms a step, the device's
-    busy ms a step, the host's aten ops a step, the top kernels and the
-    launches that ran (``LaunchCount.total``: replays included)."""
+    last one is profiled (the host alone without ``device_trace``). Returns
+    the losses, the wall ms a step, the device's busy ms a step, the host's
+    aten ops a step, the top kernels and the launches that ran
+    (``LaunchCount.total``: replays included)."""
     from torch.profiler import ProfilerActivity, profile
 
     resident = trainer._resident()
@@ -1829,7 +1864,8 @@ def drive_loops(trainer: Trainer, loops, counters) -> dict:
     for c in counters:
         c.reset()
     step, losses, timed_s, timed_steps = 0, [], 0.0, 0
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if device_trace else []))
     for i, k in enumerate(loops):
         last = i == len(loops) - 1
         torch.cuda.synchronize()
@@ -1867,6 +1903,8 @@ def drive_loops(trainer: Trainer, loops, counters) -> dict:
                              for e in sorted(ops, key=lambda e: e.count, reverse=True)[:6]],
             "launches": {c.name: c.total for c in counters},
             "replays": graph.replays if graph is not None else 0,
+            "segments": len(graph.graphs) if graph is not None else 0,
+            "collectives": len(graph.collectives) if graph is not None else 0,
             "per_replay": ({c.name: n for c, n in graph.per_replay}
                            if graph is not None else {})}
 
@@ -1937,7 +1975,7 @@ def cli_pair(cli, work: Path, label: str, argv, profile_dir: Path | None = None)
           f"{label}: eval {out['metrics_scan']} vs {out['metrics_pipelined']}")
     graph = runs["scan"][1].step_graph
     out["replays"], out["per_replay"] = graph.replays, {c.name: n for c, n in graph.per_replay}
-    check(graph.graph is not None and graph.replays == len(runs["scan"][0]) - WARMUP_STEPS,
+    check(graph.captured and graph.replays == len(runs["scan"][0]) - WARMUP_STEPS,
           f"{label}: {graph.replays} replays")
     del runs
     gc.collect()
@@ -2029,21 +2067,16 @@ def dispatch_phase(work: Path, seed: int) -> dict:
             cli, work, label, (*model_args, "--batch-size", FAMILY_DISPATCH_BATCH,
                                "--train-steps", FAMILY_DISPATCH_STEPS, "--steps-per-loop", 10,
                                "--seed", seed))
-    # under a plan on the card: "auto" pipelines and "scan" raises, before any step
+    # under a plan on the card "auto" follows rectpu's batch rule (phase 8f
+    # runs the sharded scans)
     plan = types.SimpleNamespace(mesh=types.SimpleNamespace(device=dev), lookup_fn=None,
                                  batch_index=0, batch_shards=1, tp_mlp=False)
     model = DeepFMModel(TowerConfig(feature_set=ml_100k_feature_set()))
-    auto = Trainer(model, adam(1e-3), None, None, work / "dispatch_plan",
-                   TrainConfig(batch_size=32), plan=plan)
-    check(auto.dispatch == "pipelined", f"auto under a plan on the card: {auto.dispatch}")
-    try:
-        Trainer(model, adam(1e-3), None, None, work / "dispatch_plan",
-                TrainConfig(batch_size=32, dispatch_mode="scan"), plan=plan)
-        raised = None
-    except ValueError as e:
-        raised = str(e)
-    check(raised is not None and "Gloo" in raised, "scan under a plan on the card did not raise")
-    out["plan_scan_raises"] = raised
+    out["plan_auto"] = {b: Trainer(model, adam(1e-3), None, None, work / "dispatch_plan",
+                                   TrainConfig(batch_size=b), plan=plan).dispatch
+                        for b in (32, 2047, 2048, 4096)}
+    check(out["plan_auto"] == {32: "scan", 2047: "scan", 2048: "pipelined", 4096: "pipelined"},
+          f"auto under a plan on the card: {out['plan_auto']}")
     return out
 
 
@@ -2109,12 +2142,14 @@ def autotune_cli(work: Path, seed: int) -> dict:
 # --- phase 6: the flagship step ---------------------------------------------
 
 
-def flagship_model(dropout: float, device, gen=None, params=None) -> DeepFMModel:
+def flagship_model(dropout: float, device, gen=None, params=None,
+                   flat_layout: bool = True) -> DeepFMModel:
     """bench.py's model (bench.py:83-111), from ``params`` or a fresh seeded
-    init with random linear weights."""
+    init with random linear weights; ``flat_layout`` False: its [B, F, K+1]
+    lookup (the unflattened EP exchanges under a plan)."""
     cfg = TowerConfig(feature_set=bench_feature_set(), embedding_size=K,
                       hidden_units=(256, 128), dropout=dropout, compute_dtype="bfloat16",
-                      packed_linear=True, table_grad_dtype="bfloat16", flat_layout=True,
+                      packed_linear=True, table_grad_dtype="bfloat16", flat_layout=flat_layout,
                       scatter_impl="mxu", table_padding=2048, dropout_impl="hash")
     model = DeepFMModel(cfg)
     if params is None:
@@ -2738,6 +2773,9 @@ def time_train_kernels(dev, gen) -> list[dict]:
                 "shape": label, "v_rows": v_rows,
                 "ms": event_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), flush),
                 "warm_ms": event_ms(lambda: adam_ops.fused_adam_cuda(p, m, vv, gg, 7, **kw), None),
+                # a rank's shard: the rounding keyed from a nonzero index base
+                "index_ms": event_ms(lambda: adam_ops.fused_adam_cuda(
+                    p, m, vv, gg, 7, index=GlobalIndex(ADAM_SHARD_ROW0, 0, WIDTH), **kw), flush),
                 "plain_ms": event_ms(lambda: adam_ops.fused_adam_plain(p, m, vv, gg, 7, **kw),
                                      flush, iters=10),
                 "library_ms": None, "bound_ms": ms_b, "bound_by": by,
@@ -3088,11 +3126,11 @@ TP_RUNS_DLRM = (("2d", None),)
 # rank's weight gradient over its batch slice is a bf16 GEMM rounded once
 # (2^-8 relative) before the fp32 sum over the ranks, where the single step
 # rounds the whole batch's once; an Adam step from a near-zero gradient can
-# then take the other sign, and the flagship's v is stochastically rounded
-# with the shard's element indices. Per-step loss relative error, and each
-# leaf's SHARD_STEPS-step update against the single-process update, relative
-# L2: 2.5 times the one-step card-vs-CPU bound FAST_UPDATE_REL_L2, for five
-# steps of it.
+# then take the other sign (the flagship's stochastically rounded v keys on
+# the global flat index, as one process's does). Per-step loss relative
+# error, and each leaf's SHARD_STEPS-step update against the single-process
+# update, relative L2: 2.5 times the one-step card-vs-CPU bound
+# FAST_UPDATE_REL_L2, for five steps of it.
 SHARD_LOSS_RTOL = 1e-3
 SHARD_UPDATE_REL_L2 = 2.5 * FAST_UPDATE_REL_L2
 # int8 rows on the wire: rectpu's loss bound for one compressed step
@@ -3459,10 +3497,10 @@ def sharded_flagship(num_data: int, num_model: int, runs, seed: int, work: str,
     return out
 
 
-def _fast_trainer(model, data, job: Path, plan=None) -> Trainer:
+def _fast_trainer(model, data, job: Path, plan=None, eval_ds=None) -> Trainer:
     """A Trainer over ``make_sparse_step`` at lr 1e-3 on the resident ``data``."""
     fast = make_sparse_step(model, learning_rate=1e-3, plan=plan)
-    trainer = Trainer(model, adam(1e-3), data, None, job,
+    trainer = Trainer(model, adam(1e-3), data, eval_ds, job,
                       TrainConfig(batch_size=BIG_BATCH, seed=0),
                       device=torch.device("cuda", 0), fast_step=fast, plan=plan)
     trainer.opt_state = fast[0](flat_params(model))
@@ -3555,15 +3593,43 @@ def _cli_argv(data_dir: Path, job: Path) -> list:
             str(data_dir / "test.csv"), "--job-dir", str(job), "--device", "cuda"]
 
 
-def _run_cli(nproc: int, argv: list) -> tuple[dict, float, str]:
+# the DeepFM CLI with the Trainer's dispatch forced to argv[1] (the CLI, as
+# rectpu's, has no dispatch flag): a script for torchrun, written at run time
+CLI_IN_MODE = """import sys
+from rectpu_torch.trainers import common, deep_fm
+
+mode = sys.argv.pop(1)
+build = common.build_trainer
+
+
+def build_in_mode(*args, **kwargs):
+    trainer = build(*args, **kwargs)
+    trainer.config.dispatch_mode = mode
+    return trainer
+
+
+common.build_trainer = build_in_mode
+deep_fm.train_and_evaluate(deep_fm.build_parser().parse_args())
+"""
+
+
+def _run_cli(nproc: int, argv: list, script: Path | None = None) -> tuple[dict, float, str]:
+    """The DeepFM CLI at ``nproc`` ranks (torchrun beyond 1), or ``script``
+    (CLI_IN_MODE written out; ``argv`` then starts with the mode) -> (final
+    metrics, seconds, log)."""
     import ast
     import os
 
-    module = ["-m", "rectpu_torch.trainers.deep_fm", *argv]
-    cmd = ([sys.executable, *module] if nproc == 1 else
-           [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            f"--nproc-per-node={nproc}", *module])
     env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    if script is None:
+        entry = ["-m", "rectpu_torch.trainers.deep_fm", *argv]
+    else:
+        entry = [str(script), *argv]
+        root = str(Path(__file__).resolve().parent)
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    cmd = ([sys.executable, *entry] if nproc == 1 else
+           [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}", *entry])
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
     seconds = time.perf_counter() - t0
@@ -3608,19 +3674,81 @@ def _serve_export(export_dir: Path, seed: int, label: str) -> int:
     return len(preds) + len(one)
 
 
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same dtype, shape and bytes (any dtype, 0-d included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _checkpoint_arrays(job: Path) -> dict:
+    from rectpu_torch.train.checkpoint import Checkpointer, _load_flat_npz
+
+    return _load_flat_npz(job / f"ckpt-{Checkpointer(job).latest_step()}" / "arrays.npz")
+
+
+def _kernel_ids() -> set:
+    """The names of the port's CUDA kernels (``*_kernel``), from its sources."""
+    return {m for src in (Path(__file__).resolve().parent / "rectpu_torch" / "kernels"
+                          / "csrc").glob("*.cu")
+            for m in re.findall(r"\b(\w+_kernel)\s*\(", src.read_text())}
+
+
+def cli_trace(prof_dir: Path, steps: int) -> dict:
+    """The trace ``--profile-dir`` wrote (rank 0's second logging window, of
+    ``steps`` steps): the host's aten ops a step and the port's kernels by
+    name in the window (a graph replay's kernels are traced one by one)."""
+    from collections import Counter
+
+    traces = sorted(prof_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"{prof_dir}: {len(traces)} traces")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    ids, kernels = _kernel_ids(), Counter()
+    for e in events:
+        m = re.search(r"\b(\w+_kernel)\b", e.get("name", "")) if e.get("cat") == "kernel" else None
+        if m and m.group(1) in ids:
+            kernels[m.group(1)] += 1
+    ops = sum(e.get("cat") == "cpu_op" and e.get("name", "").startswith("aten::")
+              for e in events)
+    return {"host_aten_ops": ops / steps, "kernels": dict(sorted(kernels.items()))}
+
+
 def sharded_cli(work: Path, seed: int) -> dict:
     """The DeepFM CLI under torchrun at 2 ranks (dedup, freq placement, auto
-    capacity), and the same with --tp-mlp (phase 8e), against the same CLI
-    at 1 rank with the same placement, then each 2-rank export served for a
-    few requests."""
+    capacity; batch 64 resolves to scan), the same 2-rank CLI in pipelined
+    dispatch (phase 8f: bit for bit the scan run in the eval and every
+    checkpoint leaf; both trace their second logging window), and the same
+    with --tp-mlp (phase 8e), against the same CLI at 1 rank with the same
+    placement, then each 2-rank scan export served for a few requests."""
     data_dir = work / "data"
     if not (data_dir / "train.csv").exists():
         write_synthetic_dataset(data_dir, train_rows=100_000, test_rows=10_000, seed=seed)
-    multi_job, single_job, tp_job = work / "shard_cli_2", work / "shard_cli_1", work / "tp_cli_2"
+    multi_job, pipe_job, single_job, tp_job = (work / "shard_cli_2", work / "shard_cli_2_pipe",
+                                               work / "shard_cli_1", work / "tp_cli_2")
     ep_flags = ["--num-model-shards", "2", "--ep-mode", "dedup", "--ep-row-placement", "freq",
                 "--ep-peer-capacity", "auto"]
-    multi, multi_s, log = _run_cli(2, _cli_argv(data_dir, multi_job) + ep_flags)
+    prof = {"scan": work / "shard_cli_prof_scan", "pipelined": work / "shard_cli_prof_pipe"}
+    multi, multi_s, log = _run_cli(2, _cli_argv(data_dir, multi_job) + ep_flags
+                                   + ["--profile-dir", str(prof["scan"])])
     cap = re.findall(r"ep_peer_capacity auto -> (\d+)", log)
+    script = work / "cli_in_mode.py"
+    script.write_text(CLI_IN_MODE)
+    pipe, pipe_s, pipe_log = _run_cli(2, ["pipelined", *_cli_argv(data_dir, pipe_job), *ep_flags,
+                                          "--profile-dir", str(prof["pipelined"])], script)
+    for mode, text in (("scan", log), ("pipelined", pipe_log)):
+        check(text.count(f"dispatch: {mode}") == 2, f"sharded CLI: not both ranks in {mode}")
+    captured = re.findall(r"step captured: (\d+) graph segments around (\d+) collectives", log)
+    check(len(captured) == 2, f"sharded CLI under scan: {len(captured)} ranks captured the step")
+    a, b = _checkpoint_arrays(multi_job), _checkpoint_arrays(pipe_job)
+    check(pipe == multi and sorted(a) == sorted(b) and all(same_bytes(a[k], b[k]) for k in a),
+          f"sharded CLI: scan differs from pipelined (eval {multi} vs {pipe}, leaves "
+          f"{[k for k in a if k in b and not same_bytes(a[k], b[k])][:5]})")
+    traces = {mode: cli_trace(d, 50) for mode, d in prof.items()}
+    check(traces["scan"]["kernels"] == traces["pipelined"]["kernels"]
+          and len(traces["scan"]["kernels"]) >= 4,
+          f"sharded CLI: the traced window's kernels {traces}")
+    check(traces["scan"]["host_aten_ops"]
+          < SCAN_HOST_OPS_SHARE * traces["pipelined"]["host_aten_ops"],
+          f"sharded CLI: host aten ops a step {traces}")
     tp, tp_s, _ = _run_cli(2, _cli_argv(data_dir, tp_job) + ep_flags + ["--tp-mlp"])
     check(bool(np.array_equal(np.load(tp_job / "row_perm.npy"),
                               np.load(multi_job / "row_perm.npy"))),
@@ -3630,7 +3758,9 @@ def sharded_cli(work: Path, seed: int) -> dict:
     single, single_s, _ = _run_cli(1, _cli_argv(data_dir, single_job) + ["--restore"])
     d_single = _digest(single_job)
     out = {"metrics_1": single, "digest_1": d_single, "seconds_1": single_s,
-           "peer_capacity": cap}
+           "peer_capacity": cap, "seconds_2_pipelined": pipe_s, "trace_2": traces,
+           "segments_2": [tuple(map(int, c)) for c in captured],
+           "leaves_compared_2": len(a)}
     for tag, metrics, seconds, job in (("2", multi, multi_s, multi_job),
                                        ("tp_2", tp, tp_s, tp_job)):
         label = "sharded CLI" + (" --tp-mlp" if tag == "tp_2" else "")
@@ -3651,8 +3781,111 @@ def sharded_cli(work: Path, seed: int) -> dict:
     return out
 
 
+# --- phase 8f: scan dispatch under a plan, against pipelined -------------------
+#
+# Each case's steps in both dispatch modes from the same params and batches:
+# loops of WARMUP_STEPS + 1 (the warm-up and, under scan, the capture of the
+# step as graph segments cut at its collectives), SHARD_STEPS (timed on the
+# host clock) and 2 (the host's aten ops profiled).
+SCAN_LOOPS = (WARMUP_STEPS + 1, SHARD_STEPS, 2)
+SCAN_EVAL_ROWS = 4096
+# (case, ep_mode, the flagship's flat layout, tp_mlp, the full-width fast step)
+SCAN_CASES_1X2 = (("1d", "1d", True, False, False), ("2d", "2d", True, False, False),
+                  ("dedup", "dedup", True, False, False),
+                  ("2d unflat", "2d", False, False, False), ("2d tp", "2d", True, True, False),
+                  ("dedup fast", "dedup", True, False, True))
+SCAN_CASES_2X2 = (("2d", "2d", True, False, False),)
+# under scan a rank's host aten ops a step stay below this share of pipelined's
+SCAN_HOST_OPS_SHARE = 0.2
+SCAN_MUST_LAUNCH = {False: ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows",
+                            "fused_adam"),
+                    True: ("embedding_lookup", "fm_cross", "fm_cross_bwd", "segment_sum",
+                           "scatter_rows_dma")}
+
+
+def _scan_case(num_data: int, num_model: int, case, seed: int, work: Path):
+    """``make_trainer(mode)`` for one SCAN_CASES entry: a Trainer on this
+    rank's shard of one seeded init, its resident train and eval sets."""
+    _, mode, flat, tp, fast = case
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 7)
+    fs = big_feature_set() if fast else bench_feature_set()
+    batch = BIG_BATCH if fast else FLAGSHIP_BATCH
+    rows = sum(SCAN_LOOPS) * batch
+    data = CsvDataset.from_arrays(random_ids(fs, rows, rng),
+                                  (rng.random(rows) < 0.2).astype(np.float32))
+    eval_ds = CsvDataset.from_arrays(random_ids(fs, SCAN_EVAL_ROWS, rng),
+                                     (rng.random(SCAN_EVAL_ROWS) < 0.2).astype(np.float32))
+    if fast:  # the single model on the card, its table too large to make on the host
+        base = fast_model(fs, 0.1, dev, seed, dropout_impl="hash")
+    else:
+        base = flagship_model(0.1, "cpu", gen=torch.Generator().manual_seed(seed),
+                              flat_layout=flat)
+    p0 = params_tree(base)
+    plan = ParallelPlan.create(num_data, num_model, device="cuda",
+                               table_rows=base.cfg.padded_buckets, ep_mode=mode,
+                               scatter_impl="xla" if fast else "mxu", tp_mlp=tp)
+    shard = plan.shard_params(p0)
+    del base, p0
+
+    def make_trainer(dispatch: str) -> Trainer:
+        job = work / f"scan_{num_data}x{num_model}_{case[0].replace(' ', '_')}_{dispatch}"
+        if fast:
+            model = fast_model(fs, 0.1, dev, params=shard, dropout_impl="hash")
+            trainer = _fast_trainer(model, data, job, plan, eval_ds=eval_ds)
+        else:
+            model = flagship_model(0.1, dev, params=shard, flat_layout=flat)
+            trainer = flagship_trainer(model, job, plan, train_ds=data, eval_ds=eval_ds)
+        trainer.config.dispatch_mode = dispatch
+        trainer.config.steps_per_loop = max(SCAN_LOOPS)
+        return trainer
+
+    return make_trainer
+
+
+def sharded_scan(num_data: int, num_model: int, cases, seed: int, work: str) -> dict:
+    """Phase 8f on this rank: each of ``cases`` in pipelined then scan
+    dispatch through ``drive_loops`` (SCAN_LOOPS), then its sharded eval;
+    scan equal to pipelined bit for bit in every loss share, this rank's
+    parameter and optimizer-state leaves and the eval, every step after the
+    warm-up a replay of the step's segments, the same launches of every
+    kernel, and the host's aten ops a step under scan below
+    SCAN_HOST_OPS_SHARE of pipelined's."""
+    out = {}
+    for case in cases:
+        label = f"{num_data}x{num_model} {case[0]}"
+        make_trainer = _scan_case(num_data, num_model, case, seed, Path(work))
+        runs, res = {}, {}
+        for mode in ("pipelined", "scan"):
+            trainer = make_trainer(mode)
+            check(trainer.dispatch == mode, f"scan under a plan {label}: {trainer.dispatch}")
+            r = drive_loops(trainer, SCAN_LOOPS, _shard_counters(), device_trace=False)
+            r["eval"] = trainer.evaluate()  # the metric sums are collectives
+            runs[mode] = (r.pop("losses"), trainer)
+            res[mode] = r
+        res["leaves_compared"] = check_same_training(runs, f"scan under a plan {label}")
+        sc, pi = res["scan"], res["pipelined"]
+        check(sc["eval"] == pi["eval"], f"scan under a plan {label}: eval {sc['eval']} vs "
+                                        f"{pi['eval']}")
+        check(sc["replays"] == sum(SCAN_LOOPS) - WARMUP_STEPS and sc["segments"] > 1
+              and sc["segments"] == sc["collectives"] + 1,
+              f"scan under a plan {label}: {sc['replays']} replays of {sc['segments']} "
+              f"segments around {sc['collectives']} collectives")
+        check(sc["launches"] == pi["launches"]
+              and all(sc["launches"][k] > 0 for k in SCAN_MUST_LAUNCH[case[4]]),
+              f"scan under a plan {label}: launches {sc['launches']} vs {pi['launches']}")
+        check(sc["host_aten_ops"] < SCAN_HOST_OPS_SHARE * pi["host_aten_ops"],
+              f"scan under a plan {label}: {sc['host_aten_ops']} host aten ops a step against "
+              f"pipelined's {pi['host_aten_ops']}")
+        out[label] = res
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def sharded_phases(work: Path, seed: int) -> dict:
-    """Phases 8a-8e (see the module docstring)."""
+    """Phases 8a-8f (see the module docstring)."""
     # the ranks allocate on this process's card: give back what earlier phases cached
     gc.collect()
     torch.cuda.empty_cache()
@@ -3665,17 +3898,32 @@ def sharded_phases(work: Path, seed: int) -> dict:
                  ("sharded_flagship", {"num_data": 1, "num_model": 2, "runs": TP_RUNS_1X2,
                                        "tp_mlp": True, **common}),
                  ("sharded_flagship", {"num_data": 1, "num_model": 2, "runs": TP_RUNS_DLRM,
-                                       "tp_mlp": True, "family": "dlrm", **common})]
+                                       "tp_mlp": True, "family": "dlrm", **common}),
+                 ("sharded_scan", {"num_data": 1, "num_model": 2, "cases": SCAN_CASES_1X2,
+                                   **common})]
     got = run_ranks(2, work, flag_jobs)
     res["collectives"] = got[0][0]
     got4 = run_ranks(4, work, [("sharded_flagship", {"num_data": 2, "num_model": 2,
                                                      "runs": FLAGSHIP_RUNS_2X2, **common}),
                                ("sharded_flagship", {"num_data": 2, "num_model": 2,
                                                      "runs": TP_RUNS_2X2, "tp_mlp": True,
-                                                     **common})])
+                                                     **common}),
+                               ("sharded_scan", {"num_data": 2, "num_model": 2,
+                                                 "cases": SCAN_CASES_2X2, **common})])
+    # phase 8f: rank 0's numbers, the host's aten ops of the busiest rank and
+    # the launches of every rank
+    res["scan"] = {}
+    for ranks in (got, got4):
+        for name, r in ranks[0][-1].items():
+            for mode in ("pipelined", "scan"):
+                r[mode]["host_aten_ops_max"] = max(rank[-1][name][mode]["host_aten_ops"]
+                                                   for rank in ranks)
+                r[mode]["launches"] = {k: sum(rank[-1][name][mode]["launches"][k]
+                                              for rank in ranks) for k in r[mode]["launches"]}
+            res["scan"][name] = r
     res["flagship"] = {}
     for ranks, first in ((got, 1), (got4, 0)):
-        for j in range(first, len(ranks[0])):
+        for j in range(first, len(ranks[0]) - 1):  # the last job is phase 8f's
             for name, r in ranks[0][j].items():
                 # the kernels every rank launched
                 r["launches"] = {k: sum(rank[j][name]["launches"][k] for rank in ranks)
@@ -3917,8 +4165,8 @@ def main(argv=None) -> int:
                   f"equal over {r['leaves_compared']} leaves; top kernels under scan "
                   f"{sc['top_kernels_ms']}; host ops a step under scan {sc['top_host_ops']} "
                   f"[{gpu}]")
-        print(f"dispatch: under a plan on the card auto pipelines and scan raises: "
-              f"{disp['plan_scan_raises'][:60]}...")
+        print(f"dispatch: under a plan on the card auto resolves by the batch "
+              f"{disp['plan_auto']} (rectpu's rule)")
 
         # 5d. check (3)(b): the reference-default DeepFM run
         if args.check3 == "on":
@@ -4094,14 +4342,33 @@ def main(argv=None) -> int:
               f"rank {fs_['update_rel_l2_ranks']}, m|v {fs_['mv_rel_l2_ranks']} (bound "
               f"{SHARD_UPDATE_REL_L2}); launches on all ranks {fs_['launches']}; peak memory "
               f"of rank 0 {fs_['peak_mem_gib']:.2f} GiB [{gpu}]")
+        for name, r in sh["scan"].items():
+            sc, pi = r["scan"], r["pipelined"]
+            print(f"sharded (f) scan under a plan, {name} (gloo, every rank on cuda:0, "
+                  f"{SCAN_LOOPS} steps a loop): bitwise pipelined in every loss share, "
+                  f"{r['leaves_compared']} parameter and state leaves a rank and the eval; "
+                  f"{sc['segments']} graph segments around {sc['collectives']} collectives a "
+                  f"step, {sc['replays']} replays; host aten ops a rank and step scan "
+                  f"{sc['host_aten_ops']:.2f} (busiest rank {sc['host_aten_ops_max']:.2f}) vs "
+                  f"pipelined {pi['host_aten_ops']:.2f} ({pi['host_aten_ops_max']:.2f}); wall "
+                  f"ms a step scan {sc['wall_ms']:.4f} vs pipelined {pi['wall_ms']:.4f}; "
+                  f"launches on all ranks, the same both ways {sc['launches']} [{gpu}]")
         cli = sh["cli"]
+        tr = cli["trace_2"]
         print(f"sharded (d) DeepFM CLI under torchrun, 2 ranks (dedup, freq placement, "
-              f"capacity auto -> {cli['peer_capacity']}), batch {SHARD_CLI_BATCH}, "
-              f"{SHARD_CLI_STEPS} steps, {cli['seconds_2']:.1f} s, against 1 rank "
+              f"capacity auto -> {cli['peer_capacity']}), batch {SHARD_CLI_BATCH} (scan: "
+              f"(segments, collectives) a rank {cli['segments_2']}), {SHARD_CLI_STEPS} steps, "
+              f"{cli['seconds_2']:.1f} s, against 1 rank "
               f"({cli['seconds_1']:.1f} s): eval {cli['metrics_2']} vs {cli['metrics_1']}; "
               f"param digest {cli['digest_2']:.6f} vs {cli['digest_1']:.6f} (rtol "
               f"{CLI_METRIC_RTOL}, atol {CLI_METRIC_ATOL}; digest rtol {CLI_DIGEST_RTOL}); its "
               f"export answered {cli['served_2']} predictions [{gpu}]")
+        print(f"sharded (f) the same 2-rank CLI pipelined, {cli['seconds_2_pipelined']:.1f} s: "
+              f"bitwise the scan run in the eval and {cli['leaves_compared_2']} checkpoint "
+              f"leaves; rank 0's traced window (steps 50-99): host aten ops a step scan "
+              f"{tr['scan']['host_aten_ops']:.2f} vs pipelined "
+              f"{tr['pipelined']['host_aten_ops']:.2f}; the port's kernels, the same both "
+              f"ways {tr['scan']['kernels']} [{gpu}]")
         print(f"sharded (e) DeepFM CLI under torchrun, 2 ranks, the same flags and --tp-mlp, "
               f"{cli['seconds_tp_2']:.1f} s: eval {cli['metrics_tp_2']} vs one rank's; param "
               f"digest {cli['digest_tp_2']:.6f} vs {cli['digest_1']:.6f} (the same bounds); "
@@ -4135,6 +4402,8 @@ def main(argv=None) -> int:
             at += f" {r['mode']} products"
         tf32 = (f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in r
                 else "")
+        if "index_ms" in r:
+            tf32 += f", as a row shard (a nonzero index base) {r['index_ms']:.4f} ms"
         if "cast_then_gather_ms" in r:
             tf32 += f", the table cast then the kernel {r['cast_then_gather_ms']:.4f} ms"
         if "composite_ms" in r:
@@ -4168,10 +4437,13 @@ def main(argv=None) -> int:
     runs = [*main_path["family_clis"].values(), *main_path["zoo2_clis"].values()]
     for name in ("embedding_lookup", "scatter_rows", "scatter_rows_dma", "segment_sum"):
         launches[name] += sum(r["launches"].get(name, 0) for r in runs)
-    # the sharded phases' ranks (phases 8b, 8c and 8e; not 8b's planted-fault control)
+    # the sharded phases' ranks (phases 8b, 8c and 8e; not 8b's planted-fault control),
     sharded_runs = [*(r for name, r in main_path["sharded"]["flagship"].items()
                       if not name.endswith("control")),
                     main_path["sharded"]["fast_step"]]
+    # and phase 8f's, both modes
+    sharded_runs += [r[mode] for r in main_path["sharded"]["scan"].values()
+                     for mode in ("scan", "pipelined")]
     for name in ("embedding_lookup", "fm_cross", "fm_cross_bwd", "scatter_rows", "segment_sum",
                  "fused_adam", "scatter_rows_dma", "interaction"):
         launches[name] += sum(r["launches"].get(name, 0) for r in sharded_runs)

@@ -13,9 +13,12 @@
 // types; the slots are stored before the parameter step reads them back; the
 // stochastic rounding adds the low 16 bits of a murmur hash of the flat index
 // row*W + col (uint32) seeded with t (t + 2^30 for a bf16 parameter) and
-// truncates (fused_adam.py:37-48). The 1-b complements arrive as fp32 values
-// of Python-float differences: 1 - f32(0.9) computed here would be
-// 0.10000002, not f32(0.1).
+// truncates (fused_adam.py:37-48). The index is the element's in the global
+// table: a shard of rows [r0, r0 + V) passes idx_base = r0*W mod 2^32, since
+// rectpu keys the update of a sharded table on the global array's iota
+// (optimizers.py:65); a whole table passes 0. The 1-b complements arrive as
+// fp32 values of Python-float differences: 1 - f32(0.9) computed here would
+// be 0.10000002, not f32(0.1).
 //
 // Contraction: every multiply, add, divide and square root is written with a
 // round-to-nearest intrinsic (__fmul_rn, __fadd_rn, ...), so nvcc fuses no
@@ -33,8 +36,9 @@
 // 65-wide rows were not padded to 128 lanes. Here the four tensors are read
 // as flat contiguous arrays: thread i of the grid-stride loop takes element
 // i, so a warp's loads and stores cover 32 neighbouring elements of each
-// array (coalesced whatever W is), and the flat index is the SR counter
-// directly. The storage types are run-time flags, uniform across the grid.
+// array (coalesced whatever W is), and the flat index plus idx_base is the
+// SR counter directly. The storage types are run-time flags, uniform across
+// the grid.
 
 #include <cstdint>
 
@@ -92,7 +96,7 @@ __device__ __forceinline__ float store(void* base, int kind, int64_t i, float x,
 __global__ void adam_kernel(void* __restrict__ p, void* __restrict__ m, void* __restrict__ v,
                             const void* __restrict__ g, int64_t n, float lr_t_arg, float beta1,
                             float omb1, float beta2, float omb2, float eps, uint32_t t_arg,
-                            const float* __restrict__ lr_t_dev,
+                            uint32_t idx_base, const float* __restrict__ lr_t_dev,
                             const long long* __restrict__ t_dev, int p_kind, int m_kind,
                             int v_kind, int g_bf16) {
   const float lr_t = lr_t_dev != nullptr ? *lr_t_dev : lr_t_arg;
@@ -100,7 +104,7 @@ __global__ void adam_kernel(void* __restrict__ p, void* __restrict__ m, void* __
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const uint32_t idx = static_cast<uint32_t>(i);  // row*W + col, mod 2^32
+    const uint32_t idx = idx_base + static_cast<uint32_t>(i);  // global row*W + col, mod 2^32
     const float gf = load(g, g_bf16, i);
     const float m_new = __fadd_rn(__fmul_rn(beta1, load(m, m_kind != kF32, i)),
                                   __fmul_rn(omb1, gf));
@@ -120,12 +124,14 @@ __global__ void adam_kernel(void* __restrict__ p, void* __restrict__ m, void* __
 // p, m, v, g: n contiguous elements each on one device, updated in place (p,
 // m, v). *_kind: 0 fp32, 1 bf16 rounded to nearest, 2 bf16 rounded
 // stochastically (a bf16 p is always 2). g_bf16: g is bf16, else fp32. t: the
-// step counter after its increment. lr_t_dev / t_dev: null, or one fp32 /
-// int64 in device memory that replaces lr_t / t. Returns a cudaError_t as int
+// step counter after its increment. idx_base: the global flat index of
+// element 0 (mod 2^32; 0 for a whole table). lr_t_dev / t_dev: null, or one
+// fp32 / int64 in device memory that replaces lr_t / t. Returns a cudaError_t as int
 // (0 = ok).
 extern "C" int rectpu_fused_adam(void* p, void* m, void* v, const void* g, long long n,
                                  float lr_t, float beta1, float omb1, float beta2, float omb2,
-                                 float eps, unsigned int t, const float* lr_t_dev,
+                                 float eps, unsigned int t, unsigned int idx_base,
+                                 const float* lr_t_dev,
                                  const long long* t_dev, int p_kind, int m_kind, int v_kind,
                                  int g_bf16, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
@@ -136,7 +142,7 @@ extern "C" int rectpu_fused_adam(void* p, void* m, void* v, const void* g, long 
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   adam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, m, v, g, n, lr_t, beta1, omb1, beta2, omb2, eps, t, lr_t_dev, t_dev, p_kind, m_kind,
-      v_kind, g_bf16);
+      p, m, v, g, n, lr_t, beta1, omb1, beta2, omb2, eps, t, idx_base, lr_t_dev, t_dev, p_kind,
+      m_kind, v_kind, g_bf16);
   return static_cast<int>(cudaGetLastError());
 }

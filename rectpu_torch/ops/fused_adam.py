@@ -5,7 +5,10 @@ update of ``optimizers.adam`` for one leaf (``rectpu/train/optimizers.py:192-224
 TF's eps placement outside the bias-corrected square root, fp32 math, the
 slots stored first and the parameter step taken from the stored (down-cast)
 slots, stochastic rounding keyed on the flat index ``row*W + col`` and
-seeded with ``t`` (a bf16 parameter with ``t + 2**30``).
+seeded with ``t`` (a bf16 parameter with ``t + 2**30``). A table shard
+(``index``, a ``utils.hash32.GlobalIndex`` of its rows) keys each element on
+its index in the global table, as rectpu's update of the sharded table does
+(its ``iota`` runs over the global array).
 
 ``t`` and ``lr_t`` (default: ``adam_lr_t`` of ``t``) are host numbers or 0-d
 tensors on the parameters' device (int64 ``t``, fp32 ``lr_t``): a step
@@ -31,7 +34,7 @@ import functools
 import torch
 
 from rectpu_torch.kernels import LaunchCount, build
-from rectpu_torch.utils.hash32 import MASK32, counter_hash, flat_index
+from rectpu_torch.utils.hash32 import MASK32, GlobalIndex, counter_hash, global_index
 
 launches = LaunchCount("fused_adam")
 
@@ -40,7 +43,7 @@ _SIGNATURES = {
     "rectpu_fused_adam": (
         [ctypes.c_void_p] * 4
         + [ctypes.c_longlong] + [ctypes.c_float] * 6
-        + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
         + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
@@ -48,16 +51,19 @@ _SIGNATURES = {
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def stochastic_round_bf16(x: torch.Tensor, seed) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, seed, index: GlobalIndex | None = None
+                          ) -> torch.Tensor:
     """Unbiased fp32 -> bf16 downcast, bit for bit rectpu's
     (``optimizers.stochastic_round_bf16``, :47, and ``_sr_bits`` here, :37):
     the low 16 bits of the counter hash of (flat element index, seed mod
     2**32) are added to the fp32 bit pattern, which is then truncated.
-    ``seed``: a Python int or a 0-d int64 tensor on x's device."""
+    ``seed``: a Python int or a 0-d int64 tensor on x's device. ``index``:
+    where x sits in the global array it is a shard of (``GlobalIndex``), so
+    that each element keys on its global flat index; None for a whole array."""
     if x.dtype != torch.float32:
         raise ValueError(f"stochastic rounding takes float32, got {x.dtype}")
     xi = x.contiguous().view(torch.int32).to(torch.int64) & MASK32
-    h = counter_hash(flat_index(x.shape, x.device), seed)
+    h = counter_hash(global_index(x.shape, x.device, index), seed)
     xi = (xi + (h & 0xFFFF)) & 0xFFFF0000
     rounded = torch.where(xi >= 2**31, xi - 2**32, xi).to(torch.int32).view(torch.float32)
     return rounded.to(torch.bfloat16)
@@ -95,9 +101,9 @@ def _fp32_constants(*values: float) -> tuple:
     return tuple(torch.tensor(v, dtype=torch.float32) for v in values)
 
 
-def _store(x: torch.Tensor, dtype: torch.dtype, sr: bool, seed: int) -> torch.Tensor:
+def _store(x: torch.Tensor, dtype: torch.dtype, sr: bool, seed: int, index) -> torch.Tensor:
     if sr:
-        return stochastic_round_bf16(x, seed)
+        return stochastic_round_bf16(x, seed, index)
     return x.to(dtype)
 
 
@@ -111,15 +117,30 @@ def _lr_t(t, lr_t, lr: float, beta1: float, beta2: float):
 
 def fused_adam_plain(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
-                     v_sr: bool = False, lr_t=None):
+                     v_sr: bool = False, lr_t=None, index: GlobalIndex | None = None):
     """Plain version: returns new (p', m', v') in p's, m's and v's dtypes."""
     lr_t = _lr_t(t, lr_t, lr, beta1, beta2)
     g32 = g.float()
-    m_new = _store(beta1 * m.float() + (1.0 - beta1) * g32, m.dtype, m_sr, t)
-    v_new = _store(beta2 * v.float() + (1.0 - beta2) * g32 * g32, v.dtype, v_sr, t)
+    m_new = _store(beta1 * m.float() + (1.0 - beta1) * g32, m.dtype, m_sr, t, index)
+    v_new = _store(beta2 * v.float() + (1.0 - beta2) * g32 * g32, v.dtype, v_sr, t, index)
     p32 = p.float() - lr_t * m_new.float() / (torch.sqrt(v_new.float()) + eps)
-    p_new = _store(p32, p.dtype, p.dtype == torch.bfloat16, (t + (1 << 30)) & MASK32)
+    p_new = _store(p32, p.dtype, p.dtype == torch.bfloat16, (t + (1 << 30)) & MASK32, index)
     return p_new, m_new, v_new
+
+
+def index_base(shape, index: GlobalIndex | None) -> int:
+    """The kernel's index base: the global flat index (mod 2**32) of element
+    0 of a row shard, whose elements then follow in order; 0 for a whole
+    array. A shard cut by columns has no such base and raises."""
+    if index is None:
+        return 0
+    cols = 1
+    for d in tuple(shape)[1:]:
+        cols *= int(d)
+    if index.col0 != 0 or index.width != cols:
+        raise ValueError(f"the fused Adam kernel keys a row shard on its first row; got {index} "
+                         f"for a local width of {cols}")
+    return (int(index.row0) * cols) & MASK32
 
 
 def _device_scalar(x, dtype: torch.dtype, device, name: str) -> int:
@@ -134,10 +155,11 @@ def _device_scalar(x, dtype: torch.dtype, device, name: str) -> int:
 
 def fused_adam_cuda(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
                     beta2: float = 0.999, eps: float = 1e-8, m_sr: bool = False,
-                    v_sr: bool = False, lr_t=None):
+                    v_sr: bool = False, lr_t=None, index: GlobalIndex | None = None):
     """Launch the fused Adam kernel, updating p, m and v in place: [V, W]
     tensors, contiguous, fp32 or bf16, on one card. ``t`` / ``lr_t``: host
     numbers, or 0-d int64 / fp32 tensors on the card that the kernel reads.
+    ``index``: the rows of the global table this shard holds (``index_base``).
     Returns (p, m, v)."""
     tensors = (p, m, v, g)
     if not all(x.is_cuda and x.device == p.device for x in tensors):
@@ -149,6 +171,7 @@ def fused_adam_cuda(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
         raise ValueError("fused_adam_cuda needs contiguous p, m, v and g of one shape")
     if (m_sr and m.dtype != torch.bfloat16) or (v_sr and v.dtype != torch.bfloat16):
         raise ValueError("stochastic rounding stores a bfloat16 slot")
+    base = index_base(p.shape, index)
     lr_t = _lr_t(t, lr_t, lr, beta1, beta2)
     t_dev = _device_scalar(t, torch.int64, p.device, "t")
     lr_dev = _device_scalar(lr_t, torch.float32, p.device, "lr_t")
@@ -162,7 +185,7 @@ def fused_adam_cuda(p, m, v, g, t, *, lr: float, beta1: float = 0.9,
         err = lib.rectpu_fused_adam(
             p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), p.numel(),
             0.0 if lr_dev else lr_t, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
-            0 if t_dev else t & MASK32, lr_dev or None, t_dev or None,
+            0 if t_dev else t & MASK32, base, lr_dev or None, t_dev or None,
             kind(p, True), kind(m, m_sr), kind(v, v_sr), int(g.dtype == torch.bfloat16),
             stream)
     if err != 0:

@@ -42,6 +42,16 @@ rank, so:
 The CPU tests hold each against rectpu's gradients. ``raw_*`` are the same
 collectives outside autograd (ids, metrics, gradient reductions). A failed
 collective raises.
+
+Every collective of a step goes through ``raw_*``, and each of them through
+``collective``: it allocates the output and hands (op, input, output, axis)
+to ``launch``, or, while a step is captured or recorded
+(``train/dispatch.py``; ``set_controller``), to the controller's
+``collective``, which returns the output the step goes on with. A CUDA graph
+cannot hold a collective that copies through host memory (Gloo), so the
+capture controller cuts the step's graph at each collective and runs the
+collective eagerly between the segments' replays, on the buffers it
+recorded.
 """
 
 from __future__ import annotations
@@ -53,54 +63,84 @@ import torch.distributed as dist
 
 from rectpu_torch.parallel.mesh import Axis
 
+OPS = ("all_gather", "psum_scatter", "all_to_all", "psum")
+_controller = None  # see set_controller
+
+
+def set_controller(controller) -> None:
+    """Route every collective to ``controller.collective(op, x, out, axis)``
+    (None: run each as it comes, ``launch``). The controller is one for the
+    process, not for a thread: a step's backward runs its collectives on the
+    autograd engine's device thread."""
+    global _controller
+    _controller = controller
+
+
+def launch(op: str, x: torch.Tensor, out: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Run collective ``op`` of ``x`` into ``out`` (``collective``'s
+    shapes) over ``axis`` now; returns ``out``."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)  # the _tensor names' deprecation
+        if op == "all_gather":
+            dist.all_gather_into_tensor(out, x, group=axis.group)
+        elif op == "psum_scatter":
+            dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=axis.group)
+        elif op == "all_to_all":
+            dist.all_to_all_single(out, x, group=axis.group)
+        elif op == "psum":
+            out.copy_(x)
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+        else:
+            raise ValueError(f"unknown collective {op!r}")
+    return out
+
+
+def collective(op: str, x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Collective ``op`` (one of OPS) of a contiguous ``x`` over ``axis``
+    (of more than one rank) into a new tensor: ``all_gather`` along dim 0
+    (axis.size times the rows), ``psum_scatter`` (a 1/axis.size block of
+    dim 0), ``all_to_all`` and ``psum`` (x's shape)."""
+    n = axis.size
+    if op in ("psum_scatter", "all_to_all") and x.shape[0] % n:
+        raise ValueError(f"{op}: dim 0 ({x.shape[0]}) is not divisible by the "
+                         f"{axis.name} axis ({n})")
+    if op == "all_gather":
+        out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    elif op == "psum_scatter":
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    else:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if _controller is not None:
+        return _controller.collective(op, x, out, axis)
+    return launch(op, x, out, axis)
+
 
 def raw_all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Concatenate every rank's ``x`` along dim 0, in axis order."""
     if axis.size == 1:
         return x
-    x = x.contiguous()
-    out = x.new_empty((axis.size * x.shape[0], *x.shape[1:]))
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)  # the _tensor names' deprecation
-        dist.all_gather_into_tensor(out, x, group=axis.group)
-    return out
+    return collective("all_gather", x.contiguous(), axis)
 
 
 def raw_psum_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Sum ``x`` over the axis and keep this rank's block of dim 0."""
     if axis.size == 1:
         return x
-    if x.shape[0] % axis.size:
-        raise ValueError(f"psum_scatter: dim 0 ({x.shape[0]}) is not divisible by the "
-                         f"{axis.name} axis ({axis.size})")
-    x = x.contiguous()
-    out = x.new_empty((x.shape[0] // axis.size, *x.shape[1:]))
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=axis.group)
-    return out
+    return collective("psum_scatter", x.contiguous(), axis)
 
 
 def raw_all_to_all(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Block j of dim 0 goes to rank j; block i of the result came from rank i."""
     if axis.size == 1:
         return x
-    if x.shape[0] % axis.size:
-        raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) is not divisible by the "
-                         f"{axis.name} axis ({axis.size})")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=axis.group)
-    return out
+    return collective("all_to_all", x.contiguous(), axis)
 
 
 def raw_psum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Sum ``x`` over the axis (a new tensor; ``x`` is left as it is)."""
     if axis.size == 1:
         return x
-    out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
-    return out
+    return collective("psum", x, axis)
 
 
 class _AllGather(torch.autograd.Function):

@@ -30,7 +30,9 @@ bias, a dim that 'model' does not divide stays replicated. It takes
 precedence over the table rule, as in rectpu. ``shard_params`` records each
 tower leaf's sharded dim, by path suffix, from the global tree it cuts;
 ``gather_params``, ``reduce_grads`` and the towers' forward
-(``tower_parallel``, read by ``models/base.apply_mlp``) read that record.
+(``tower_parallel``, read by ``models/base.apply_mlp``) and ``sr_index`` (a
+shard's place in its global array, which stochastic rounding keys on) read
+that record.
 rectpu leaves the towers' collectives to GSPMD; ``apply_mlp`` places them
 explicitly. The towers run on the rows of a 'data' group: under 2d/dedup
 each rank all_gathers the tower input over 'model' and keeps its own rows
@@ -53,6 +55,7 @@ from rectpu_torch.parallel.embedding_ep import (make_ep_lookup, make_ep_lookup_2
                                                 make_ep_lookup_2d_flat, make_ep_lookup_dedup,
                                                 make_ep_lookup_dedup_flat, make_ep_lookup_flat)
 from rectpu_torch.parallel.mesh import MODEL_AXIS, Axis, Mesh, make_mesh
+from rectpu_torch.utils.hash32 import GlobalIndex
 
 SCATTER_IMPLS = ("xla", "mxu", "auto")
 
@@ -331,6 +334,26 @@ class ParallelPlan:
             return full.to(leaf.device)
 
         return _map_tree(tree, gather)
+
+    def sr_index(self, key: str, leaf) -> GlobalIndex | None:
+        """Where this rank's ``leaf`` (the parameter, or its update, at the
+        ``/``-joined key path ``key``) sits in its global array, so that
+        stochastic rounding keys each element on rectpu's global flat index:
+        a table shard's rows over 'model' and a tower leaf cut by rows start
+        at a row offset, a tower kernel cut by columns at a column offset of
+        the global width; None for a leaf every rank holds whole."""
+        tower, dim = self._tower_dim(key_path(key))
+        if tower:
+            if dim is None:
+                return None
+        elif self.is_table_leaf(leaf, local=True):
+            dim = 0
+        else:
+            return None
+        mi, shape = self.mesh.model.index, tuple(leaf.shape)
+        if dim == 1:
+            return GlobalIndex(0, mi * shape[1], shape[1] * self.mesh.num_model)
+        return GlobalIndex(mi * shape[0], 0, int(np.prod(shape[1:], dtype=np.int64)))
 
     def local_rows(self, w: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a replicated [V] leaf, differentiable (see

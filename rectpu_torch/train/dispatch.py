@@ -14,9 +14,17 @@
     runs eagerly, with the same scalars read from the buffers.
   - "auto": pipelined at ``batch_size >= 2048``, else scan (rectpu's rule).
 
-Under a ParallelPlan on the card, "auto" resolves to pipelined and "scan"
-raises: the plan's collectives run on Gloo, which copies through host memory
-and cannot be captured (ROADMAP queue C).
+The rule is the same under a ParallelPlan, on the CPU and on the card. A
+step under a plan crosses ranks only through the collectives of
+``parallel/collectives.py``, and a CUDA graph cannot hold one that copies
+through host memory (Gloo) or that another process has to join at replay.
+So on the card ``StepGraph`` captures such a step piecewise: segment graph
+0, collective 0, segment graph 1, ..., each collective cutting the open
+segment where the step calls it (in the forward, or in the backward on the
+autograd engine's device thread), and a replay runs the segments in order
+with each collective eager between them, on the input and output buffers
+its capture recorded. ``CollectiveLog`` records the same sequence without a
+graph (the CPU tests hold it equal at every step and on every rank).
 
 Every per-step value is computed on the host by the same code in both modes
 (``step_seed32``, ``adam_lr_t``), so the two modes train bit for bit alike.
@@ -29,12 +37,20 @@ masks read its tensor; threefry dropout draws from generators that
 
 from __future__ import annotations
 
+import copy
+import gc
+import warnings
+
 import numpy as np
 import torch
 
 from rectpu_torch.kernels import launch_counts
 from rectpu_torch.models.base import DeviceSeed, ThreefrySites, step_seed32
 from rectpu_torch.ops.fused_adam import adam_lr_t, adam_lr_t_values
+from rectpu_torch.parallel import collectives
+from rectpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 DISPATCH_MODES = ("scan", "pipelined", "auto")
 PIPELINED_MIN_BATCH = 2048  # "auto" pipelines from this batch size up (rectpu's rule)
@@ -42,20 +58,13 @@ WARMUP_STEPS = 3  # eager steps before a step is captured
 MAX_RATES = 8  # distinct Adam (lr, beta1, beta2) a scan step may read
 
 
-def resolve_dispatch_mode(mode: str, batch_size: int, plan=None, device=None) -> str:
+def resolve_dispatch_mode(mode: str, batch_size: int) -> str:
     """"scan" or "pipelined" for ``TrainConfig.dispatch_mode`` ``mode``
-    (rectpu's ``Trainer._dispatch_mode``), with the card-with-plan rule of
-    the module docstring. Raises ValueError on any other mode."""
+    (rectpu's ``Trainer._dispatch_mode``, whatever the plan and device).
+    Raises ValueError on any other mode."""
     if mode not in DISPATCH_MODES:
         raise ValueError(f"dispatch_mode must be one of {'|'.join(DISPATCH_MODES)}, "
                          f"got {mode!r}")
-    if plan is not None and torch.device(device or "cpu").type == "cuda":
-        if mode == "scan":
-            raise ValueError(
-                "dispatch_mode='scan' is not supported under a ParallelPlan on the card: "
-                "the plan's collectives run on Gloo, which copies through host memory and "
-                "cannot be captured in a CUDA graph; use 'pipelined' or 'auto'")
-        return "pipelined"
     if mode == "auto":
         return "pipelined" if batch_size >= PIPELINED_MIN_BATCH else "scan"
     return mode
@@ -89,7 +98,28 @@ def set_opt_counter(state, t: int) -> None:
         d["t"] = torch.tensor(t, dtype=torch.int32)
 
 
-class StepScalars:
+class _Placed:
+    """Where the leaves a step updates sit in rectpu's global arrays:
+    ``placement`` (the Trainer sets ``ParallelPlan.sr_index`` under a plan)
+    maps a leaf's full key path and tensor to a ``utils.hash32.GlobalIndex``,
+    or None for a leaf held whole; ``sr_index`` reads it (None without a
+    placement). ``within(top)`` is a copy for an optimizer of the subtree
+    ``top``, whose keys are the paths below it."""
+
+    placement = None
+
+    def sr_index(self, key: str, leaf):
+        return None if self.placement is None else self.placement(key, leaf)
+
+    def within(self, top: str):
+        sub = copy.copy(self)
+        outer = self.placement
+        if outer is not None:
+            sub.placement = lambda key, leaf: outer(f"{top}/{key}" if key else top, leaf)
+        return sub
+
+
+class StepScalars(_Placed):
     """One step's scalars as host numbers: ``seed32`` (the dropout seed,
     ``step_seed32``, or None) and ``t`` (the optimizer's step counter after
     the step's increment). ``lr_t`` is Adam's bias-corrected rate, its fp32
@@ -112,7 +142,7 @@ class StepScalars:
             state["t"] = torch.tensor(self.t, dtype=torch.int32)
 
 
-class DeviceScalars:
+class DeviceScalars(_Placed):
     """One step's scalars read from a ``ScalarBlock`` at its counter: the
     ``StepScalars`` interface with 0-d device tensors (``seed32`` a
     ``DeviceSeed``). ``commit`` does nothing: the loop sets the state's
@@ -245,39 +275,108 @@ class BatchBlock:
         return {key: buf.index_select(0, counter)[0] for key, buf in self.bufs.items()}
 
 
+class CollectiveLog:
+    """A collectives controller (``parallel/collectives.set_controller``)
+    that runs every collective as it comes and records it as (op, axis name,
+    input shape, dtype) in ``calls``: the sequence that a replay of a
+    piecewise capture runs. A context manager that routes the process's
+    collectives here while open."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def collective(self, op, x, out, axis):
+        self.calls.append((op, axis.name, tuple(x.shape), str(x.dtype)))
+        return collectives.launch(op, x, out, axis)
+
+    def __enter__(self) -> CollectiveLog:
+        collectives.set_controller(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        collectives.set_controller(None)
+
+
+class _Segments:
+    """The capture controller of a step: each collective ends the open
+    segment's capture, is recorded with its input and its output (tensors
+    of the graphs' pool, which the record keeps alive, so no segment reuses
+    them; detached, since the output of a differentiated collective carries
+    its autograd node), and opens the next segment, all on the capture
+    stream of the thread that calls it; the step then goes on with the
+    output, which the replays fill. Capture runs nothing, the collectives
+    included. The segments share one memory pool and are captured in
+    "relaxed" mode, which lets a capture end on another thread than the one
+    that began it (the autograd engine's device thread runs the backward's
+    collectives). A step with no collective is one segment."""
+
+    def __init__(self, sites: ThreefrySites):
+        self.sites = sites
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: list = []
+        self.collectives: list = []  # (op, x, out, axis) after graphs[i]
+
+    def begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for gen, _ in self.sites.sites:
+            graph.register_generator_state(gen)
+        graph.capture_begin(pool=self.pool, capture_error_mode="relaxed")
+        self.graphs.append(graph)
+
+    def end(self) -> None:
+        with warnings.catch_warnings():
+            # a segment between two collectives with no work between them (the
+            # flat exchange's two sums) is empty, which PyTorch warns of as if
+            # the capture had missed its stream; its replay launches nothing
+            warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+            self.graphs[-1].capture_end()
+
+    def collective(self, op, x, out, axis):
+        self.end()
+        self.collectives.append((op, x.detach(), out.detach(), axis))
+        self.begin()
+        return out
+
+
 class StepGraph:
     """Runs ``fn`` (one training step that reads ``block``) once per call.
     On the CPU eagerly. On the card the first ``warmup`` calls run eagerly on
     a side stream (training steps like any other, which also build the
-    kernels); the next call captures one call of ``fn`` as a CUDA graph,
-    with the threefry generators of ``block.sites`` registered, and every
-    call from then on is one replay. A capture that fails raises.
+    kernels); the next call captures one call of ``fn`` as CUDA graphs, with
+    the threefry generators of ``block.sites`` registered, and every call
+    from then on is one replay. The capture is cut at each collective
+    (``_Segments``; a step under a plan): ``graphs`` holds the segments and
+    ``collectives`` the collectives between them, which a replay runs
+    eagerly. A capture that fails raises.
 
     Replays run no Python, so the wrappers' launch counts (``LaunchCount``)
     do not see them: ``per_replay`` holds the launches each counter saw
-    during the capture, and every replay adds them to the counters'
-    ``replayed`` (the capture's own to ``captured``, since capturing
-    launches nothing). ``replays`` counts the replays."""
+    during the capture, over all segments, and every replay adds them to
+    the counters' ``replayed`` (the capture's own to ``captured``, since
+    capturing launches nothing). ``replays`` counts the replays."""
 
     def __init__(self, fn, block: ScalarBlock, device, warmup: int = WARMUP_STEPS):
         self.fn, self.block = fn, block
         self.cuda = torch.device(device).type == "cuda"
         self.warmup = warmup
-        self.graph = None
+        self.graphs: list = []
+        self.collectives: list = []
         self.per_replay: list = []
         self.replays = 0
         self._stream = None
 
+    @property
+    def captured(self) -> bool:
+        return bool(self.graphs)
+
     def __call__(self) -> None:
         if not self.cuda:
             self.fn()
-        elif self.graph is not None:
+        elif self.graphs:
             self._replay()
         elif self.warmup > 0:
             self.warmup -= 1
-            if self._stream is None:
-                self._stream = torch.cuda.Stream()
-            self._stream.wait_stream(torch.cuda.current_stream())
+            self._side_stream().wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
                 self.fn()
             torch.cuda.current_stream().wait_stream(self._stream)
@@ -285,22 +384,41 @@ class StepGraph:
             self._capture()
             self._replay()
 
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        return self._stream
+
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        for gen, _ in self.block.sites.sites:
-            graph.register_generator_state(gen)
         self.block.frozen = self.block.sites.frozen = True
         before = {c: c.value for c in launch_counts()}
-        with torch.cuda.graph(graph):
-            self.fn()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        stream = self._side_stream()
+        segments = _Segments(self.block.sites)
+        with torch.cuda.stream(stream):
+            segments.begin()
+            collectives.set_controller(segments)
+            try:
+                self.fn()
+            finally:
+                collectives.set_controller(None)
+                segments.end()
+        torch.cuda.current_stream().wait_stream(stream)
         self.per_replay = [(c, c.value - n) for c, n in before.items() if c.value != n]
         for c, n in self.per_replay:
             c.captured += n
-        self.graph = graph
+        self.graphs, self.collectives = segments.graphs, segments.collectives
+        logger.info("step captured: %d graph segments around %d collectives",
+                    len(self.graphs), len(self.collectives))
         self.block.sites.reseed()  # the step whose call captured it runs by the replay
 
     def _replay(self) -> None:
-        self.graph.replay()
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.collectives):
+                collectives.launch(*self.collectives[i])
         self.replays += 1
         for c, n in self.per_replay:
             c.replayed += n

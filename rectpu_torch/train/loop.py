@@ -14,10 +14,12 @@ own, with one batch staged ahead of the step (rectpu's depth-2 prefetch);
 (the loop's batches and per-step scalars, copied in once per loop), on the
 card as replays of a CUDA graph of one step, captured after a few eager
 warm-up steps (``StepGraph``), the counterpart of rectpu's one ``lax.scan``
-dispatch; "auto" pipelines from batch 2048 up, else scans. Both modes train
-bit for bit alike. Under a plan on the card "scan" raises and "auto"
-pipelines (Gloo cannot be captured). Either way the per-step losses are read
-back from the device once per loop, with the loop's log line.
+dispatch; "auto" pipelines from batch 2048 up, else scans, under a plan as
+without one. Both modes train bit for bit alike. Under a plan on the card
+the captured step is cut at its collectives into segment graphs, with the
+collectives run eagerly between their replays (``StepGraph``).
+Either way the per-step losses are read back from the device once per loop,
+with the loop's log line.
 
 What differs from rectpu, and why:
 
@@ -162,8 +164,7 @@ class Trainer:
             model.lookup_fn = plan.lookup_fn
             model.row_offset = plan.batch_index * (config.batch_size // plan.batch_shards)
             model.tp_plan = plan if plan.tp_mlp else None
-        # a bad mode, or scan under a plan on the card, raises before any step
-        resolve_dispatch_mode(config.dispatch_mode, config.batch_size, plan, self.device)
+        resolve_dispatch_mode(config.dispatch_mode, config.batch_size)  # a bad mode raises
         self.step_graph: StepGraph | None = None  # scan mode's step, once training ran
         self.ckpt = Checkpointer(self.job_dir, keep=config.keep_checkpoint_max,
                                  async_write=config.async_checkpoint)
@@ -179,8 +180,7 @@ class Trainer:
     def dispatch(self) -> str:
         """"scan" or "pipelined": ``config.dispatch_mode`` resolved
         (``train/dispatch.resolve_dispatch_mode``)."""
-        cfg = self.config
-        return resolve_dispatch_mode(cfg.dispatch_mode, cfg.batch_size, self.plan, self.device)
+        return resolve_dispatch_mode(self.config.dispatch_mode, self.config.batch_size)
 
     # -- one step ----------------------------------------------------------------
 
@@ -206,6 +206,8 @@ class Trainer:
         function."""
         if isinstance(scalars, int):
             scalars = StepScalars.after(self.opt_state, step_seed32(self.config.seed, scalars))
+        if self.plan is not None:
+            scalars.placement = self.plan.sr_index  # SR keys on the global arrays' indices
         params = flat_params(self.model)
         if self.fast_step is not None:
             return self.fast_step[1](params, self.opt_state, batch, scalars)
@@ -322,7 +324,8 @@ class Trainer:
         copied in first), each as one call of ``self.step_graph``, and
         returns the [k] losses on the device and the DataState after the
         last batch. The only host work between two steps is the threefry
-        generators' reseed and the call (on the card a graph replay)."""
+        generators' reseed and the call (on the card a graph replay; under a
+        plan the segments' replays and the collectives between them)."""
         cfg = self.config
         block = ScalarBlock(cfg.steps_per_loop, self.device, cfg.seed)
         data = BatchBlock(cfg.steps_per_loop, self.device, resident)

@@ -36,8 +36,12 @@ place. ``scalars`` (``train/dispatch``) is the step's: its ``t`` seeds the
 stochastic rounding, its ``lr_t(lr, beta1, beta2)`` is Adam's rate, and
 ``commit`` stores ``t`` in the state; host numbers (``StepScalars``) or 0-d
 device tensors that a CUDA graph of the step reads (``DeviceScalars``, whose
-``commit`` leaves the counter to the loop). None takes the step after the
-state's own counter, on the host. ``params``
+``commit`` leaves the counter to the loop). Its ``sr_index(key, leaf)`` says
+where a sharded leaf sits in rectpu's global array (a
+``utils.hash32.GlobalIndex``, from ``ParallelPlan.sr_index``; None for a
+whole leaf), so that every stochastic rounding keys an element on its global
+flat index, as rectpu's does under GSPMD. None takes the step after the
+state's own counter, on the host, with whole leaves. ``params``
 and ``grads`` are flat dicts keyed by rectpu's tree paths (``"table"``,
 ``"mlp/0/kernel"``), so ``fused_leaves`` and the combinators name top-level
 leaves as rectpu's do; ``per_subtree`` hands each optimizer its subtree keyed
@@ -139,9 +143,9 @@ class Adam:
         return x.float() if dt is not None else x
 
     @staticmethod
-    def _down(x, dt, t, orig_dtype):
+    def _down(x, dt, t, orig_dtype, index):
         if dt == BF16_SR:
-            return stochastic_round_bf16(x, t)
+            return stochastic_round_bf16(x, t, index)
         if dt is None:
             # slots follow the param dtype: the fp32 slot math must not widen a bf16 slot
             return x.to(orig_dtype)
@@ -161,32 +165,35 @@ class Adam:
         for key, p in params.items():
             g = grads[key]
             m, v = state["m"][key], state["v"][key]
+            index = scalars.sr_index(key, p)
             if self._fusable(key, p):
                 out = fused_adam_table(
                     p.detach(), m, v, g.contiguous(), t, lr=self.learning_rate,
                     beta1=self.beta1, beta2=self.beta2, eps=self.epsilon,
-                    m_sr=self.m_dtype == BF16_SR, v_sr=self.v_dtype == BF16_SR, lr_t=lr_t)
+                    m_sr=self.m_dtype == BF16_SR, v_sr=self.v_dtype == BF16_SR, lr_t=lr_t,
+                    index=index)
             else:
-                out = self._leaf_update(p.detach(), m, v, g, t, lr_t)
+                out = self._leaf_update(p.detach(), m, v, g, t, lr_t, index)
             for dst, src in zip((p, m, v), out):
                 if src.data_ptr() != dst.data_ptr():
                     dst.copy_(src)
         scalars.commit(state)
 
-    def _leaf_update(self, p, m, v, g, t, lr_t):
-        """One leaf of rectpu's ``_treemap_update`` (optimizers.py:192-224)."""
+    def _leaf_update(self, p, m, v, g, t, lr_t, index):
+        """One leaf of rectpu's ``_treemap_update`` (optimizers.py:192-224);
+        ``index``: the leaf's place in its global array (None: whole)."""
         b1, b2, eps = self.beta1, self.beta2, self.epsilon
         g32 = g.float()
         mu, vu = self._up(m, self.m_dtype), self._up(v, self.v_dtype)
-        m_new = self._down(_weak(b1, mu) * mu + (1 - b1) * g32, self.m_dtype, t, m.dtype)
+        m_new = self._down(_weak(b1, mu) * mu + (1 - b1) * g32, self.m_dtype, t, m.dtype, index)
         v_new = self._down(_weak(b2, vu) * vu + (1 - b2) * g32 * g32, self.v_dtype, t,
-                           v.dtype)
+                           v.dtype, index)
         mu, vu = self._up(m_new, self.m_dtype), self._up(v_new, self.v_dtype)
         upd = lr_t * mu.float() / (torch.sqrt(vu) + _weak(eps, vu))
         if p.dtype == torch.bfloat16:
             # bf16 master: fp32 update math, stochastically rounded, seeded
             # away from the slots' draws
-            p_new = stochastic_round_bf16(p.float() - upd, t + (1 << 30))
+            p_new = stochastic_round_bf16(p.float() - upd, t + (1 << 30), index)
         else:
             p_new = p - upd
         return p_new, m_new, v_new
@@ -243,7 +250,7 @@ def adagrad(learning_rate: float = 0.001, initial_accumulator_value: float = 0.1
             if slot_dtype is None:
                 a_new = (a + g32 * g32).to(a.dtype)
             elif sr:
-                a_new = stochastic_round_bf16(up(a) + g32 * g32, t)
+                a_new = stochastic_round_bf16(up(a) + g32 * g32, t, scalars.sr_index(key, p))
             else:
                 a_new = (up(a) + g32 * g32).to(slot_dtype)
             _assign(p, p - _scale(learning_rate, g) / torch.sqrt(up(a_new)))
@@ -340,7 +347,8 @@ def per_subtree(mapping: dict, default) -> Optimizer:
     """Different optimizers for different top-level subtrees (rectpu
     :368-390): DNNLinearCombined's FTRL on 'linear' and Adagrad on the deep
     tower. The state is keyed by top-level key, each holding its optimizer's
-    state of that subtree."""
+    state of that subtree; each optimizer's scalars (``within``) name the
+    leaves by their full paths."""
 
     def opt_for(key):
         return mapping.get(key, default)
@@ -351,7 +359,7 @@ def per_subtree(mapping: dict, default) -> Optimizer:
     def update(grads, state, params, scalars=None):
         sub_g = _subtrees(grads)
         for k, sub in _subtrees(params).items():
-            opt_for(k).update(sub_g[k], state[k], sub, scalars)
+            opt_for(k).update(sub_g[k], state[k], sub, scalars and scalars.within(k))
 
     names = ",".join(f"{k}:{v.name}" for k, v in mapping.items()) + f",*:{default.name}"
     return Optimizer(f"PerSubtree({names})", init, update)

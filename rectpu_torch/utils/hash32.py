@@ -9,6 +9,8 @@ leaves int64's range and every bit equals rectpu's uint32 arithmetic.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -49,3 +51,30 @@ def flat_index(shape, device, start: int = 0) -> torch.Tensor:
         n *= int(d)
     idx = torch.arange(n, dtype=torch.int64, device=device) + int(start)
     return (idx & MASK32).reshape(tuple(shape))
+
+
+class GlobalIndex(NamedTuple):
+    """Where a local array sits in the global array it is a shard of, viewed
+    as [shape[0], the rest flattened] (a 1-D array as one column): its first
+    row ``row0``, its first column ``col0`` and the global array's
+    ``width`` (its columns). A row shard has col0 0 and the local width."""
+
+    row0: int
+    col0: int
+    width: int
+
+
+def global_index(shape, device, index: GlobalIndex | None = None) -> torch.Tensor:
+    """The flat index of each element of a local array of ``shape`` in its
+    global array (``iota`` over the global array, mod 2**32), as int64;
+    ``index`` None: the local array is the whole array (``flat_index``)."""
+    if index is None:
+        return flat_index(shape, device)
+    shape = tuple(int(d) for d in shape)
+    rows = shape[0] if shape else 1
+    cols = 1
+    for d in shape[1:]:
+        cols *= d
+    r = torch.arange(rows, dtype=torch.int64, device=device) + int(index.row0)
+    c = torch.arange(cols, dtype=torch.int64, device=device) + int(index.col0)
+    return ((r[:, None] * int(index.width) + c[None, :]) & MASK32).reshape(shape)

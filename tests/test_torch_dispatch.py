@@ -2,7 +2,8 @@
 and the rest of rectpu's timing and profiling, on the CPU.
 
   - The mode's resolution against rectpu's ``Trainer._dispatch_mode``
-    ("auto" at batch 2047 and 2048), a bad mode, and the card-with-plan rule.
+    ("auto" at batch 2047 and 2048), a bad mode, and the same rule for a
+    Trainer under a plan, on the CPU and on the card.
   - "scan" (its steps read their batches and scalars from fixed buffers
     through a device counter; on the CPU the step runs eagerly, the function
     a CUDA graph captures on the card) against "pipelined", bit for bit in
@@ -133,13 +134,25 @@ def _scan_and_pipelined(data, tmp_path, make_model, **kw):
 # -- the mode ----------------------------------------------------------------------------
 
 
+def _planned_dispatch(tmp_path, mode: str, batch: int, device: str) -> str:
+    """The dispatch of a Trainer under a (stand-in) plan on ``device``; no
+    step runs, so "cuda" needs no card."""
+    plan = types.SimpleNamespace(mesh=types.SimpleNamespace(device=torch.device(device)),
+                                 lookup_fn=None, batch_index=0, batch_shards=1, tp_mlp=False)
+    model = _deep_fm()
+    trainer = Trainer(model, model.default_optimizer(), None, None, tmp_path / device,
+                      TrainConfig(batch_size=batch, dispatch_mode=mode), plan=plan)
+    assert trainer.device.type == device
+    return trainer.dispatch
+
+
 @pytest.mark.parametrize("mode", ["scan", "pipelined", "auto"])
 @pytest.mark.parametrize("batch", [1, 64, 2047, 2048, 8192])
-def test_mode_resolves_as_rectpus(mode, batch):
+def test_mode_resolves_as_rectpus(mode, batch, tmp_path):
     want = JaxTrainer._dispatch_mode(types.SimpleNamespace(
         config=JaxTrainConfig(batch_size=batch, dispatch_mode=mode)))
     assert resolve_dispatch_mode(mode, batch) == want
-    assert resolve_dispatch_mode(mode, batch, plan=object(), device="cpu") == want
+    assert _planned_dispatch(tmp_path, mode, batch, "cpu") == want
 
 
 def test_auto_switches_at_batch_2048():
@@ -158,13 +171,16 @@ def test_a_bad_mode_raises(tmp_path):
 
 
 @pytest.mark.parametrize("batch", [64, 4096])
-def test_a_plan_on_the_card_pipelines_and_refuses_scan(batch):
-    plan = object()
-    assert resolve_dispatch_mode("auto", batch, plan, "cuda") == "pipelined"
-    assert resolve_dispatch_mode("pipelined", batch, plan, "cuda") == "pipelined"
-    with pytest.raises(ValueError, match="Gloo"):
-        resolve_dispatch_mode("scan", batch, plan, torch.device("cuda", 0))
-    assert resolve_dispatch_mode("scan", batch, None, "cuda") == "scan"
+def test_a_plan_on_the_card_pipelines_and_refuses_scan(batch, tmp_path):
+    """A plan on the card follows rectpu's batch rule, as one on the CPU:
+    "auto" scans below batch 2048 and pipelines from it, "scan" and
+    "pipelined" are taken as asked (the sharded step is captured piecewise,
+    ``StepGraph``)."""
+    for b, auto in ((batch, "scan" if batch < 2048 else "pipelined"), (2047, "scan"),
+                    (2048, "pipelined")):
+        assert _planned_dispatch(tmp_path, "auto", b, "cuda") == auto
+        assert _planned_dispatch(tmp_path, "scan", b, "cuda") == "scan"
+        assert _planned_dispatch(tmp_path, "pipelined", b, "cuda") == "pipelined"
 
 
 # -- scan against pipelined ----------------------------------------------------------------

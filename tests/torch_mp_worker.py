@@ -570,7 +570,117 @@ def dispatch_results(tmp: str) -> dict:
     return res
 
 
+# -- the collectives a step issues (the sequence a piecewise capture replays) ----------
+
+# name: (ep_mode, tp_mlp, the sparse fast step)
+RECORD_CASES = {"1d": ("1d", False, False), "2d": ("2d", False, False),
+                "dedup": ("dedup", False, False), "fast_dedup": ("dedup", False, True),
+                "tp_2d": ("2d", True, False), "tp_1d": ("1d", True, False)}
+
+
+def _trainer_steps(num_data, num_model, mode, tp, fast, record):
+    """STEP_STEPS steps of DeepFM (hash dropout 0.1, Adam 0.01; the packed
+    fast step under ``fast``) through ``Trainer.train_step`` on this mesh;
+    with ``record`` each step under a ``dispatch.CollectiveLog`` -> (each
+    step's collectives, or None, the losses, the gathered params)."""
+    import tempfile
+
+    import torch
+
+    from rectpu_torch.convert import flat_params, load_params
+    from rectpu_torch.train.dispatch import CollectiveLog
+    from rectpu_torch.train.fast_step import make_sparse_step
+    from rectpu_torch.train.loop import TrainConfig, Trainer
+    from rectpu_torch.train.optimizers import adam
+
+    model, params = build_model("deep_fm", {"dropout": 0.1, "dropout_impl": "hash",
+                                            "packed_linear": fast})
+    plan = _plan(num_data, num_model, table_rows=model.cfg.padded_buckets, ep_mode=mode,
+                 tp_mlp=tp)
+    step = make_sparse_step(model, learning_rate=0.01, plan=plan) if fast else None
+    trainer = Trainer(model, adam(0.01), None, None, tempfile.mkdtemp(),
+                      TrainConfig(batch_size=STEP_B, seed=11), plan=plan, fast_step=step)
+    load_params(model, plan.shard_params(params))
+    trainer.opt_state = (step[0] if fast else trainer.optimizer.init)(flat_params(model))
+    n, pos = plan.batch_shards, plan.batch_index
+    calls, losses = [], []
+    for i, b in enumerate(step_inputs()):
+        local = {k: torch.from_numpy(v[pos * (STEP_B // n):(pos + 1) * (STEP_B // n)])
+                 for k, v in b.items()}
+        if record:
+            with CollectiveLog() as log:
+                loss = trainer.train_step(local, i)
+            calls.append(log.calls)
+        else:
+            loss = trainer.train_step(local, i)
+        losses.append(float(plan.global_value(loss)))
+    return (calls if record else None), np.asarray(losses), _global_params(model, plan)
+
+
+def collective_record_results(num_data: int, num_model: int) -> dict:
+    """Each RECORD_CASES step on this mesh recorded (the collectives of each
+    step) and run again without the log (losses and params of both)."""
+    res = {}
+    for name, (mode, tp, fast) in RECORD_CASES.items():
+        calls, losses, params = _trainer_steps(num_data, num_model, mode, tp, fast, True)
+        _, plain_losses, plain_params = _trainer_steps(num_data, num_model, mode, tp, fast,
+                                                       False)
+        res[name] = {"calls": calls, "losses": losses, "params": params,
+                     "plain_losses": plain_losses, "plain_params": plain_params}
+    return res
+
+
+def raw_collective_results() -> dict:
+    """Each ``raw_*`` collective over the world axis of a 1 x world mesh, on
+    rank-dependent inputs of several dtypes and layouts (a transposed view
+    among them), beside the ``torch.distributed`` call it stands for and
+    beside itself under a ``CollectiveLog``; the input after the call."""
+    import torch
+    import torch.distributed as dist
+
+    from rectpu_torch.parallel import collectives as c
+    from rectpu_torch.parallel.mesh import make_mesh
+    from rectpu_torch.train.dispatch import CollectiveLog
+
+    mesh = make_mesh(1, dist.get_world_size())
+    axis, r, world = mesh.model, mesh.rank, mesh.model.size
+    base = torch.arange(4 * world * 6, dtype=torch.float32).reshape(4 * world, 6) * 0.37 + r
+    inputs = {"f32": base, "bf16": base.to(torch.bfloat16), "i32": (base * 3).to(torch.int32),
+              "f32_3d": base.reshape(4 * world, 2, 3), "f32_t": base.reshape(6, 4 * world).t()}
+
+    def direct(op, x):
+        x = x.contiguous()
+        if op == "all_gather":
+            out = x.new_empty((world * x.shape[0], *x.shape[1:]))
+            dist.all_gather_into_tensor(out, x, group=axis.group)
+        elif op == "psum_scatter":
+            out = x.new_empty((x.shape[0] // world, *x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=axis.group)
+        elif op == "all_to_all":
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=axis.group)
+        else:
+            out = x.clone()
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+        return out
+
+    res = {}
+    for op in c.OPS:
+        fn = getattr(c, f"raw_{op}")
+        for tag, x in inputs.items():
+            before = x.clone()
+            got = fn(x, axis)
+            with CollectiveLog() as log:
+                logged = fn(x, axis)
+            res[(op, tag)] = {"got": got.float().numpy(), "want": direct(op, x).float().numpy(),
+                              "logged": logged.float().numpy(), "calls": log.calls,
+                              "dtype": str(got.dtype), "input_kept": bool(torch.equal(x, before))}
+    return res
+
+
 CASES = {
+    "record": collective_record_results,
+    "raw_collectives": raw_collective_results,
     "dispatch": dispatch_results,
     "lookups": lookup_case_results,
     "collectives": collectives_results,
