@@ -33,7 +33,7 @@ def _build_and_run(tmp_path, sanitize: str):
     out = tmp_path / f"loader_test_{sanitize.replace(',', '_')}"
     cmd = ["g++", "-O1", "-g", "-std=c++17", "-pthread", f"-fsanitize={sanitize}",
            "-fno-omit-frame-pointer", *(str(NATIVE / f) for f in FILES), "-o", str(out)]
-    build = subprocess.run(cmd, capture_output=True, text=True)
+    build = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if build.returncode != 0:
         pytest.skip(f"sanitizer build unavailable: {build.stderr[-300:]}")
     csv = tmp_path / "loader_test.csv"

@@ -276,8 +276,10 @@ def test_server_table_quant_over_http(tmp_path):
             data=json.dumps({"instances": rows}).encode())
         preds = json.loads(urllib.request.urlopen(req, timeout=60).read())["predictions"]
     finally:
-        httpd.shutdown()
-        t.join()
+        # shutdown() waits for serve_forever's loop with no limit; the limit is on that loop's thread
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        t.join(timeout=30)
+    assert not t.is_alive()
     want = quant.quantize_serving(load_model(d, device="cpu")).predict(
         {k: v[:5] for k, v in FEATURES.items()})
     np.testing.assert_allclose([p["logits"] for p in preds], want["logits"], rtol=1e-6)

@@ -118,9 +118,11 @@ def test_server_serialized_over_http(tmp_path):
                                      data=json.dumps({"instances": rows}).encode())
         preds = json.loads(urllib.request.urlopen(req, timeout=60).read())["predictions"]
     finally:
-        httpd.shutdown()
-        t.join()
+        # shutdown() waits for serve_forever's loop with no limit; the limit is on that loop's thread
+        threading.Thread(target=httpd.shutdown, daemon=True).start()
+        t.join(timeout=30)
         served.close()
+    assert not t.is_alive()
     want = load_model(d, device="cpu").predict({k: v[:7] for k, v in FEATURES.items()})
     np.testing.assert_allclose([p["logits"] for p in preds], want["logits"], rtol=0, atol=1e-6)
 
@@ -146,18 +148,23 @@ def test_server_cli_flags(flags, tmp_path):
          "--device", "cpu", "--port", "0", "--batch-window-ms", "0",
          "--compilation-cache-dir", "", *flags],
         cwd=repo, env=env, stderr=subprocess.PIPE, text=True)
+    # a server that has not said where it listens in 120 s is killed, which ends the loop
+    stall = threading.Timer(120, proc.kill)
+    stall.start()
     try:
         port = None
         for line in proc.stderr:  # the server logs its address once it listens
             if "listening on http://127.0.0.1:" in line:
                 port = int(line.split("127.0.0.1:")[1].split("/")[0])
                 break
+        stall.cancel()
         assert port, "the server did not start"
         rows = [{k: v[i].item() for k, v in FEATURES.items()} for i in range(4)]
         req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
                                      data=json.dumps({"instances": rows}).encode())
         preds = json.loads(urllib.request.urlopen(req, timeout=60).read())["predictions"]
     finally:
+        stall.cancel()
         proc.terminate()
         proc.wait(timeout=30)
     want = load_model(d, device="cpu")

@@ -18,6 +18,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import pickle
+import time
 import traceback
 from pathlib import Path
 
@@ -35,8 +36,9 @@ def run_ranks(name: str, world: int, tmp_path, timeout: float = 240.0, **kwargs)
              for r in range(world)]
     for p in procs:
         p.start()
+    deadline = time.monotonic() + timeout  # for all the ranks together
     for p in procs:
-        p.join(timeout)
+        p.join(max(0.0, deadline - time.monotonic()))
     alive = [p for p in procs if p.is_alive()]
     for p in alive:
         p.kill()
